@@ -1,0 +1,54 @@
+"""uce_tpu_torch must run where jax, uce_tpu, safetensors, transformers,
+pandas, PIL and regex are absent (the CUDA machine has none of them): every
+module imports and the CLI answers --help with all of them blocked."""
+
+import subprocess
+import sys
+
+BLOCKED = ("jax", "jaxlib", "uce_tpu", "safetensors", "transformers", "pandas",
+           "PIL", "regex")
+
+SCRIPT = f"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = {BLOCKED!r}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+
+import uce_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(uce_tpu_torch.__path__, "uce_tpu_torch.")
+         if m.name != "uce_tpu_torch.__main__"]
+for name in names:
+    importlib.import_module(name)
+from uce_tpu_torch.cli.main import main
+for argv in (["--help"], ["edit-sd", "--help"], ["generate", "--help"]):
+    try:
+        main(argv)
+    except SystemExit as e:
+        assert e.code == 0, (argv, e.code)
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("imported", len(names))
+"""
+
+
+def test_port_imports_without_reference_packages():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split("imported")[-1]) >= 20
+
+
+def test_module_entry_point_help():
+    proc = subprocess.run([sys.executable, "-m", "uce_tpu_torch", "--help"],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "edit-sd" in proc.stdout

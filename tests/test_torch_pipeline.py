@@ -1,0 +1,80 @@
+"""The port's SD pipeline against uce_tpu's on the tiny snapshot, in fp32,
+with a UCE edit overlay: images within 1 uint8 level (the bar of
+tests/test_pipeline_parity.py). And the generate CLI's file contract."""
+
+import csv
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tests.snapshot import make_sd_snapshot
+
+
+@pytest.fixture(scope="module")
+def sd_snap(tmp_path_factory):
+    return make_sd_snapshot(tmp_path_factory.mktemp("torch_pipe_snap"))
+
+
+@pytest.fixture(scope="module")
+def edit_path(sd_snap, tmp_path_factory):
+    out = tmp_path_factory.mktemp("torch_pipe_edit")
+    proc = subprocess.run(
+        [sys.executable, "-m", "uce_tpu_torch", "edit-sd", "--model_id", sd_snap,
+         "--edit_concepts", "cat", "--concept_type", "object",
+         "--erase_scale", "10", "--preserve_concepts", "dog",
+         "--save_dir", str(out), "--exp_name", "cat", "--device", "cpu"],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return str(out / "cat.safetensors")
+
+
+@pytest.mark.parametrize("seed,per_prompt", [(42, 1), ([3, 9], 2)])
+def test_pipeline_matches_uce_tpu(sd_snap, edit_path, seed, per_prompt):
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline import SDPipeline as JaxPipeline
+    from uce_tpu_torch.diffusion.pipeline import SDPipeline
+
+    prompts = ["a cat riding a bicycle"] if isinstance(seed, int) else [
+        "a cat riding a bicycle", "a photo of a dog"]
+    kw = dict(num_inference_steps=6, guidance_scale=7.5, seed=seed,
+              num_images_per_prompt=per_prompt, height=32, width=32)
+    jpipe = JaxPipeline.from_pretrained(sd_snap, dtype=jnp.float32)
+    jpipe.load_uce_edits(edit_path)
+    want = np.asarray(jpipe(prompts, **kw))
+    pipe = SDPipeline.from_pretrained(sd_snap, dtype=torch.float32, device="cpu")
+    pipe.load_uce_edits(edit_path)
+    got = pipe(prompts, **kw)
+    assert got.shape == want.shape == (len(prompts) * per_prompt, 32, 32, 3)
+    assert got.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1, f"max uint8 diff {diff.max()}"
+
+    unedited = SDPipeline.from_pretrained(sd_snap, dtype=torch.float32,
+                                          device="cpu")(prompts, **kw)
+    assert (unedited != got).any()  # the overlay changed the images
+
+
+def test_generate_cli_writes_case_pngs(sd_snap, edit_path, tmp_path):
+    from uce_tpu_torch.utils.imaging import decode_png
+
+    csv_path = tmp_path / "prompts.csv"
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["case_number", "prompt", "evaluation_seed"])
+        w.writerows([[0, "a cat", 1], [3, "a dog, painted", 2], [9, "skip", 3]])
+    proc = subprocess.run(
+        [sys.executable, "-m", "uce_tpu_torch", "generate", "--model_id", sd_snap,
+         "--prompts_path", str(csv_path), "--save_path", str(tmp_path / "out"),
+         "--uce_model_path", edit_path, "--image_size", "32",
+         "--num_inference_steps", "3", "--num_samples", "2", "--till_case", "5",
+         "--device", "cpu"], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    folder = tmp_path / "out" / "cat"
+    assert sorted(p.name for p in folder.iterdir()) == [
+        "0_0.png", "0_1.png", "3_0.png", "3_1.png"]
+    img = decode_png((folder / "3_1.png").read_bytes())
+    assert img.shape == (32, 32, 3) and img.dtype == np.uint8

@@ -1,0 +1,107 @@
+"""Text-to-image pipeline for SD v1.x: tokenize -> CLIP encode -> CFG +
+PNDM loop over the UNet -> VAE decode -> uint8 images."""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from uce_tpu_torch.diffusion import sampler, schedulers
+from uce_tpu_torch.edit import embeddings as emb
+from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
+from uce_tpu_torch.models import clip_text, unet as unet_mod, vae as vae_mod
+from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
+from uce_tpu_torch.utils import torch_rng
+
+
+@dataclasses.dataclass
+class SDPipeline:
+    unet_params: dict
+    unet_config: unet_mod.UNetConfig
+    text_params: dict
+    text_config: clip_text.CLIPTextConfig
+    tokenizer: object
+    vae_params: dict
+    vae_config: vae_mod.VAEConfig
+    scheduler_config: dict
+    dtype: torch.dtype = torch.float32
+    device: torch.device = torch.device("cpu")
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,
+                        device="cuda") -> "SDPipeline":
+        device = torch.device(device)
+        ucfg = unet_mod.UNetConfig.from_hf(
+            load_json(os.path.join(model_dir, "unet", "config.json")))
+        vcfg = vae_mod.VAEConfig.from_hf(
+            load_json(os.path.join(model_dir, "vae", "config.json")))
+        unet_params = unet_mod.load_params(load_state_dict(model_dir, "unet"),
+                                           dtype, device)
+        vae_params = unet_mod.load_params(load_state_dict(model_dir, "vae"),
+                                          dtype, device)
+        tparams, tcfg = load_text_encoder(model_dir, device=device)
+        sched_path = os.path.join(model_dir, "scheduler", "scheduler_config.json")
+        scfg = (load_json(sched_path) if os.path.exists(sched_path)
+                else {"_class_name": "PNDMScheduler"})
+        return cls(unet_params=unet_params, unet_config=ucfg, text_params=tparams,
+                   text_config=tcfg, tokenizer=load_tokenizer(model_dir),
+                   vae_params=vae_params, vae_config=vcfg, scheduler_config=scfg,
+                   dtype=dtype, device=device)
+
+    def load_uce_edits(self, safetensors_path: str) -> None:
+        """Overlay UCE-edited weights (load_state_dict(strict=False))."""
+        self.unet_params = unet_mod.overlay_edits(
+            self.unet_params, read_safetensors(safetensors_path))
+
+    def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
+        ids, _ = emb.tokenize_batch(self.tokenizer, list(prompts),
+                                    self.text_config.max_position_embeddings)
+        last_hidden, _, _ = clip_text.encode_tokens(
+            self.text_params, torch.as_tensor(ids, device=self.device),
+            self.text_config)
+        return last_hidden.to(self.dtype)
+
+    @torch.inference_mode()
+    def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
+                 guidance_scale: float = 7.5, num_images_per_prompt: int = 1,
+                 seed: int | Sequence[int] = 0, height: int = 512, width: int = 512,
+                 scheduler: str | None = None) -> np.ndarray:
+        """Returns uint8 images [N, H, W, 3], classifier-free guidance
+        against the empty prompt."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        n_prompts = len(prompts)
+        prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
+        bsz = len(prompts)
+        if not isinstance(seed, (int, np.integer)) and len(seed) != n_prompts:
+            raise ValueError("len(seed) must match len(prompt)")
+        context = torch.cat([self.encode_prompts([""] * bsz),
+                             self.encode_prompts(prompts)])
+
+        vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
+        if height % vae_scale or width % vae_scale:
+            raise ValueError(f"height/width must be multiples of {vae_scale} "
+                             f"(got {height}x{width})")
+        latents = torch_rng.draw_prompt_latents(
+            (height // vae_scale, width // vae_scale, self.unet_config.in_channels),
+            seed, n_prompts, num_images_per_prompt).to(self.device, self.dtype)
+        plan = (schedulers.plan_from_hf_as(scheduler, self.scheduler_config,
+                                           num_inference_steps)
+                if scheduler else
+                schedulers.plan_from_hf(self.scheduler_config, num_inference_steps))
+
+        def model_fn(lat_in, t):
+            return unet_mod.apply(self.unet_params, lat_in, t, context,
+                                  self.unet_config)
+
+        final = sampler.denoise(
+            model_fn, plan, latents,
+            guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
+        scaled = (final.float() / self.vae_config.scaling_factor).to(latents.dtype)
+        imgs = vae_mod.decode(self.vae_params, scaled, self.vae_config)
+        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
+        imgs = torch.round(imgs * 255.0).to(torch.uint8)
+        return imgs.permute(0, 2, 3, 1).cpu().numpy()

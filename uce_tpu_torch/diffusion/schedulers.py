@@ -1,0 +1,210 @@
+"""Diffusion schedulers as host-built plans plus a per-call step function.
+
+A plan holds static numpy tables (per-call timesteps, alphas, multistep
+coefficients) built once; the sampler walks it with a Python loop and
+carries the multistep state itself. Only PNDM (PLMS, ``skip_prk_steps``),
+SD v1.x's scheduler, is ported; the others raise NotImplementedError.
+Defaults are diffusers' (scaled_linear betas 0.00085..0.012, leading
+timestep spacing, steps_offset=1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+_NOT_PORTED = ("DDIMScheduler", "LMSDiscreteScheduler", "EulerDiscreteScheduler",
+               "FlowMatchEulerDiscreteScheduler")
+
+SCHEDULER_CLASS_FOR_NAME = {
+    "ddim": "DDIMScheduler",
+    "pndm": "PNDMScheduler",
+    "plms": "PNDMScheduler",
+    "lms": "LMSDiscreteScheduler",
+    "euler": "EulerDiscreteScheduler",
+    "flow_euler": "FlowMatchEulerDiscreteScheduler",
+}
+
+
+def make_betas(num_train_timesteps=1000, beta_start=0.00085, beta_end=0.012,
+               beta_schedule="scaled_linear") -> np.ndarray:
+    if beta_schedule == "scaled_linear":
+        return np.linspace(beta_start ** 0.5, beta_end ** 0.5,
+                           num_train_timesteps, dtype=np.float64) ** 2
+    if beta_schedule == "linear":
+        return np.linspace(beta_start, beta_end, num_train_timesteps,
+                           dtype=np.float64)
+    raise ValueError(f"unsupported beta_schedule: {beta_schedule}")
+
+
+def _leading_timesteps(num_train, num_steps, steps_offset=1) -> np.ndarray:
+    """diffusers 'leading' spacing: (arange(S) * (N//S)).round()[::-1] + offset."""
+    ratio = num_train // num_steps
+    return (np.arange(num_steps) * ratio).round()[::-1].astype(np.int64) + steps_offset
+
+
+@dataclasses.dataclass
+class Plan:
+    """Static tables for one (scheduler, num_steps) pair.
+
+    num_calls: number of model evaluations (== len(timesteps)).
+    timesteps: [num_calls] float32 values fed to the UNet.
+    init_noise_sigma: multiply the initial gaussian latents by this.
+    history_slots: multistep state slots (3 eps + 1 held sample for PNDM).
+    """
+
+    num_calls: int
+    timesteps: np.ndarray
+    init_noise_sigma: float
+    tables: dict
+    history_slots: int = 0
+    prediction_type: str = "epsilon"
+
+    def init_carry(self, sample: torch.Tensor) -> list:
+        return [torch.zeros_like(sample, dtype=torch.float32)
+                for _ in range(self.history_slots)]
+
+    def step(self, eps, i: int, sample, carry):
+        return _pndm_step(self, eps, i, sample, carry)
+
+
+def _to_eps_alpha(plan: Plan, model_output, i: int, sample):
+    """v_prediction -> epsilon at the call's alpha: sqrt(a) v + sqrt(1-a) x."""
+    if plan.prediction_type != "v_prediction":
+        return model_output
+    a_t = plan.tables["alpha_t"][i]
+    return float(np.sqrt(a_t)) * model_output + float(np.sqrt(1 - a_t)) * sample
+
+
+def pndm_plan(num_steps: int, num_train_timesteps=1000, beta_start=0.00085,
+              beta_end=0.012, beta_schedule="scaled_linear",
+              steps_offset=1, set_alpha_to_one=False,
+              prediction_type="epsilon") -> Plan:
+    betas = make_betas(num_train_timesteps, beta_start, beta_end, beta_schedule)
+    acp = np.cumprod(1.0 - betas)
+    ratio = num_train_timesteps // num_steps
+    base = (np.arange(num_steps) * ratio).round().astype(np.int64) + steps_offset
+    # PLMS call sequence: descending with the second timestep repeated
+    # (Heun-style warmup corrector on the first interval).
+    seq = np.concatenate([base[:-1], base[-2:-1], base[-1:]])[::-1].copy()
+    n_calls = len(seq)  # num_steps + 1
+
+    # Per-call effective (t, t_prev): call 1 re-steps the first interval.
+    t_eff = seq.copy()
+    t_prev = seq - ratio
+    if n_calls >= 2:
+        t_eff[1] = seq[1] + ratio
+        t_prev[1] = seq[1]
+
+    final_alpha = 1.0 if set_alpha_to_one else acp[0]
+    alpha_t = acp[np.clip(t_eff, 0, num_train_timesteps - 1)]
+    alpha_prev = np.where(
+        t_prev >= 0, acp[np.clip(t_prev, 0, num_train_timesteps - 1)], final_alpha)
+
+    # Adams-Bashforth coefficients over [eps_new, h1, h2, h3]
+    coeffs = np.zeros((n_calls, 4))
+    for i in range(n_calls):
+        coeffs[i] = ([1, 0, 0, 0], [0.5, 0.5, 0, 0], [1.5, -0.5, 0, 0],
+                     [23 / 12, -16 / 12, 5 / 12, 0],
+                     [55 / 24, -59 / 24, 37 / 24, -9 / 24])[min(i, 4)]
+    append = np.ones(n_calls, bool)
+    use_held = np.zeros(n_calls, bool)
+    if n_calls >= 2:
+        append[1] = False   # the corrector call does not extend the history
+        use_held[1] = True  # it restarts from the held sample
+    return Plan(
+        num_calls=n_calls,
+        timesteps=seq.astype(np.float32),
+        init_noise_sigma=1.0,
+        tables={
+            "alpha_t": alpha_t.astype(np.float32),
+            "alpha_prev": alpha_prev.astype(np.float32),
+            "coeffs": coeffs.astype(np.float32),
+            "append": append,
+            "use_held": use_held,
+        },
+        history_slots=4,
+        prediction_type=prediction_type,
+    )
+
+
+def _pndm_step(plan: Plan, eps, i: int, sample, carry):
+    """One PLMS call. carry = [h1, h2, h3, held]; the history stores raw
+    model outputs and the v->eps conversion applies once to their
+    combination (diffusers step_plms)."""
+    t = plan.tables
+    h1, h2, h3, held = carry
+    if t["use_held"][i]:
+        sample = held
+    c0, c1, c2, c3 = (float(c) for c in t["coeffs"][i])
+    out_eff = c0 * eps + c1 * h1 + c2 * h2 + c3 * h3
+    eps_eff = _to_eps_alpha(plan, out_eff, i, sample)
+
+    a_t, a_prev = t["alpha_t"][i], t["alpha_prev"][i]
+    b_t, b_prev = np.float32(1) - a_t, np.float32(1) - a_prev
+    sample_coeff = float(np.sqrt(a_prev / a_t))
+    denom = float(a_t * np.sqrt(b_prev) + np.sqrt(a_t * b_t * a_prev))
+    prev = sample_coeff * sample - float(a_prev - a_t) * eps_eff / denom
+
+    if t["append"][i]:
+        h1, h2, h3 = eps, h1, h2
+    if i == 0:
+        held = sample
+    return prev, [h1, h2, h3, held]
+
+
+def _not_ported(cls: str):
+    return NotImplementedError(
+        f"{cls} is not ported to uce_tpu_torch yet (PNDMScheduler only); "
+        "use the uce_tpu package for it")
+
+
+def _reject_unsupported_hf_options(cfg: Mapping, cls: str) -> None:
+    """Fail loudly on diffusers options that change the step math but are
+    not implemented (SD-family configs pass untouched)."""
+    pred = cfg.get("prediction_type", "epsilon")
+    if pred not in ("epsilon", "v_prediction"):
+        raise ValueError(
+            f"prediction_type {pred!r} is not implemented (epsilon / "
+            "v_prediction only); stepping it as epsilon would produce noise")
+    if cfg.get("trained_betas") is not None:
+        raise ValueError("trained_betas tables are not supported; plans "
+                         "derive betas from beta_schedule")
+    if cfg.get("thresholding", False):
+        raise ValueError("dynamic thresholding is not implemented")
+    if cfg.get("use_karras_sigmas", False):
+        raise ValueError("use_karras_sigmas is not implemented "
+                         "(linear-interpolated sigma tables only)")
+    if cls == "PNDMScheduler" and not cfg.get("skip_prk_steps", True):
+        raise ValueError(
+            "PNDM with Runge-Kutta warmup (skip_prk_steps=false) is not "
+            "implemented — only the PLMS path SD uses")
+
+
+def plan_from_hf(cfg: Mapping, num_steps: int) -> Plan:
+    """Build a plan from a diffusers scheduler_config.json dict."""
+    cls = cfg.get("_class_name", "PNDMScheduler")
+    if cls in _NOT_PORTED:
+        raise _not_ported(cls)
+    if cls != "PNDMScheduler":
+        raise ValueError(f"unsupported scheduler class: {cls}")
+    _reject_unsupported_hf_options(cfg, cls)
+    return pndm_plan(
+        num_steps,
+        num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+        beta_start=cfg.get("beta_start", 0.00085),
+        beta_end=cfg.get("beta_end", 0.012),
+        beta_schedule=cfg.get("beta_schedule", "scaled_linear"),
+        steps_offset=cfg.get("steps_offset", 1),
+        set_alpha_to_one=cfg.get("set_alpha_to_one", False),
+        prediction_type=cfg.get("prediction_type", "epsilon"))
+
+
+def plan_from_hf_as(name: str, cfg: Mapping, num_steps: int) -> Plan:
+    """A plan of the requested scheduler type with the model's scheduler
+    hyperparameters (prediction_type, betas, ...)."""
+    cls = SCHEDULER_CLASS_FOR_NAME.get(name, name)
+    return plan_from_hf(dict(cfg, _class_name=cls), num_steps)

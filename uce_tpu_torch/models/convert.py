@@ -1,0 +1,61 @@
+"""Weight carry-over from uce_tpu's parameter trees to the port's layouts.
+
+uce_tpu keeps nested dicts of arrays with conv kernels HWIO and linear
+weights [in, out] (CLIP text layer-stacked as [L, ...]); the port keeps
+diffusers/HF layouts (conv OIHW, linear [out, in]). Inputs are anything
+``numpy.asarray`` accepts (numpy or jax arrays).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from uce_tpu_torch.models.clip_text import _LAYER_KEYS, CLIPTextConfig
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _to_port_layout(key: str, v: np.ndarray) -> np.ndarray:
+    if key.endswith("weight") and v.ndim == 4:
+        return np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
+    if key.endswith("weight") and v.ndim == 2:
+        return np.swapaxes(v, 0, 1)            # [in, out] -> [out, in]
+    return v
+
+
+def nested_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """uce_tpu nested UNet or VAE params -> flat diffusers state dict."""
+    return {k: torch.tensor(_to_port_layout(k, np.asarray(v, np.float32)))
+            for k, v in _flatten(params).items()}
+
+
+def clip_text_params(params: Mapping, config: CLIPTextConfig) -> dict:
+    """uce_tpu layer-stacked CLIP text params -> the port's params."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    layers = params["layers"]
+    out = {
+        "token_embedding": t(params["token_embedding"]),
+        "position_embedding": t(params["position_embedding"]),
+        "final_ln_scale": t(params["final_ln_scale"]),
+        "final_ln_bias": t(params["final_ln_bias"]),
+        "layers": [],
+    }
+    for i in range(config.num_hidden_layers):
+        layer = {}
+        for name in _LAYER_KEYS:
+            v = np.asarray(layers[name][i], np.float32)
+            layer[name] = t(v.T if name.endswith("_w") else v)
+        out["layers"].append(layer)
+    return out

@@ -1,0 +1,100 @@
+"""HF snapshot reading and safetensors I/O without the safetensors package.
+
+A safetensors file is an 8-byte little-endian header length N, N bytes of
+JSON (``{name: {"dtype", "shape", "data_offsets": [begin, end]}}``, plus an
+optional ``__metadata__``), then the raw little-endian tensor bytes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+from typing import Callable, Iterable, Mapping
+
+import numpy as np
+import torch
+
+_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def load_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def iter_safetensors(model_dir: str, subfolder: str | None = None) -> Iterable[str]:
+    """All .safetensors shard paths under a snapshot (sub)directory."""
+    root = os.path.join(model_dir, subfolder) if subfolder else model_dir
+    if not os.path.isdir(root):
+        raise FileNotFoundError(f"model directory not found: {root}")
+    names = sorted(n for n in os.listdir(root) if n.endswith(".safetensors"))
+    if not names:
+        raise FileNotFoundError(f"no .safetensors files in {root}")
+    return [os.path.join(root, n) for n in names]
+
+
+def read_safetensors(path: str, keys: Callable[[str], bool] | None = None
+                     ) -> dict[str, torch.Tensor]:
+    """Read the tensors of one file (optionally filtered by name) on the CPU."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n) \
+        if os.path.getsize(path) > 8 + n else np.zeros(0, np.uint8)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__" or (keys is not None and not keys(name)):
+            continue
+        dtype = _DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: unsupported dtype {info['dtype']}")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        if end == begin:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        buf = bytearray(data[begin:end])
+        out[name] = torch.frombuffer(buf, dtype=dtype).reshape(shape)
+    return out
+
+
+def load_state_dict(
+    model_dir: str,
+    subfolder: str | None = None,
+    *,
+    keys: Callable[[str], bool] | None = None,
+    dtype: torch.dtype | None = None,
+) -> dict[str, torch.Tensor]:
+    """All tensors of a snapshot (sub)directory, optionally filtered/cast."""
+    out: dict[str, torch.Tensor] = {}
+    for path in iter_safetensors(model_dir, subfolder):
+        for k, t in read_safetensors(path, keys).items():
+            out[k] = t.to(dtype) if dtype is not None else t
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, object], path: str) -> None:
+    """Write a flat name -> tensor (or numpy array) dict as safetensors."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        t = (torch.from_numpy(np.ascontiguousarray(t)) if isinstance(t, np.ndarray)
+             else t.detach().to("cpu").contiguous())
+        if t.dtype not in _NAMES:
+            raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+        blob = raw.tobytes()
+        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
