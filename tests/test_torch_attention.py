@@ -83,7 +83,7 @@ def test_plain_mask_matches_xla_attention():
     ((16, 8, 1024, 80), (16, 8, 1024, 80), True),    # 32x32 self-attention
     ((16, 8, 4096, 40), (16, 8, 77, 40), False),     # cross-attention
     ((16, 8, 256, 160), (16, 8, 256, 160), False),   # 16x16 self-attention
-    ((1, 1, 4096, 512), (1, 1, 4096, 512), False),   # VAE mid-block
+    ((1, 1, 4096, 512), (1, 1, 4096, 512), True),    # VAE mid-block (D split)
 ])
 def test_auto_routing_rule(q_shape, k_shape, want):
     route = port_attn.routes_to_kernel
@@ -94,3 +94,24 @@ def test_auto_routing_rule(q_shape, k_shape, want):
     assert not route(q_shape, k_shape, torch.bfloat16, "cuda", masked=True)
     assert not route(q_shape, k_shape, torch.bfloat16, "cuda", causal=True)
 
+
+
+def test_vae_head_dim_matches_xla_attention():
+    """D = 512, one head (the VAE mid-block shape at a short sequence): the
+    kernel wrapper's plain version against uce_tpu's ``_xla_attention``,
+    which serves that call on the CPU; the bf16 tolerance of the cases
+    above."""
+    rng = np.random.default_rng(5)
+    qj, qt = _bf16_pair(rng.standard_normal((2, 1, 96, 512)))
+    kj, kt = _bf16_pair(rng.standard_normal((2, 1, 96, 512)))
+    vj, vt = _bf16_pair(rng.standard_normal((2, 1, 96, 512)))
+    scale = 512 ** -0.5
+    want = np.asarray(_xla_attention(qj, kj, vj, None, False, scale), np.float32)
+    got = port_sdk.sd_attention(qt, kt, vt, scale)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.02, rtol=0.05)
+
+
+@pytest.mark.parametrize("d,want", [(512, True), (256, False), (48, False)])
+def test_supported_head_dims(d, want):
+    shape = (1, 1, 4096, d)
+    assert port_sdk.supported_shape(shape, shape, torch.bfloat16) is want

@@ -113,3 +113,96 @@ def test_vae_decode_matches_uce_tpu():
     want = np.asarray(jvae.decode(jparams, jnp.asarray(lat), jcfg))
     got = tvae.decode(tunet.load_params(flat), _nchw(lat), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=2e-4, atol=2e-4)
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """Both kernel variables set; count calls of the kernels' plain versions
+    (what a CPU tensor takes on the kernel path), and record the shape of
+    every activation whose NHWC view for a kernel was a copy rather than a
+    view of the model's own (channels_last) memory."""
+    from uce_tpu_torch.models import layers
+    from uce_tpu_torch.ops.kernels import conv3x3 as ck, group_norm as gk
+
+    monkeypatch.setenv("UCE_CONV_IMPL", "pallas")
+    monkeypatch.setenv("UCE_GN_IMPL", "pallas")
+    calls = {"conv3x3": 0, "group_norm_act": 0}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(ck, "conv3x3_reference", spy("conv3x3", ck.conv3x3_reference))
+    monkeypatch.setattr(gk, "group_norm_act_reference",
+                        spy("group_norm_act", gk.group_norm_act_reference))
+    copies = []
+    nhwc = layers._nhwc
+
+    def nhwc_spy(x):
+        y = nhwc(x)
+        if y.data_ptr() != x.data_ptr():
+            copies.append(tuple(x.shape))
+        return y
+
+    monkeypatch.setattr(layers, "_nhwc", nhwc_spy)
+    return calls, copies
+
+
+# bf16 forwards: both sides round every activation to bf16, at different
+# places (the port adds the conv bias in fp32, uce_tpu's XLA path in bf16),
+# which at these widths and depths compounds to about 1.8e-2 relative.
+BF16_REL_L2 = 3e-2
+
+
+def test_unet_kernel_path_bf16_matches_uce_tpu(kernel_path):
+    """SD 1.4's topology at 1/40 width in bf16 with UCE_CONV_IMPL and
+    UCE_GN_IMPL set: every 3x3 stride-1 conv and every group_norm_act takes
+    the kernels' wrappers (49 and 61 per forward, SD 1.4's counts), each on
+    a free NHWC view of the activation."""
+    cfg_kw = dict(block_out_channels=(8, 16, 32, 32), layers_per_block=2,
+                  cross_attention_dim=24, attention_head_dim=2, norm_num_groups=4)
+    jcfg, tcfg = junet.UNetConfig(**cfg_kw), tunet.UNetConfig(**cfg_kw)
+    flat = tunet.init_state_dict(tcfg, np.random.default_rng(11), scale=0.1)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
+    ctx = rng.standard_normal((2, 7, 24)).astype(np.float32)
+    jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in flat.items()}
+    want = np.asarray(junet.apply(junet.nest_state_dict(jp),
+                                  jnp.asarray(x, jnp.bfloat16), jnp.asarray([500.0]),
+                                  jnp.asarray(ctx, jnp.bfloat16), jcfg), np.float32)
+    got = tunet.apply(tunet.load_params(flat, dtype=torch.bfloat16),
+                      _nchw(x).bfloat16(), 500.0,
+                      torch.from_numpy(ctx).bfloat16(), tcfg)
+    calls, copies = kernel_path
+    assert calls == {"conv3x3": 49, "group_norm_act": 61}
+    assert copies == []
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert _rel_l2(_nhwc(got.float()), want) < BF16_REL_L2
+
+
+def test_vae_kernel_path_bf16_matches_uce_tpu(kernel_path):
+    """The SD VAE decoder's topology at 1/16 width in bf16 with both kernel
+    variables set (33 conv3x3 and 28 group_norm_act calls, SD's counts, each
+    on a free NHWC view)."""
+    cfg_kw = dict(block_out_channels=(8, 16, 32, 32), layers_per_block=2,
+                  norm_num_groups=4)
+    jcfg, tcfg = jvae.VAEConfig(**cfg_kw), tvae.VAEConfig(**cfg_kw)
+    flat = tvae.init_state_dict(tcfg, np.random.default_rng(2), scale=0.1)
+    lat = np.random.default_rng(4).standard_normal((1, 8, 8, 4)).astype(np.float32)
+    jp = junet.nest_state_dict({k: jnp.asarray(v, jnp.bfloat16)
+                                for k, v in flat.items()})
+    want = np.asarray(jvae.decode(jp, jnp.asarray(lat, jnp.bfloat16), jcfg),
+                      np.float32)
+    got = tvae.decode(tunet.load_params(flat, dtype=torch.bfloat16),
+                      _nchw(lat).bfloat16(), tcfg)
+    calls, copies = kernel_path
+    assert calls == {"conv3x3": 33, "group_norm_act": 28}
+    assert copies == []
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert _rel_l2(_nhwc(got.float()), want) < BF16_REL_L2

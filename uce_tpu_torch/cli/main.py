@@ -47,6 +47,15 @@ def _add_edit_flags(p: argparse.ArgumentParser, default_model: str) -> None:
     p.add_argument("--expand_prompts", choices=["true", "false"], default="false")
     p.add_argument("--save_dir", type=str, default="../uce_models")
     p.add_argument("--exp_name", type=str, default="uce_test")
+    p.add_argument("--method", choices=["collapsed", "general", "pallas"],
+                   default="collapsed",
+                   help="collapsed: single edit-matrix via Cholesky; "
+                        "general: per-layer batched solve; pallas: fused "
+                        "Newton-Schulz kernel + fp32 refinement")
+    p.add_argument("--apply_on", choices=["device", "host"],
+                   default="device",
+                   help="where the stacked W@E multiply runs; 'host' avoids "
+                        "weight round-trips on slow host<->device links")
 
 
 def cmd_edit_sd(args) -> int:
@@ -62,7 +71,8 @@ def cmd_edit_sd(args) -> int:
     res = edit_sd.load_resources(args.model_id, device=device)
     edit_sd.run_erase(res, edits, guides, preserves,
                       erase_scale=args.erase_scale, preserve_scale=args.preserve_scale,
-                      lamb=args.lamb, save_dir=args.save_dir, exp_name=args.exp_name)
+                      lamb=args.lamb, save_dir=args.save_dir, exp_name=args.exp_name,
+                      method=args.method, apply_on=args.apply_on)
     return 0
 
 

@@ -4,7 +4,10 @@
      safetensors state dict,
   2. encode every unique concept in one batched CLIP forward,
   3. collapse the multi-layer Eq.-7 solve into one d x d edit matrix and
-     apply it to all layers with one stacked matmul,
+     apply it to all layers with one stacked matmul (``method="collapsed"``
+     by Cholesky, ``"pallas"`` by the Newton-Schulz kernel of
+     ``ops/kernels/uce_solve.py``), or solve per layer with batched
+     right-hand sides (``"general"``); the results agree to fp32 round-off,
   4. export safetensors with '<module>.weight' keys, loadable by diffusers
      with load_state_dict(strict=False).
 """
@@ -22,7 +25,16 @@ from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.models import clip_text, sd_targets
 from uce_tpu_torch.models.clip_tokenizer import CLIPTokenizer
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, save_safetensors
-from uce_tpu_torch.ops.solver import apply_edit_matrix, uce_edit_matrix
+from uce_tpu_torch.ops.kernels.uce_solve import uce_edit_matrix_pallas
+from uce_tpu_torch.ops.solver import (
+    apply_edit_matrix,
+    full_fp32,
+    uce_edit_matrix,
+    uce_solve_stacked,
+)
+
+METHODS = ("collapsed", "general", "pallas")
+APPLY_ON = ("device", "host")
 
 
 @dataclasses.dataclass
@@ -74,28 +86,60 @@ def erase_from_embeddings(
     preserve_scale: float = 1.0,
     lamb: float = 0.5,
     device="cpu",
+    method: str = "collapsed",
+    apply_on: str = "device",
 ) -> dict[str, torch.Tensor]:
     """Solve the edit from precomputed concept embeddings; returns the
     edited weights as fp32 CPU tensors in the targets' key order.
 
     Guide outputs are the original module outputs of the guide concepts
-    (W_old @ c_guide), which makes the collapsed edit matrix exact."""
+    (W_old @ c_guide), which makes the collapsed edit matrix exact.
+    ``apply_on`` says where the collapsed W @ E multiply runs: on ``device``
+    or, for ``host``, on the CPU after E alone comes back."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method: {method!r} (one of {METHODS})")
+    if apply_on not in APPLY_ON:
+        raise ValueError(f"unknown apply_on: {apply_on!r} (one of {APPLY_ON})")
     c_edit = emb.stack_embeds(concept_embeds, edit_concepts, device)
     c_guide = emb.stack_embeds(concept_embeds, guide_concepts, device)
     c_pres = emb.stack_embeds(concept_embeds, preserve_concepts, device)
     if c_pres.shape[0] == 0:
         c_pres = torch.zeros((0, c_edit.shape[1]), device=device)
-    e_mat = uce_edit_matrix(c_edit, c_guide, c_pres, erase_scale,
-                            preserve_scale, lamb)
+
+    if method == "general":
+        out = {}
+        for group in _group_by_shape(targets).values():
+            names = list(group)
+            w_stack = torch.stack([group[n].float().to(device) for n in names])
+            with full_fp32():
+                v_guide = torch.einsum("kd,lod->lko", c_guide, w_stack)
+            new = uce_solve_stacked(w_stack, c_edit, v_guide, c_pres,
+                                    erase_scale=erase_scale,
+                                    preserve_scale=preserve_scale, lamb=lamb)
+            out.update(zip(names, new.cpu()))
+        return {n: out[n] for n in targets}
+
+    solve = uce_edit_matrix_pallas if method == "pallas" else uce_edit_matrix
+    e_mat = solve(c_edit, c_guide, c_pres, erase_scale, preserve_scale, lamb)
     names = list(targets)
-    w_cat = torch.cat([targets[n].float().to(device) for n in names])
-    new_cat = apply_edit_matrix(w_cat, e_mat).cpu()
+    w_cat = torch.cat([targets[n].float() for n in names])
+    if apply_on == "host":
+        new_cat = apply_edit_matrix(w_cat.cpu(), e_mat.cpu())
+    else:
+        new_cat = apply_edit_matrix(w_cat.to(device), e_mat).cpu()
     out, off = {}, 0
     for n in names:
         rows = targets[n].shape[0]
         out[n] = new_cat[off:off + rows]
         off += rows
     return out
+
+
+def _group_by_shape(targets: Mapping[str, torch.Tensor]):
+    groups: dict[tuple, dict] = {}
+    for k, v in targets.items():
+        groups.setdefault(tuple(v.shape), {})[k] = v
+    return groups
 
 
 def run_erase(
@@ -108,6 +152,8 @@ def run_erase(
     lamb: float = 0.5,
     save_dir: str | None = None,
     exp_name: str = "uce_test",
+    method: str = "collapsed",
+    apply_on: str = "device",
 ) -> dict[str, torch.Tensor]:
     """Full erase: encode -> solve -> (optionally) export safetensors."""
     start = time.time()
@@ -115,7 +161,8 @@ def run_erase(
     concept_embeds = resources.encode_concepts(concepts)
     edited = erase_from_embeddings(
         resources.targets, concept_embeds, edit_concepts, guide_concepts,
-        preserve_concepts, erase_scale, preserve_scale, lamb, resources.device)
+        preserve_concepts, erase_scale, preserve_scale, lamb, resources.device,
+        method, apply_on)
     if save_dir is not None:
         save_safetensors(edited, os.path.join(save_dir, exp_name + ".safetensors"))
     elapsed = time.time() - start

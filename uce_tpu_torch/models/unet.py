@@ -4,7 +4,10 @@ Params are the diffusers checkpoint's own tensors (conv OIHW, linear
 [out, in]) keyed by their module paths, so HF checkpoints and UCE
 safetensors overlays map 1:1. Self-attention at the long sequence lengths
 (64x64 and 32x32 latents at 512px) runs the sd_attention kernel through
-``ops.attention.dot_product_attention(impl="auto")``.
+``ops.attention.dot_product_attention(impl="auto")``. With ``UCE_CONV_IMPL``
+or ``UCE_GN_IMPL`` set to ``pallas`` (``models/layers.py``) the forward holds
+its activations in ``torch.channels_last``, the layout of the conv3x3 and
+group_norm_act kernels, and returns a contiguous NCHW tensor.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from uce_tpu_torch.models.layers import (
     conv2d,
     group_norm_act,
+    kernel_path,
     layer_norm,
     linear,
     silu,
@@ -197,6 +201,9 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
     emb = linear(t_emb, *_w(p, "time_embedding.linear_1"))
     emb = linear(silu(emb), *_w(p, "time_embedding.linear_2"))
     ehs = encoder_hidden_states
+    kernels = kernel_path()
+    if kernels:
+        sample = sample.contiguous(memory_format=torch.channels_last)
 
     x = conv2d(sample, *_w(p, "conv_in"))
     res_stack = [x]
@@ -235,7 +242,8 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
             x = conv2d(x, *_w(p, f"up_blocks.{bi}.upsamplers.0.conv"))
 
     x = group_norm_act(x, *_w(p, "conv_norm_out"), groups, act="silu")
-    return conv2d(x, *_w(p, "conv_out"))
+    x = conv2d(x, *_w(p, "conv_out"))
+    return x.contiguous() if kernels else x
 
 
 # ---------------------------------------------------------------------------

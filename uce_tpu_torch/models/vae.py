@@ -1,5 +1,7 @@
 """AutoencoderKL (SD VAE) decoder, NCHW, over a flat diffusers state dict
-(latents -> pixels; the caller divides by ``scaling_factor`` first)."""
+(latents -> pixels; the caller divides by ``scaling_factor`` first). With
+``UCE_CONV_IMPL`` or ``UCE_GN_IMPL`` set to ``pallas`` the decoder holds its
+activations in ``torch.channels_last``, as the UNet does."""
 
 from __future__ import annotations
 
@@ -10,7 +12,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uce_tpu_torch.models.layers import conv2d, group_norm, group_norm_act, linear, silu
+from uce_tpu_torch.models.layers import (
+    conv2d,
+    group_norm,
+    group_norm_act,
+    kernel_path,
+    linear,
+    silu,
+)
 from uce_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -63,7 +72,8 @@ def _resnet(p, pre, x, groups):
 
 def _attn(p, pre, x, groups):
     """Single-head VAE self-attention (q/k/v linears with bias). At 512px it
-    is s=4096, d=512, which the sd_attention kernel does not take."""
+    is s=4096, d=512: on the card it runs the sd_attention kernel's D-split
+    variant (uce_tpu runs JAX's TPU flash kernel there)."""
     b, c, h, w = x.shape
     y = group_norm(x, *_w(p, pre + ".group_norm"), groups, eps=1e-6)
     y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
@@ -80,6 +90,9 @@ def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
     [B, 3, H, W] in [-1, 1]."""
     cfg, p = config, params
     g = cfg.norm_num_groups
+    kernels = kernel_path()
+    if kernels:
+        latents = latents.contiguous(memory_format=torch.channels_last)
     x = conv2d(latents, *_w(p, "post_quant_conv"), padding=0)
     x = conv2d(x, *_w(p, "decoder.conv_in"))
     x = _resnet(p, "decoder.mid_block.resnets.0", x, g)
@@ -93,7 +106,8 @@ def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             x = conv2d(x, *_w(p, up))
     x = group_norm(x, *_w(p, "decoder.conv_norm_out"), g, eps=1e-6)
-    return conv2d(silu(x), *_w(p, "decoder.conv_out"))
+    x = conv2d(silu(x), *_w(p, "decoder.conv_out"))
+    return x.contiguous() if kernels else x
 
 
 def init_state_dict(config: VAEConfig, rng: np.random.Generator,

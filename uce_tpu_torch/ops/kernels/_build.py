@@ -3,7 +3,8 @@
 Sources live in ``uce_tpu_torch/csrc``. Each shared library is compiled
 with ``nvcc`` for ``sm_90a`` into ``build/uce_tpu_torch/<hash>/`` at the
 root of the checkout, keyed by a hash of its sources, so an edited source
-rebuilds and an unchanged one loads from the cache.
+rebuilds and an unchanged one loads from the cache. Each kernel has its own
+library, so editing one source rebuilds only that one.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ PyTorch version.
 ``sd_attention`` computes ``softmax(q k^T * scale) v`` over ``[B, H, S, D]``
 bf16 tensors, as ``uce_tpu/ops/pallas/sd_attention.py::_kernel`` does:
 fp32 logits, fp32 softmax with max subtraction, P rounded to bf16, PV
-accumulated in fp32. A CPU tensor takes the plain version; a CUDA tensor
-launches ``csrc/sd_attention.cu`` or raises.
+accumulated in fp32. D = 512 (the VAE mid-block, which uce_tpu serves with
+JAX's TPU flash kernel ``uce_tpu/ops/attention.py::_flash_attention``) runs
+the same file's D-split kernel. A CPU tensor takes the plain version; a CUDA
+tensor launches ``csrc/sd_attention.cu`` or raises.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ import ctypes
 
 import torch
 
-HEAD_DIMS = (40, 64, 80, 128, 160)
+HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 SOURCE = "sd_attention.cu"
 
-# Kernel launches since the last reset (a plain integer; callers reset it).
+# Kernel launches since the last reset (a plain integer; callers reset it),
+# and the same count by head dim (callers clear it).
 launches = 0
+launches_by_dim: dict[int, int] = {}
 
 
 def supported_shape(q_shape, k_shape, dtype) -> bool:
@@ -95,4 +99,5 @@ def sd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"sd_attention kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
+    launches_by_dim[d] = launches_by_dim.get(d, 0) + 1
     return out
