@@ -6,11 +6,12 @@ full width, and check them.
 
 Phases (each raises on failure; the exit code is non-zero unless all pass):
   1. the card: CUDA must be available; print its name and power limit;
-  2. the kernels: build the four libraries from csrc/ (one nvcc each, all at
+  2. the kernels: build the five libraries from csrc/ (one nvcc each, all at
      once), compare each kernel with its plain PyTorch version at the main
      paths' shapes and on the Pallas tests' cases (elementwise and relative
      L2 bounds), and time the kernel, the plain version and one library call
-     for the same function (CUDA events);
+     for the same function (CUDA events; the int8-QK^T attention has no such
+     call, so the bf16 kernel and SDPA are timed beside it as yardsticks);
   3. a seeded random-weight SD 1.4 snapshot (UNet, CLIP text, VAE, PNDM
      scheduler, a character-vocabulary tokenizer) written under build/;
   4. ``edit-sd`` through the CLI with ``--method collapsed``, ``pallas`` (the
@@ -23,14 +24,27 @@ Phases (each raises on failure; the exit code is non-zero unless all pass):
   6. one VAE decode at 512x512 on both paths, with its launches;
   7. ``generate`` through the CLI at 512px, PNDM, 50 steps, CFG 7.5, with the
      edit overlay, on the default path and on the kernel path: PNG checks and
-     every kernel's launch count; then img/s on both paths.
+     every kernel's launch count;
+  8. W8A8 (``--quantize int8``): one quantized UNet forward at batch 8 (each
+     int8-QK^T kernel call held to its plain version on the forward's own
+     inputs; the whole forward, with a gross bound, against itself on the
+     plain version and against bf16) and one quantized VAE decode, with
+     launches;
+  9. ``serve --quantize int8`` with the edit overlay through the CLI: a
+     Poisson load through the batch ladder 1,2,4 (JSON report, launches),
+     then the socket server in a subprocess (three concurrent requests,
+     stats, shutdown; PNG checks);
+ 10. img/s on the library path, the kernel path and the int8 pipeline.
 The last two lines are the kernels' JSON record and the device record.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import copy
 import csv
+import io
 import json
 import os
 import shutil
@@ -48,13 +62,14 @@ from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.schedulers import pndm_plan
 from uce_tpu_torch.edit import sd as edit_sd
-from uce_tpu_torch.models import clip_text, unet, vae
+from uce_tpu_torch.models import clip_text, quantize, unet, vae
 from uce_tpu_torch.models.hf_loader import read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_sd_cross_attn_kv
 from uce_tpu_torch.ops import attention
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
+from uce_tpu_torch.serving import socket_api
 from uce_tpu_torch.utils.imaging import decode_png
 from uce_tpu_torch.utils.prompts import resolve_edit_request
 from uce_tpu_torch.utils.torch_rng import draw_prompt_latents
@@ -75,7 +90,8 @@ SEED = 0
 # another order and differ only where a bf16 rounding flips (measured at
 # most 2.2e-5 and 3.2e-4).
 ATOL, RTOL = 0.02, 0.05
-KERNEL_REL_L2 = {"sd_attention": 1e-2, "group_norm_act": 1e-3, "conv3x3": 2e-3}
+KERNEL_REL_L2 = {"sd_attention": 1e-2, "sd_attention_qk8": 1e-2,
+                 "group_norm_act": 1e-3, "conv3x3": 2e-3}
 # uce_solve: max |X_kernel - X_plain| / max |X_plain| (both fp32).
 SOLVE_REL_MAX = 1e-3
 # edit-sd: max abs diff / max abs over the 32 targets. Each method is held
@@ -97,9 +113,21 @@ UNET_LAUNCHES = {"conv3x3": 49, "group_norm_act": 61, "sd_attention": 10}
 VAE_LAUNCHES = {"conv3x3": 33, "group_norm_act": 28, "sd_attention": 1}
 UNET_LAUNCHES_LIBRARY = {"conv3x3": 0, "group_norm_act": 0, "sd_attention": 10}
 VAE_LAUNCHES_LIBRARY = {"conv3x3": 0, "group_norm_act": 0, "sd_attention": 1}
-# NVIDIA H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA
-# cores, HBM3.
-PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# A W8A8 UNet forward sends its ten long self-attentions to the int8-QK^T
+# kernel and none to the bf16 one; a quantized VAE decode keeps its one
+# d=512 bf16 launch.
+UNET_LAUNCHES_INT8 = {"sd_attention_qk8": 10, "sd_attention": 0}
+VAE_LAUNCHES_INT8 = {"sd_attention_qk8": 0, "sd_attention": 1, "sd_attention_d512": 1}
+# Whole W8A8 networks, against bf16 or against the same network on the qk8
+# plain version: a gross-fault bound only. Int8 activations and weights move
+# a random-weight UNet by several percent, and a one-count change of an int8
+# activation re-rounds every layer after it (kernel against plain version
+# in one forward: 9.8e-2 measured on an H100, with each of its ten calls
+# within 7.7e-4 of the plain version on the same inputs).
+INT8_VS_BF16_REL_L2 = 0.25
+# NVIDIA H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, fp32
+# CUDA cores, HBM3.
+PEAK_BF16, PEAK_INT8, PEAK_FP32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
 
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (1, 1, 4096, 4096, 512)]
@@ -120,11 +148,21 @@ CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 
 # Pallas tests' cases and a 100-concept list.
 SOLVE_SLICE = [(5, 3, 768)]
 SOLVE_CASES = [(4, 3, 256), (16, 0, 256), (100, 0, 768)]
+# int8-QK^T attention: the top serving rung (4 prompts under CFG) at 512²,
+# then tests/test_sd_attention.py::test_int8_qk_close_to_fp's cases, a
+# ragged Skv and one q tile.
+QK8_SLICE = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80)]
+QK8_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 200, 200, 40),
+             (1, 2, 64, 64, 80)]
 
 ART = "Kelly McKernan; Thomas Kinkade; Tyler Edlin; Kilian Eng; Ajin Demi Human"
 PRESERVE = "Van Gogh; Rembrandt; Pablo Picasso"
 KERNEL_MODULES = {"sd_attention": sdk, "group_norm_act": gnk, "conv3x3": convk,
                   "uce_solve": solvek}
+BUILDS = {"sd_attention": sdk.build, "sd_attention_qk8": sdk.build_qk8,
+          "group_norm": gnk.build, "conv3x3": convk.build, "uce_solve": solvek.build}
+SERVE_PROMPTS = ["a painting by kelly mckernan", "a photo of a dog",
+                 "a house in the style of rembrandt"]
 
 
 @contextlib.contextmanager
@@ -172,19 +210,21 @@ def reset_launches() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
     sdk.launches_by_dim.clear()
+    sdk.launches_qk8 = 0
 
 
 def read_launches() -> dict[str, int]:
     torch.cuda.synchronize()
     counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
     counts["sd_attention_d512"] = sdk.launches_by_dim.get(512, 0)
+    counts["sd_attention_qk8"] = sdk.launches_qk8
     return counts
 
 
-def bound(flops: float, peak_flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time (ms) the card could take: the larger of operations over
-    the peak rate and bytes over the memory rate."""
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops_seconds: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the operations'
+    time at the peak rates and bytes over the memory rate."""
+    t_ops, t_bytes = ops_seconds * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -207,12 +247,12 @@ def check_bf16(kernel: str, what: str, got, ref) -> tuple[float, str]:
 def phase_build() -> None:
     """One nvcc per library, all started together."""
     start = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNEL_MODULES)) as pool:
-        for future in [pool.submit(mod.build) for mod in KERNEL_MODULES.values()]:
+    with ThreadPoolExecutor(max_workers=len(BUILDS)) as pool:
+        for future in [pool.submit(fn) for fn in BUILDS.values()]:
             future.result()
-    print(f"[kernel] 4 libraries built in {time.perf_counter() - start:.1f} s",
-          flush=True)
-    for name in ("sd_attention", "group_norm", "conv3x3", "uce_solve"):
+    print(f"[kernel] {len(BUILDS)} libraries built in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for name in BUILDS:
         print(f"[kernel]   {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s")
 
 
@@ -238,7 +278,7 @@ def phase_attention(gen, rows: dict) -> None:
                 q, k, v, scale=scale))
             path_ms = median_ms(lambda: attention.plain_attention(
                 q, k, v, None, False, scale))
-            bound_ms, by = bound(4.0 * b * h * sq * skv * d, PEAK_BF16,
+            bound_ms, by = bound(4.0 * b * h * sq * skv * d / PEAK_BF16,
                                  2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d))
             if (sq, d) in ((4096, 40), (4096, 512)):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -275,7 +315,7 @@ def phase_group_norm(gen, rows: dict) -> None:
                 x, scale, bias, groups, eps, act))
             lib_ms = median_ms(lambda: F.silu(F.group_norm(
                 x_nchw, groups, scale16, bias16, eps)))
-            bound_ms, by = bound(10.0 * x.numel(), PEAK_FP32,
+            bound_ms, by = bound(10.0 * x.numel() / PEAK_FP32,
                                  2.0 * 2 * x.numel() + 2 * 4 * c)
             if shape == GN_SLICE[0][0]:
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -308,7 +348,7 @@ def phase_conv(gen, rows: dict) -> None:
             plain_ms = median_ms(lambda: convk.conv3x3_reference(x, w_packed, bias))
             lib_ms = median_ms(lambda: F.conv2d(x_nchw, w_cl, bias, padding=1))
             m = x.numel() // cin
-            bound_ms, by = bound(2.0 * m * cout * 9 * cin, PEAK_BF16,
+            bound_ms, by = bound(2.0 * m * cout * 9 * cin / PEAK_BF16,
                                  2.0 * (x.numel() + w.numel() + cout + m * cout))
             if shape == CONV_SLICE[0][0]:
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -341,7 +381,7 @@ def phase_solve(gen, rows: dict) -> None:
             plain_ms = median_ms(lambda: solvek.newton_schulz_reference(*args))
             lib_ms = median_ms(lambda: torch.linalg.inv(b_mat))
             flops = 2.0 * d * d * (ke + kp) + solvek.NEWTON_ITERS * 2 * 2.0 * d ** 3
-            bound_ms, by = bound(flops, PEAK_FP32, 4.0 * (ke + kp) * d + 4.0 * d * d)
+            bound_ms, by = bound(flops / PEAK_FP32, 4.0 * (ke + kp) * d + 4.0 * d * d)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=by)
             line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
@@ -350,9 +390,52 @@ def phase_solve(gen, rows: dict) -> None:
         print(line, flush=True)
 
 
+def phase_qk8(gen, rows: dict) -> None:
+    """The int8-QK^T kernel against its plain version on the same quantized
+    K (the wrapper's pre-pass runs once per input)."""
+    row = rows["sd_attention_qk8"]
+    for b, h, sq, skv, d in QK8_SLICE + QK8_CASES:
+        q = torch.randn(b, h, sq, d, device="cuda", generator=gen).bfloat16()
+        k = (torch.randn(b, h, skv, d, device="cuda", generator=gen) + 0.3).bfloat16()
+        v = torch.randn(b, h, skv, d, device="cuda", generator=gen).bfloat16()
+        scale = d ** -0.5
+        ki, ks = sdk.quantize_k(k)
+        got = sdk.sd_attention_qk8(q, ki, ks, v, scale)
+        torch.cuda.synchronize()
+        max_err, note = check_bf16("sd_attention_qk8",
+                                   f"sd_attention_qk8 {(b, h, sq, skv, d)}", got,
+                                   sdk.sd_attention_qk8_reference(q, ki, ks, v, scale))
+        row["max_abs_err"] = max(row["max_abs_err"], max_err)
+        line = f"[kernel] sd_attention_qk8 {(b, h, sq, skv, d)} {note}"
+        if (b, h, sq, skv, d) in QK8_SLICE:
+            ms = median_ms(lambda: sdk.sd_attention_qk8(q, ki, ks, v, scale))
+            wrapper_ms = median_ms(lambda: sdk.sd_attention(q, k, v, scale,
+                                                            qk_int8=True))
+            plain_ms = median_ms(lambda: sdk.sd_attention_qk8_reference(
+                q, ki, ks, v, scale), reps=3, warmup=1)
+            bf16_ms = median_ms(lambda: sdk.sd_attention(q, k, v, scale))
+            sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+            work = 2.0 * b * h * sq * skv * d  # each of QK^T and PV
+            bound_ms, by = bound(work / PEAK_INT8 + work / PEAK_BF16,
+                                 2.0 * b * h * sq * d + b * h * skv * d
+                                 + 4.0 * b * h * skv + 2.0 * b * h * skv * d
+                                 + 2.0 * b * h * sq * d)
+            if (sq, d) == (4096, 40):
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           bound_ms=bound_ms, bound_by=by)
+            line += (f" kernel {ms:.4f} ms (with the K pre-pass {wrapper_ms:.4f}), "
+                     f"plain version {plain_ms:.4f} ms (median of 3), yardsticks: "
+                     f"bf16 sd_attention kernel {bf16_ms:.4f} ms, SDPA "
+                     f"{sdpa_ms:.4f} ms (median of 10); bound {bound_ms:.4f} ms "
+                     f"({by})")
+        print(line, flush=True)
+
+
 def phase_kernels(rows: dict) -> None:
     gen = torch.Generator("cuda").manual_seed(SEED)
     phase_attention(gen, rows)
+    phase_qk8(gen, rows)
     phase_group_norm(gen, rows)
     phase_conv(gen, rows)
     phase_solve(gen, rows)
@@ -583,6 +666,237 @@ def phase_generate(snap: str, edit_path: str, path: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def qk8_plain():
+    """Run the int8-QK^T attention's plain version in place of its kernel in
+    the enclosed calls (to hold a quantized forward to itself)."""
+    saved = sdk.sd_attention_qk8
+    sdk.sd_attention_qk8 = sdk.sd_attention_qk8_reference
+    try:
+        yield
+    finally:
+        sdk.sd_attention_qk8 = saved
+
+
+@contextlib.contextmanager
+def qk8_checked(notes: list):
+    """Hold every int8-QK^T kernel call of the enclosed calls to its plain
+    version on the same inputs, the forward's own activations (raises
+    outside the kernel bounds); the kernel's output goes on."""
+    kernel = sdk.sd_attention_qk8
+
+    def checked(q, ki, ks, v, scale):
+        got = kernel(q, ki, ks, v, scale)
+        notes.append(check_bf16("sd_attention_qk8", f"sd_attention_qk8 in the "
+                                f"W8A8 forward {tuple(q.shape)}", got,
+                                sdk.sd_attention_qk8_reference(q, ki, ks, v, scale))[1])
+        return got
+
+    sdk.sd_attention_qk8 = checked
+    try:
+        yield
+    finally:
+        sdk.sd_attention_qk8 = kernel
+
+
+@contextlib.contextmanager
+def qk8_plain_nudged(gen, share: float, rels: list):
+    """The plain version with one bf16 ulp added to the magnitude of a
+    random ``share`` of its output entries: a control for how far a whole
+    W8A8 forward moves when each attention output moves about as far as
+    the kernel's does from the plain version."""
+    saved = sdk.sd_attention_qk8
+
+    def nudged(q, ki, ks, v, scale):
+        out = sdk.sd_attention_qk8_reference(q, ki, ks, v, scale)
+        flip = (torch.rand(out.shape, device=out.device, generator=gen) < share) & (out != 0)
+        moved = (out.view(torch.int16) + flip.to(torch.int16)).view(torch.bfloat16)
+        rels.append(rel_l2(moved, out))
+        return moved
+
+    sdk.sd_attention_qk8 = nudged
+    try:
+        yield
+    finally:
+        sdk.sd_attention_qk8 = saved
+
+
+def phase_quant_unet(pipe) -> None:
+    """One W8A8 UNet forward at batch 8 (4 prompts under CFG, the top serving
+    rung): its launches; each int8-QK^T kernel call held to the plain version
+    on the forward's own inputs; the whole forward against the same forward
+    on the plain version and against the bf16 forward (gross faults: a
+    difference of one count in an int8 activation re-rounds every layer
+    after it, so whole W8A8 forwards differ by far more than the kernel
+    does per call)."""
+    qparams = quantize.quantize_params(pipe.unet_params, quantize.UNET_SKIP, "int8")
+    nq, nw = quantize.count_quantized(qparams)
+    prompts = SERVE_PROMPTS + ["a photo of a cat"]
+    notes = []
+    with torch.inference_mode():
+        context = torch.cat([pipe.encode_prompts([""] * 4), pipe.encode_prompts(prompts)])
+        latents = draw_prompt_latents((64, 64, 4), SEED, 4, 1).to("cuda", pipe.dtype)
+        x = torch.cat([latents, latents])
+        fwd = lambda params: unet.apply(params, x, 981.0, context, pipe.unet_config)
+        reset_launches()
+        int8 = fwd(qparams).float()
+        expect_launches("W8A8 UNet forward", read_launches(), UNET_LAUNCHES_INT8)
+        with qk8_checked(notes):
+            fwd(qparams)
+        with qk8_plain():
+            plain = fwd(qparams).float()
+        nudge_rels = []
+        with qk8_plain_nudged(torch.Generator("cuda").manual_seed(SEED), 0.02,
+                              nudge_rels):
+            nudged = fwd(qparams).float()
+        bf16 = fwd(pipe.unet_params).float()
+        int8_ms = median_ms(lambda: fwd(qparams), reps=5)
+        bf16_ms = median_ms(lambda: fwd(pipe.unet_params), reps=5)
+    if len(notes) != UNET_LAUNCHES_INT8["sd_attention_qk8"]:
+        raise AssertionError(f"W8A8 UNet forward: {len(notes)} qk8 calls checked")
+    if not all(bool(torch.isfinite(o).all()) for o in (int8, plain)):
+        raise AssertionError("W8A8 UNet forward: non-finite output")
+    for note in notes:
+        print(f"[int8] qk8 call in the forward: {note}")
+    rel, rel_bf = rel_l2(int8, plain), rel_l2(int8, bf16)
+    cos = float((int8 * bf16).sum() / (int8.norm() * bf16.norm()))
+    for what, value in (("its plain version", rel), ("bf16", rel_bf)):
+        if value > INT8_VS_BF16_REL_L2:
+            raise AssertionError(f"W8A8 UNet forward vs {what}: rel L2 {value} > "
+                                 f"{INT8_VS_BF16_REL_L2}")
+    print(f"[int8] control: the forward on the qk8 plain version with 2% of each "
+          f"attention output moved by one bf16 ulp (rel L2 per call "
+          f"{min(nudge_rels):.3e}-{max(nudge_rels):.3e}) reads rel L2 "
+          f"{rel_l2(nudged, plain):.3e} against it unmoved")
+    print(f"[int8] UNet forward, batch 8 at 64x64 latents, {nq} of {nw} weights "
+          f"int8: rel L2 against the same forward on the qk8 plain version "
+          f"{rel:.3e}, against the bf16 forward {rel_bf:.3e} (gross-fault bound "
+          f"{INT8_VS_BF16_REL_L2}), cosine to bf16 {cos:.6f}; launches "
+          f"{UNET_LAUNCHES_INT8}; median of 5: W8A8 {int8_ms:.2f} ms, bf16 library "
+          f"path {bf16_ms:.2f} ms", flush=True)
+
+
+def phase_quant_vae(pipe) -> None:
+    """One W8A8 VAE decode at 512x512: the mid-block attention stays on the
+    bf16 d=512 kernel."""
+    qparams = quantize.quantize_params(pipe.vae_params, quantize.VAE_SKIP, "int8")
+    lat = draw_prompt_latents((64, 64, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
+    lat = lat / pipe.vae_config.scaling_factor
+    dec = lambda params: vae.decode(params, lat, pipe.vae_config)
+    with torch.inference_mode():
+        reset_launches()
+        int8 = dec(qparams).float()
+        expect_launches("W8A8 VAE decode", read_launches(), VAE_LAUNCHES_INT8)
+        bf16 = dec(pipe.vae_params).float()
+        int8_ms = median_ms(lambda: dec(qparams), reps=3, warmup=1)
+    if int8.shape != (1, 3, 512, 512) or not bool(torch.isfinite(int8).all()):
+        raise AssertionError(f"W8A8 VAE decode: {tuple(int8.shape)}")
+    rel = rel_l2(int8, bf16)
+    if rel > INT8_VS_BF16_REL_L2:
+        raise AssertionError(f"W8A8 VAE decode vs bf16: rel L2 {rel}")
+    print(f"[int8] VAE decode batch 1 at 512x512: rel L2 against bf16 {rel:.3e} "
+          f"(gross-fault bound {INT8_VS_BF16_REL_L2}); launches {VAE_LAUNCHES_INT8}; "
+          f"{int8_ms:.2f} ms (median of 3)", flush=True)
+
+
+def phase_serve(snap: str, edit_path: str) -> dict:
+    """``serve --quantize int8`` with the edit overlay, in process through the
+    CLI: warm-up of the ladder 1,2,4, then 8 Poisson requests at 4/s."""
+    argv = ["serve", "--model_id", snap, "--quantize", "int8", "--uce_model_path",
+            edit_path, "--batch_sizes", "1,2,4", "--bench", "4", "--bench_requests",
+            "8", "--device", "cuda"]
+    out = io.StringIO()
+    reset_launches()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    reports = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    if rc != 0 or len(reports) != 1:
+        raise AssertionError(f"serve --bench: rc {rc}, output {out.getvalue()!r}")
+    rep = reports[0]
+    if not (rep["n_requests"] == 8 and rep["throughput_rps"] > 0
+            and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
+        raise AssertionError(f"serve --bench report: {rep}")
+    batches = 3 + rep["batches"]  # one warm-up batch per rung
+    calls = pndm_plan(50).num_calls
+    want = {"sd_attention_qk8": UNET_LAUNCHES_INT8["sd_attention_qk8"] * calls * batches,
+            "sd_attention": batches, "sd_attention_d512": batches}
+    expect_launches(f"serve --quantize int8, {batches} batches x ({calls} UNet "
+                    "calls + 1 decode)", launches, want)
+    print(f"[serve] {json.dumps(rep)}")
+    print(f"[serve] --quantize int8 --batch_sizes 1,2,4 --bench 4: 8 requests in "
+          f"{rep['batches']} batches (+3 warm-up), throughput {rep['throughput_rps']} "
+          f"req/s, latency p50 {rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; "
+          f"{seconds:.1f} s CLI wall (load, warm-up and load run); launches "
+          f"{want}", flush=True)
+    return launches
+
+
+def phase_socket(snap: str, edit_path: str) -> None:
+    """The socket server in a subprocess: three concurrent requests (two
+    saved to files, one base64), stats, shutdown."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    sock = os.path.join(WORK, "uce.sock")
+    msgs = [{"prompt": SERVE_PROMPTS[0], "seed": 1,
+             "save_path": os.path.join(WORK, "socket_0.png")},
+            {"prompt": SERVE_PROMPTS[1], "seed": 2,
+             "save_path": os.path.join(WORK, "socket_1.png")},
+            {"prompt": SERVE_PROMPTS[2], "seed": 3}]
+    start = time.perf_counter()
+    with open(os.path.join(WORK, "serve.log"), "w") as log:
+        # the socket path is relative to WORK: an AF_UNIX path has at most
+        # 107 bytes, whatever the depth of the checkout
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "uce_tpu_torch", "serve", "--model_id", snap,
+             "--quantize", "int8", "--uce_model_path", edit_path, "--socket",
+             "uce.sock", "--batch_size", "4", "--max_wait_ms", "1000",
+             "--device", "cuda"], cwd=WORK, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 600
+        while not os.path.exists(sock):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                with open(os.path.join(WORK, "serve.log")) as f:
+                    raise AssertionError(f"serve did not bind its socket (exit "
+                                         f"{proc.poll()}): {f.read()[-3000:]}")
+            time.sleep(0.5)
+        with contextlib.chdir(WORK), ThreadPoolExecutor(len(msgs)) as pool:
+            replies = list(pool.map(lambda m: socket_api.request("uce.sock", m), msgs))
+            stats = socket_api.request("uce.sock", {"cmd": "stats"})
+            bye = socket_api.request("uce.sock", {"cmd": "shutdown"})
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if any(r.get("status") != "ok" for r in replies + [stats, bye]) or rc != 0:
+        raise AssertionError(f"socket server: replies {replies}, stats {stats}, "
+                             f"shutdown {bye}, exit {rc}")
+    images = []
+    for msg, reply in zip(msgs, replies):
+        if "save_path" in msg:
+            with open(reply["path"], "rb") as f:
+                images.append(decode_png(f.read()))
+        else:
+            images.append(decode_png(base64.b64decode(reply["png_base64"])))
+    for i, img in enumerate(images):
+        if img.shape != (512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"socket image {i}: {img.shape} {img.dtype}")
+    if any(np.array_equal(images[i], images[j]) for i in range(3) for j in range(i)):
+        raise AssertionError("socket server: images for different seeds are equal")
+    if stats["requests"] != 3:
+        raise AssertionError(f"socket server stats: {stats}")
+    print(f"[serve] socket server (subprocess, --quantize int8, batch 4): 3 "
+          f"concurrent requests -> 3 distinct 512x512x3 PNGs (2 files, 1 base64); "
+          f"stats batches {stats['batches']}, occupancy {stats['occupancy']:.3f}, "
+          f"batch seconds {stats['total_batch_seconds']:.2f}; shutdown, exit 0; "
+          f"{time.perf_counter() - start:.1f} s wall with start-up", flush=True)
+
+
 def phase_throughput(pipe, path: str) -> float:
     prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
     with kernel_env(path == "kernels"):
@@ -616,6 +930,8 @@ def main() -> int:
             for k, f, r in (
                 ("sd_attention", "sd_attention.cu", "uce_tpu/ops/pallas/sd_attention.py:86"),
                 ("sd_attention_d512", "sd_attention.cu", "uce_tpu/ops/attention.py:96"),
+                ("sd_attention_qk8", "sd_attention_qk8.cu",
+                 "uce_tpu/ops/pallas/sd_attention.py:166"),
                 ("group_norm_act", "group_norm.cu", "uce_tpu/ops/pallas/group_norm.py:112"),
                 ("conv3x3", "conv3x3.cu", "uce_tpu/ops/pallas/conv3x3.py:91"),
                 ("uce_solve", "uce_solve.cu", "uce_tpu/ops/pallas/uce_solve.py:151"))}
@@ -639,8 +955,15 @@ def main() -> int:
             rows[k]["launches"] = launches[k]
         rows["sd_attention"]["launches"] = (launches["sd_attention"]
                                             - launches["sd_attention_d512"])
-        for path in ("library", "kernels"):
-            phase_throughput(pipe, path)
+        phase_quant_unet(pipe)
+        phase_quant_vae(pipe)
+        rows["sd_attention_qk8"]["launches"] = phase_serve(
+            snap, edit_path)["sd_attention_qk8"]
+        phase_socket(snap, edit_path)
+        int8_pipe = copy.copy(pipe)
+        int8_pipe.quantize_weights("int8")
+        for path, p in (("library", pipe), ("kernels", pipe), ("int8", int8_pipe)):
+            phase_throughput(p, path)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

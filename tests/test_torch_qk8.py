@@ -1,0 +1,136 @@
+"""The int8-QK^T attention (the port of uce_tpu's ``_kernel_qk8``): its K
+pre-pass and plain version against uce_tpu's Pallas kernel in interpret
+mode, and the routing that sends a W8A8 UNet's long self-attentions (and
+nothing else) to it."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uce_tpu.ops.attention import _xla_attention
+from uce_tpu.ops.pallas import sd_attention as pallas_sdk
+from uce_tpu_torch.models import quantize, unet as tunet, vae as tvae
+from uce_tpu_torch.ops import attention as port_attn
+from uce_tpu_torch.ops.kernels import sd_attention as port_sdk
+
+# test_int8_qk_close_to_fp's cases, and a ragged Skv (uce_tpu keeps Skv
+# whole per block, so its Sq must divide into blocks of 128).
+CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 256, 200, 40)]
+
+
+def _inputs(b, h, sq, skv, d):
+    """The draws of tests/test_sd_attention.py::test_int8_qk_close_to_fp, as
+    (jax bf16, torch bf16) pairs holding the same values."""
+    rng = np.random.default_rng(42)
+    arrays = (rng.standard_normal((b, h, sq, d)),
+              rng.standard_normal((b, h, skv, d)) + 0.3,
+              rng.standard_normal((b, h, skv, d)))
+    pairs = []
+    for a in arrays:
+        j = jnp.asarray(a, jnp.bfloat16)
+        pairs.append((j, torch.from_numpy(np.asarray(j, np.float32)).bfloat16()))
+    return pairs
+
+
+def _uce_tpu_k_prepass(k):
+    """uce_tpu/ops/pallas/sd_attention.py:138-141, which runs inside the
+    jitted ``sd_attention`` and cannot be read back from it."""
+    kf = k.astype(jnp.float32)
+    kc = kf - jnp.mean(kf, axis=2, keepdims=True)
+    ks = jnp.maximum(jnp.max(jnp.abs(kc), axis=3), 1e-6) / 127.0
+    return np.asarray(jnp.round(kc / ks[..., None]).astype(jnp.int8)), np.asarray(ks)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", CASES)
+def test_k_prepass_matches_uce_tpu(b, h, sq, skv, d):
+    """torch.mean and jnp.mean reduce in different orders, so a rounding of
+    ki may flip by one count on a tiny share of entries; nothing else may
+    differ."""
+    _, (kj, kt), _ = _inputs(b, h, sq, skv, d)
+    ki, ks = port_sdk.quantize_k(kt)
+    want_ki, want_ks = _uce_tpu_k_prepass(kj)
+    assert ki.dtype == torch.int8 and tuple(ks.shape) == (b, h, skv)
+    diff = np.abs(ki.numpy().astype(np.int32) - want_ki.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    np.testing.assert_allclose(ks.numpy(), want_ks, rtol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", CASES)
+def test_qk8_plain_version_matches_pallas_kernel(b, h, sq, skv, d):
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(b, h, sq, skv, d)
+    scale = d ** -0.5
+    want = np.asarray(pallas_sdk.sd_attention(qj, kj, vj, scale, interpret=True,
+                                              qk_int8=True), np.float32)
+    port_sdk.launches_qk8 = 0
+    got = port_sdk.sd_attention(qt, kt, vt, scale, qk_int8=True)  # CPU: plain
+    assert port_sdk.launches_qk8 == 0
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 5e-3
+    # and within test_int8_qk_close_to_fp's own bars of the bf16 attention
+    err = np.abs(got - np.asarray(_xla_attention(qj, kj, vj, None, False, scale),
+                                  np.float32))
+    assert err.max() < 0.05 and err.mean() < 0.005
+
+
+def _spy(monkeypatch):
+    """Send the kernel route's device check to "cuda" on CPU tensors and
+    count the calls of both plain versions."""
+    calls = {"qk8": 0, "bf16": 0}
+    route = port_attn.routes_to_kernel
+    monkeypatch.setattr(port_attn, "routes_to_kernel",
+                        lambda q, k, dtype, device, **kw: route(q, k, dtype,
+                                                                "cuda", **kw))
+    for name, attr in (("qk8", "sd_attention_qk8_reference"),
+                       ("bf16", "sd_attention_reference")):
+        fn = getattr(port_sdk, attr)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(port_sdk, attr, counted)
+    return calls
+
+
+def test_quantized_unet_routes_long_self_attention_to_qk8(monkeypatch):
+    """A W8A8 UNet with head dim 40 at 32x32 latents: its three Sq = 1024
+    self-attentions take the int8-QK^T path (the kernel's plain version on
+    these CPU tensors) and nothing takes the bf16 one; cross-attention and
+    the 16x16 level stay on the plain path. The output stays close to the
+    float forward within tests/test_quant.py's bars for a quantized tiny
+    UNet (int8 re-rounding makes any two W8A8 forwards that differ by a
+    rounding somewhere differ by about their distance from float)."""
+    cfg = tunet.UNetConfig(block_out_channels=(80, 160),
+                           down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                           up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                           layers_per_block=1, cross_attention_dim=24,
+                           attention_head_dim=2, norm_num_groups=8)
+    flat = tunet.init_state_dict(cfg, np.random.default_rng(9), scale=0.05)
+    params = quantize.quantize_params(tunet.load_params(flat, dtype=torch.bfloat16))
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 32, 32)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 7, 24)).astype(np.float32))
+    want = tunet.apply(tunet.load_params(flat), x, 500.0, ctx, cfg).double()
+    calls = _spy(monkeypatch)
+    got = tunet.apply(params, x.bfloat16(), 500.0, ctx.bfloat16(), cfg).double()
+    assert calls == {"qk8": 3, "bf16": 0}
+    assert (got - want).abs().max() / want.abs().max() < 0.1
+    assert float((got * want).sum() / (got.norm() * want.norm())) > 0.995
+
+
+def test_quantized_vae_keeps_bf16_attention(monkeypatch):
+    """The VAE passes no qk_int8: quantized or not, its mid-block attention
+    (one head, D = 40 here, Sq = 1024) takes the bf16 kernel's route."""
+    cfg = tvae.VAEConfig(block_out_channels=(8, 40), layers_per_block=1,
+                         norm_num_groups=4)
+    flat = tvae.init_state_dict(cfg, np.random.default_rng(2), scale=0.1)
+    params = quantize.quantize_params(tunet.load_params(flat, dtype=torch.bfloat16),
+                                      quantize.VAE_SKIP)
+    lat = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 4, 32, 32)).astype(np.float32)).bfloat16()
+    calls = _spy(monkeypatch)
+    out = tvae.decode(params, lat, cfg)
+    assert calls == {"qk8": 0, "bf16": 1}
+    assert out.shape == (1, 3, 64, 64) and torch.isfinite(out.float()).all()

@@ -1,0 +1,363 @@
+"""The port's serving layer (uce_tpu_torch/serving, ``serve`` CLI): the cases
+of tests/test_serving.py that need no FLUX, --fast or mesh, on the port's
+SD pipeline (fp32, 2 steps, 32x32), and a W8A8 (``--quantize int8``)
+server's image against uce_tpu's."""
+
+import base64
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from tests.snapshot import make_sd_snapshot
+from uce_tpu_torch.diffusion.pipeline import SDPipeline
+from uce_tpu_torch.serving import socket_api
+from uce_tpu_torch.serving.loadgen import run_load
+from uce_tpu_torch.serving.server import GenerationServer, ServerConfig
+from uce_tpu_torch.utils.imaging import decode_png
+
+CFG = dict(num_inference_steps=2, height=32, width=32)
+
+
+@pytest.fixture(scope="module")
+def snap(tmp_path_factory):
+    return make_sd_snapshot(tmp_path_factory.mktemp("torch_serving_snap"))
+
+
+@pytest.fixture(scope="module")
+def pipe(snap):
+    return SDPipeline.from_pretrained(snap, dtype=torch.float32, device="cpu")
+
+
+def test_serial_requests_and_padding(pipe):
+    with GenerationServer(pipe, ServerConfig(batch_size=3, max_wait_ms=1,
+                                             **CFG)) as srv:
+        img = srv.generate("a cat", seed=7)
+        assert img.shape == (32, 32, 3) and img.dtype == np.uint8
+        # single request into a batch of 3 -> 2 padded slots
+        assert srv.stats.batches == 1
+        assert srv.stats.padded_slots == 2
+        assert srv.stats.occupancy == pytest.approx(1 / 3)
+
+
+def test_batch_ladder_picks_smallest_fitting_rung(pipe):
+    cfg = ServerConfig(batch_size=4, batch_sizes=(1, 2, 4),
+                       max_wait_ms=500, **CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        assert srv.batch_sizes == (1, 2, 4)
+        img = srv.generate("a cat", seed=7)
+        assert img.shape == (32, 32, 3)
+        assert srv.stats.batches == 1 and srv.stats.padded_slots == 0
+        futures = [srv.submit(p, seed=s)
+                   for p, s in [("a cat", 1), ("a dog", 2), ("a bird", 3)]]
+        imgs = [f.result(timeout=120) for f in futures]
+    assert srv.stats.batches == 2
+    assert srv.stats.padded_slots == 1  # 3 requests -> rung 4
+    assert not np.array_equal(imgs[0], imgs[1])
+
+
+def test_batch_ladder_image_matches_single_signature(pipe):
+    """Which rung a request lands on changes its image by at most one
+    uint8 level (batch sizes may pick other library algorithms)."""
+    cfg = dict(max_wait_ms=1, **CFG)
+    with GenerationServer(pipe, ServerConfig(batch_size=3, **cfg)) as srv:
+        via_pad = srv.generate("a cat", seed=7)
+    with GenerationServer(pipe, ServerConfig(batch_size=3, batch_sizes=(1, 3),
+                                             **cfg)) as srv:
+        via_rung1 = srv.generate("a cat", seed=7)
+    diff = np.abs(via_pad.astype(np.int16) - via_rung1.astype(np.int16))
+    assert diff.max() <= 1, f"rung changed the image (max diff {diff.max()})"
+
+
+def test_results_match_direct_pipeline_call(pipe):
+    direct = pipe(["a cat", "", ""], seed=[7, 0, 0], num_images_per_prompt=1,
+                  guidance_scale=7.5, **CFG)[0]
+    with GenerationServer(pipe, ServerConfig(batch_size=3, max_wait_ms=1,
+                                             **CFG)) as srv:
+        served = srv.generate("a cat", seed=7)
+    np.testing.assert_array_equal(served, direct)
+
+
+def test_concurrent_requests_batch_together(pipe):
+    cfg = ServerConfig(batch_size=4, max_wait_ms=500, **CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        futures = [srv.submit(p, seed=s)
+                   for p, s in [("a cat", 1), ("a dog", 2), ("a bird", 3)]]
+        imgs = [f.result(timeout=120) for f in futures]
+    assert srv.stats.requests == 3
+    assert srv.stats.batches == 1, "concurrent requests must share a batch"
+    assert not np.array_equal(imgs[0], imgs[1])
+    assert not np.array_equal(imgs[1], imgs[2])
+
+
+def test_distinct_seeds_distinct_images(pipe):
+    with GenerationServer(pipe, ServerConfig(batch_size=2, max_wait_ms=1,
+                                             **CFG)) as srv:
+        a = srv.generate("a cat", seed=1)
+        b = srv.generate("a cat", seed=2)
+        c = srv.generate("a cat", seed=1)
+    assert not np.array_equal(a, b)
+    np.testing.assert_array_equal(a, c)
+
+
+def test_negative_prompt_reaches_the_pipeline(pipe):
+    with GenerationServer(pipe, ServerConfig(batch_size=2, max_wait_ms=1,
+                                             **CFG)) as srv:
+        served = srv.generate("a cat", seed=1, negative_prompt="blurry")
+        plain = srv.generate("a cat", seed=1)
+    direct = pipe(["a cat", ""], seed=[1, 0], negative_prompt=["blurry", ""], **CFG)
+    np.testing.assert_array_equal(served, direct[0])
+    assert not np.array_equal(served, plain)
+
+
+def test_failed_batch_keeps_serving(pipe):
+    calls = {"n": 0}
+    real = pipe.__call__
+
+    def flaky(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("injected device error")
+        return real(*a, **kw)
+
+    srv = GenerationServer(flaky, ServerConfig(batch_size=2, max_wait_ms=1,
+                                               warmup=False, **CFG))
+    srv.start()
+    try:
+        with pytest.raises(RuntimeError, match="injected"):
+            srv.generate("a cat", seed=1)
+        img = srv.generate("a cat", seed=1)  # server must still be alive
+        assert img.shape == (32, 32, 3)
+    finally:
+        srv.close()
+
+
+def test_socket_roundtrip(pipe, tmp_path):
+    sock = str(tmp_path / "uce.sock")
+    srv = GenerationServer(pipe, ServerConfig(batch_size=2, max_wait_ms=1,
+                                              **CFG)).start()
+    frontend = socket_api.SocketFrontend(srv, sock).start_background()
+    try:
+        out = str(tmp_path / "cat.png")
+        reply = socket_api.request(sock, {"prompt": "a cat", "seed": 7,
+                                          "save_path": out})
+        assert reply["status"] == "ok" and reply["path"] == out
+        with open(out, "rb") as f:
+            saved = decode_png(f.read())
+        assert saved.shape == (32, 32, 3)
+
+        reply = socket_api.request(sock, {"prompt": "a cat", "seed": 7})
+        assert reply["status"] == "ok"
+        np.testing.assert_array_equal(
+            decode_png(base64.b64decode(reply["png_base64"])), saved)
+
+        stats = socket_api.request(sock, {"cmd": "stats"})
+        assert stats["status"] == "ok" and stats["requests"] == 2
+
+        bad = socket_api.request(sock, {"seed": 1})
+        assert bad["status"] == "error" and "prompt" in bad["error"]
+    finally:
+        frontend.close()
+        srv.close()
+
+
+class _NoSchedulerPipe:
+    """A pipeline family whose call signature takes no scheduler override
+    or negative prompt."""
+
+    def __call__(self, prompt, num_inference_steps, guidance_scale,
+                 num_images_per_prompt, seed, height, width):
+        return np.zeros((len(prompt), height, width, 3), np.uint8)
+
+
+def test_family_without_scheduler_or_negatives():
+    """Static config the family can't honour fails start(); a request it
+    can't honour is rejected at submit(), not dropped."""
+    cfg = dict(batch_size=2, warmup=False, max_wait_ms=1, **CFG)
+    with pytest.raises(ValueError, match="scheduler"):
+        GenerationServer(_NoSchedulerPipe(),
+                         ServerConfig(scheduler="ddim", **cfg)).start()
+    with GenerationServer(_NoSchedulerPipe(), ServerConfig(**cfg)) as srv:
+        assert srv.generate("a cat", seed=5).shape == (32, 32, 3)
+        with pytest.raises(ValueError, match="negative"):
+            srv.submit("a cat", seed=1, negative_prompt="blurry")
+
+
+def test_fast_is_not_ported(pipe):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        GenerationServer(pipe, ServerConfig(fast="cache=2", **CFG))
+
+
+def test_submit_after_close_raises(pipe):
+    srv = GenerationServer(pipe, ServerConfig(batch_size=2, warmup=False,
+                                              **CFG)).start()
+    srv.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        srv.submit("a cat")
+
+
+def test_cancelled_future_does_not_poison_batch(pipe):
+    cfg = ServerConfig(batch_size=4, max_wait_ms=500, **CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        doomed = srv.submit("a cat", seed=1)
+        keeper = srv.submit("a dog", seed=2)
+        assert doomed.cancel()
+        img = keeper.result(timeout=120)
+    assert img.shape == (32, 32, 3)
+
+
+def test_close_fails_orphaned_requests(pipe):
+    srv = GenerationServer(pipe, ServerConfig(batch_size=2, warmup=False,
+                                              **CFG))
+    # not started: nothing consumes the queue, emulating the submit/close
+    # race where a request lands behind the shutdown sentinel
+    fut = srv.submit("a cat", seed=1)
+    srv.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        fut.result(timeout=10)
+
+
+def test_socket_path_not_stolen(pipe, tmp_path):
+    sock = str(tmp_path / "uce.sock")
+    srv = GenerationServer(pipe, ServerConfig(batch_size=2, warmup=False,
+                                              **CFG)).start()
+    frontend = socket_api.SocketFrontend(srv, sock).start_background()
+    try:
+        with pytest.raises(RuntimeError, match="already listening"):
+            socket_api.SocketFrontend(srv, sock)
+    finally:
+        frontend.close()
+        srv.close()
+
+
+def test_frontend_close_before_serve_does_not_hang(pipe, tmp_path):
+    sock = str(tmp_path / "uce.sock")
+    srv = GenerationServer(pipe, ServerConfig(batch_size=2, warmup=False,
+                                              **CFG))
+    frontend = socket_api.SocketFrontend(srv, sock)
+    t0 = time.monotonic()
+    frontend.close()  # loop never entered
+    assert time.monotonic() - t0 < 5.0
+    assert not os.path.exists(sock)
+
+
+def test_serve_cli_bench_mode_with_ladder(snap, capsys):
+    """``serve --bench`` through the port's CLI on the CPU: builds the
+    pipeline, parses the ladder, runs the Poisson load and prints one JSON
+    report line per offered rate."""
+    from uce_tpu_torch.cli.main import main as cli_main
+
+    rc = cli_main(["serve", "--model_id", snap, "--bench", "5",
+                   "--bench_requests", "3", "--batch_size", "2",
+                   "--batch_sizes", "1,2", "--image_size", "32",
+                   "--num_inference_steps", "2", "--max_wait_ms", "30",
+                   "--quantize", "int8", "--device", "cpu"])
+    assert rc == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1
+    rep = lines[0]
+    assert rep["n_requests"] == 3 and rep["offered_rps"] == 5.0
+    assert rep["batches"] >= 2  # rung 2 can't swallow 3 requests at once
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--family", "flux"], "items 14/15"),
+    (["--mesh", "data=2"], "not ported"),
+    (["--fast", "cache=2"], "item 12"),
+])
+def test_serve_cli_rejects_what_is_not_ported(snap, argv, match):
+    from uce_tpu_torch.cli.main import main as cli_main
+
+    with pytest.raises(NotImplementedError, match=match):
+        cli_main(["serve", "--model_id", snap, "--device", "cpu", *argv])
+
+
+def test_serve_cuda_without_cuda_fails(snap, monkeypatch):
+    from uce_tpu_torch.cli.main import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["serve", "--model_id", snap, "--quantize", "int8",
+                  "--device", "cuda", "--bench", "1"])
+
+
+def test_loadgen_report(pipe):
+    cfg = ServerConfig(batch_size=2, max_wait_ms=30, **CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        rep = run_load(srv, rate_rps=50.0, n_requests=6, seed=0)
+    assert rep.n_requests == 6
+    assert rep.batches >= 3  # 6 requests into batch_size=2
+    assert rep.throughput_rps > 0
+    assert 0 < rep.latency_p50_s <= rep.latency_p95_s
+    assert 0.5 <= rep.occupancy <= 1.0
+    assert rep.batch_seconds_mean > 0
+    js = rep.json()
+    assert js["offered_rps"] == 50.0 and isinstance(js["batches"], int)
+
+
+def test_pin_rung_restores_bit_determinism(pipe):
+    cfg = ServerConfig(batch_size=4, batch_sizes=(1, 2, 4), pin_rung=True,
+                       max_wait_ms=300, **CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        solo = srv.generate("a cat", seed=7)
+        assert srv.stats.batches == 1
+        assert srv.stats.padded_slots == 3  # lone request still rung 4
+        futures = [srv.submit(p, seed=s)
+                   for p, s in [("a cat", 7), ("a dog", 2), ("a bird", 3)]]
+        crowded = futures[0].result(timeout=120)
+    np.testing.assert_array_equal(solo, crowded)
+
+
+def test_pin_rung_warmup_runs_only_top_rung(pipe):
+    cfg = ServerConfig(batch_size=4, batch_sizes=(1, 2, 4), pin_rung=True,
+                       max_wait_ms=1, **CFG)
+    srv = GenerationServer(pipe, cfg)
+    sizes = []
+    orig = srv._run_batch
+
+    def counting(batch):
+        sizes.append(len(batch))
+        return orig(batch)
+
+    srv._run_batch = counting
+    with srv:
+        srv.generate("a cat", seed=1)
+    # one warmup batch at the top rung (not three), then the real request
+    assert sizes == [4, 1]
+
+
+def test_int8_server_matches_uce_tpu(snap, tmp_path):
+    """``serve --quantize int8`` with an edit overlay: the port's W8A8 server
+    and uce_tpu's serve the same (prompt, seed, negative prompt) within one
+    uint8 level."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline import SDPipeline as JaxPipeline
+    from uce_tpu.serving.server import (GenerationServer as JaxServer,
+                                        ServerConfig as JaxConfig)
+    from uce_tpu_torch.models.hf_loader import save_safetensors
+    from uce_tpu_torch.ops.quant import is_quantized
+
+    key = "down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k.weight"
+    port = SDPipeline.from_pretrained(snap, dtype=torch.float32, device="cpu")
+    edit = port.unet_params[key] * 0.5
+    edit_path = str(tmp_path / "edit.safetensors")
+    save_safetensors({key: edit}, edit_path)
+    port.quantize_weights("int8")
+    port.load_uce_edits(edit_path)
+    assert port.unet_params[key].dtype == torch.float32
+    assert is_quantized(port.unet_params[key.replace("to_k", "to_q")])
+    jpipe = JaxPipeline.from_pretrained(snap, dtype=jnp.float32)
+    jpipe.quantize_weights("int8")
+    jpipe.load_uce_edits(edit_path)
+    images = []
+    for server_cls, config_cls, p in ((GenerationServer, ServerConfig, port),
+                                      (JaxServer, JaxConfig, jpipe)):
+        with server_cls(p, config_cls(batch_size=2, max_wait_ms=1, **CFG)) as srv:
+            images.append(srv.generate("a cat", seed=7, negative_prompt="a dog"))
+    diff = np.abs(images[0].astype(np.int16) - images[1].astype(np.int16))
+    assert diff.max() <= 1, f"max uint8 diff {diff.max()}"

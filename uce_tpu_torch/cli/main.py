@@ -1,5 +1,5 @@
-"""CLI of the port: ``python -m uce_tpu_torch <edit-sd|generate> ...`` with
-the flag names of the uce_tpu CLI (and of the reference scripts).
+"""CLI of the port: ``python -m uce_tpu_torch <edit-sd|generate|serve> ...``
+with the flag names of the uce_tpu CLI (and of the reference scripts).
 
 ``--device`` defaults to ``cuda``; ``cpu`` runs only when asked for. A run
 that asks for cuda where there is none fails rather than use the CPU.
@@ -77,6 +77,7 @@ def cmd_edit_sd(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from uce_tpu_torch.cli import serve_cmd
     from uce_tpu_torch.eval import generate
 
     parser = argparse.ArgumentParser(
@@ -87,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_edit_flags(p, "CompVis/stable-diffusion-v1-4")
     p.set_defaults(func=cmd_edit_sd)
     generate.register_cli(sub, _add_device_flag)
+    serve_cmd.register_cli(sub, _add_device_flag)
     return parser
 
 

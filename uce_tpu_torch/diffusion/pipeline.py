@@ -13,7 +13,7 @@ import torch
 from uce_tpu_torch.diffusion import sampler, schedulers
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
-from uce_tpu_torch.models import clip_text, unet as unet_mod, vae as vae_mod
+from uce_tpu_torch.models import clip_text, quantize, unet as unet_mod, vae as vae_mod
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
 from uce_tpu_torch.utils import torch_rng
 
@@ -53,9 +53,21 @@ class SDPipeline:
                    dtype=dtype, device=device)
 
     def load_uce_edits(self, safetensors_path: str) -> None:
-        """Overlay UCE-edited weights (load_state_dict(strict=False))."""
+        """Overlay UCE-edited weights (load_state_dict(strict=False)); an
+        edit of a quantized weight replaces it in the pipeline's dtype."""
         self.unet_params = unet_mod.overlay_edits(
-            self.unet_params, read_safetensors(safetensors_path))
+            self.unet_params, read_safetensors(safetensors_path), dtype=self.dtype)
+
+    def quantize_weights(self, mode: str = "w8") -> None:
+        """Quantize the UNet and VAE weights in place (``models/quantize.py``):
+        ``"int8"`` = W8A8 (int8 products, and the int8-QK^T attention kernel
+        for the UNet's long self-attentions), ``"w8"`` = weight-only int8.
+        Edits overlaid before or after: an overlay replaces a quantized slot
+        with the float edit."""
+        self.unet_params = quantize.quantize_params(self.unet_params,
+                                                    quantize.UNET_SKIP, mode)
+        self.vae_params = quantize.quantize_params(self.vae_params,
+                                                   quantize.VAE_SKIP, mode)
 
     def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
         ids, _ = emb.tokenize_batch(self.tokenizer, list(prompts),
@@ -69,16 +81,27 @@ class SDPipeline:
     def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
                  guidance_scale: float = 7.5, num_images_per_prompt: int = 1,
                  seed: int | Sequence[int] = 0, height: int = 512, width: int = 512,
-                 scheduler: str | None = None) -> np.ndarray:
+                 scheduler: str | None = None,
+                 negative_prompt: str | Sequence[str] | None = None) -> np.ndarray:
         """Returns uint8 images [N, H, W, 3], classifier-free guidance
-        against the empty prompt."""
+        against ``negative_prompt`` (the empty prompt by default; a string
+        for every prompt or one per prompt, repeated per image)."""
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         n_prompts = len(prompts)
         prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
         bsz = len(prompts)
         if not isinstance(seed, (int, np.integer)) and len(seed) != n_prompts:
             raise ValueError("len(seed) must match len(prompt)")
-        context = torch.cat([self.encode_prompts([""] * bsz),
+        if negative_prompt is None:
+            negatives = [""] * bsz
+        elif isinstance(negative_prompt, str):
+            negatives = [negative_prompt] * bsz
+        else:
+            negatives = [n for n in negative_prompt
+                         for _ in range(num_images_per_prompt)]
+            if len(negatives) != bsz:
+                raise ValueError("len(negative_prompt) must match len(prompt)")
+        context = torch.cat([self.encode_prompts(negatives),
                              self.encode_prompts(prompts)])
 
         vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)

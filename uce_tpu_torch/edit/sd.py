@@ -57,7 +57,7 @@ def load_tokenizer(model_dir: str, subfolder: str = "tokenizer") -> CLIPTokenize
 
 
 def load_text_encoder(model_dir: str, subfolder: str = "text_encoder",
-                      device="cpu"):
+                      device="cuda"):
     config = clip_text.CLIPTextConfig.from_hf(
         load_json(os.path.join(model_dir, subfolder, "config.json")))
     sd = {k: v.to(device) for k, v in
@@ -65,7 +65,7 @@ def load_text_encoder(model_dir: str, subfolder: str = "text_encoder",
     return clip_text.convert_hf_state_dict(sd, config), config
 
 
-def load_resources(model_dir: str, device="cpu") -> SDEditResources:
+def load_resources(model_dir: str, device="cuda") -> SDEditResources:
     """Edit targets + text encoder from an HF snapshot directory."""
     device = torch.device(device)
     unet_sd = load_state_dict(model_dir, "unet", keys=sd_targets.is_sd_cross_attn_kv,
@@ -85,7 +85,7 @@ def erase_from_embeddings(
     erase_scale: float = 1.0,
     preserve_scale: float = 1.0,
     lamb: float = 0.5,
-    device="cpu",
+    device="cuda",
     method: str = "collapsed",
     apply_on: str = "device",
 ) -> dict[str, torch.Tensor]:

@@ -3,7 +3,10 @@
 uce_tpu keeps nested dicts of arrays with conv kernels HWIO and linear
 weights [in, out] (CLIP text layer-stacked as [L, ...]); the port keeps
 diffusers/HF layouts (conv OIHW, linear [out, in]). Inputs are anything
-``numpy.asarray`` accepts (numpy or jax arrays).
+``numpy.asarray`` accepts (numpy or jax arrays). A quantized leaf of
+uce_tpu (``{"qint8"|"w8int": int8, "scale": [1, ..., out]}``) becomes the
+port's quantized weight at the same key: its payload in the port's layout
+and its scale as ``[out]``.
 """
 
 from __future__ import annotations
@@ -14,13 +17,20 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.models.clip_text import _LAYER_KEYS, CLIPTextConfig
+from uce_tpu_torch.ops.quant import QKEY, WKEY
+
+
+def _quant_kind(v) -> str | None:
+    if isinstance(v, Mapping):
+        return next((k for k in (QKEY, WKEY) if k in v), None)
+    return None
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
     out = {}
     for k, v in tree.items():
         key = f"{prefix}.{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
+        if isinstance(v, Mapping) and _quant_kind(v) is None:
             out.update(_flatten(v, key))
         else:
             out[key] = v
@@ -35,10 +45,19 @@ def _to_port_layout(key: str, v: np.ndarray) -> np.ndarray:
     return v
 
 
-def nested_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """uce_tpu nested UNet or VAE params -> flat diffusers state dict."""
-    return {k: torch.tensor(_to_port_layout(k, np.asarray(v, np.float32)))
-            for k, v in _flatten(params).items()}
+def _convert(key: str, v):
+    kind = _quant_kind(v)
+    if kind is None:
+        return torch.tensor(_to_port_layout(key, np.asarray(v, np.float32)))
+    payload = np.ascontiguousarray(_to_port_layout(key, np.asarray(v[kind], np.int8)))
+    return {kind: torch.from_numpy(payload),
+            "scale": torch.tensor(np.asarray(v["scale"], np.float32).reshape(-1))}
+
+
+def nested_to_state_dict(params: Mapping) -> dict:
+    """uce_tpu nested UNet or VAE params -> flat diffusers state dict (with
+    the port's quantized weights where uce_tpu has quantized leaves)."""
+    return {k: _convert(k, v) for k, v in _flatten(params).items()}
 
 
 def clip_text_params(params: Mapping, config: CLIPTextConfig) -> dict:

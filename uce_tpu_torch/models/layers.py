@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from uce_tpu_torch.ops import quant
 from uce_tpu_torch.ops.kernels import conv3x3 as conv_kernel
 from uce_tpu_torch.ops.kernels import group_norm as gn_kernel
 
@@ -54,6 +55,12 @@ def _nhwc_shape(x):
 
 
 def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 1):
+    """NCHW conv; ``weight`` is OIHW or a quantized dict (``ops/quant.py``),
+    which never takes the conv3x3 kernel."""
+    if quant.is_weight_only(weight):
+        return quant.wconv2d(x, weight, bias, stride, padding)
+    if quant.is_quantized(weight):
+        return quant.qconv2d(x, weight, bias, stride, padding)
     if (os.environ.get("UCE_CONV_IMPL") == KERNEL_IMPL
             and x.dtype == torch.bfloat16 and x.ndim == 4 and stride == 1
             and padding == 1 and tuple(weight.shape[2:]) == (3, 3)):
@@ -63,6 +70,10 @@ def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 1):
 
 
 def linear(x, weight, bias=None):
+    if quant.is_weight_only(weight):
+        return quant.wlinear(x, weight, bias)
+    if quant.is_quantized(weight):
+        return quant.qlinear(x, weight, bias)
     return F.linear(x, weight, bias)
 
 

@@ -7,7 +7,9 @@ safetensors overlays map 1:1. Self-attention at the long sequence lengths
 ``ops.attention.dot_product_attention(impl="auto")``. With ``UCE_CONV_IMPL``
 or ``UCE_GN_IMPL`` set to ``pallas`` (``models/layers.py``) the forward holds
 its activations in ``torch.channels_last``, the layout of the conv3x3 and
-group_norm_act kernels, and returns a contiguous NCHW tensor.
+group_norm_act kernels, and returns a contiguous NCHW tensor. Weights may be
+the int8 dicts of ``ops/quant.py`` (``SDPipeline.quantize_weights``); a W8A8
+``to_q`` sends its self-attention to the int8-QK^T kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from uce_tpu_torch.models.layers import (
     timestep_embedding,
 )
 from uce_tpu_torch.ops.attention import dot_product_attention
+from uce_tpu_torch.ops.quant import QKEY, WKEY, concat_weights, is_quantized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,22 +128,27 @@ def _resnet(p, pre, x, temb, groups: int):
 def _attention(p, pre, x, context, heads: int, impl: str):
     """diffusers Attention: to_q/to_k/to_v (no bias), to_out.0 (bias).
     Self-attention runs one fused QKV projection, cross-attention one fused
-    KV projection, split in that order."""
+    KV projection, split in that order; a tree that mixes float and
+    quantized projections (an edit overlay on a quantized UNet) runs them
+    separately. A W8A8 ``to_q`` selects the int8-QK^T attention kernel."""
     b, tq, _ = x.shape
-    if context is None:
-        w = torch.cat([p[pre + ".to_q.weight"], p[pre + ".to_k.weight"],
-                       p[pre + ".to_v.weight"]])
-        q, k, v = linear(x, w).chunk(3, dim=-1)
+    wq, wk, wv = (p[f"{pre}.{n}.weight"] for n in ("to_q", "to_k", "to_v"))
+    wqkv = concat_weights([wq, wk, wv]) if context is None else None
+    if wqkv is not None:
+        q, k, v = linear(x, wqkv).chunk(3, dim=-1)
     else:
-        q = linear(x, p[pre + ".to_q.weight"])
-        w = torch.cat([p[pre + ".to_k.weight"], p[pre + ".to_v.weight"]])
-        k, v = linear(context, w).chunk(2, dim=-1)
+        ctx = x if context is None else context
+        q = linear(x, wq)
+        wkv = concat_weights([wk, wv])
+        k, v = (linear(ctx, wkv).chunk(2, dim=-1) if wkv is not None
+                else (linear(ctx, wk), linear(ctx, wv)))
     dh = q.shape[-1] // heads
 
     def split(z):
         return z.reshape(b, -1, heads, dh).transpose(1, 2)
 
-    out = dot_product_attention(split(q), split(k), split(v), impl=impl)
+    out = dot_product_attention(split(q), split(k), split(v), impl=impl,
+                                qk_int8=is_quantized(wq))
     out = out.transpose(1, 2).reshape(b, tq, heads * dh)
     return linear(out, *_w(p, pre + ".to_out.0"))
 
@@ -257,10 +265,13 @@ def load_params(state_dict: Mapping[str, object], dtype=torch.float32,
             for k, v in state_dict.items()}
 
 
-def overlay_edits(params: dict, edits: Mapping[str, torch.Tensor]) -> dict:
+def overlay_edits(params: dict, edits: Mapping[str, torch.Tensor],
+                  dtype=torch.bfloat16) -> dict:
     """Apply UCE safetensors edits (diffusers flat keys and layouts) onto
     params, as diffusers' load_state_dict(strict=False): unknown keys are
-    skipped, a shape mismatch raises. Returns a new dict."""
+    skipped, a shape mismatch raises. A float edit replaces a quantized slot
+    (``ops/quant.py``) outright in ``dtype``, the pipeline's dtype; the layer
+    dispatch handles the mixed tree. Returns a new dict."""
     edited = dict(params)
     skipped = []
     for key, v in edits.items():
@@ -268,10 +279,15 @@ def overlay_edits(params: dict, edits: Mapping[str, torch.Tensor]) -> dict:
         if old is None:
             skipped.append(key)
             continue
+        new_dtype = dtype
+        if isinstance(old, dict):  # quantized slot: check against its payload
+            old = old.get(QKEY, old.get(WKEY))
+        else:
+            new_dtype = old.dtype
         if tuple(v.shape) != tuple(old.shape):
             raise ValueError(f"edit for '{key}' has shape {tuple(v.shape)}, "
                              f"model expects {tuple(old.shape)}")
-        edited[key] = v.float().to(device=old.device, dtype=old.dtype)
+        edited[key] = v.float().to(device=old.device, dtype=new_dtype)
     if skipped:
         print(f"overlay_edits: skipped {len(skipped)} unknown keys "
               f"(e.g. {skipped[0]})")

@@ -3,7 +3,10 @@
 ``impl="auto"`` keeps uce_tpu's routing rule: long mask-free, non-causal
 self-attention (Sq >= 1024 and Sq == Skv) on a CUDA tensor, at a shape the
 kernel takes, runs the hand-written sd_attention kernel; everything else
-runs the plain path. ``impl="plain"`` forces the plain path.
+runs the plain path. ``impl="plain"`` forces the plain path. ``qk_int8``
+(set by W8A8-quantized call sites) selects the kernel's int8-QK^T variant
+for the calls that route to the kernel; every other call ignores it, as
+uce_tpu ignores it off its kernel.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def plain_attention(q, k, v, mask, causal: bool, scale: float):
 
 
 def dot_product_attention(q, k, v, *, mask=None, causal: bool = False,
-                          scale: float | None = None, impl: str = "auto"):
+                          scale: float | None = None, impl: str = "auto",
+                          qk_int8: bool = False):
     """Multi-head attention over [B, H, T, Dh] tensors.
 
     mask: optional boolean [B, 1|H, Tq, Tk], True = attend.
@@ -54,5 +58,5 @@ def dot_product_attention(q, k, v, *, mask=None, causal: bool = False,
             q.shape, k.shape, q.dtype, q.device.type,
             masked=mask is not None, causal=causal):
         return sdk.sd_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                scale)
+                                scale, qk_int8=qk_int8)
     return plain_attention(q, k, v, mask, causal, scale)

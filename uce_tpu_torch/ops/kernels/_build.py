@@ -2,8 +2,9 @@
 
 Sources live in ``uce_tpu_torch/csrc``. Each shared library is compiled
 with ``nvcc`` for ``sm_90a`` into ``build/uce_tpu_torch/<hash>/`` at the
-root of the checkout, keyed by a hash of its sources, so an edited source
-rebuilds and an unchanged one loads from the cache. Each kernel has its own
+root of the checkout, keyed by a hash of its sources and of the shared
+headers (``csrc/*.cuh``), so an edited source rebuilds and an unchanged one
+loads from the cache. Each kernel has its own
 library, so editing one source rebuilds only that one.
 """
 
@@ -41,7 +42,7 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         return _loaded[name]
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256()
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -1,6 +1,7 @@
 """Device-time profile of the port's SD 1.4 UNet forward and VAE decode on
-one CUDA card, on the library path and on the kernel path
-(UCE_CONV_IMPL=UCE_GN_IMPL=pallas), via torch.profiler.
+one CUDA card, on the library path, on the kernel path
+(UCE_CONV_IMPL=UCE_GN_IMPL=pallas) and W8A8-quantized (``serve --quantize
+int8``: the library path on int8 weights), via torch.profiler.
 
     python -m uce_tpu_torch.tools.trace_prof [--batch 4] [--runs 5]
 
@@ -27,13 +28,15 @@ import time
 import numpy as np
 import torch
 
-from uce_tpu_torch.models import unet, vae
+from uce_tpu_torch.models import quantize, unet, vae
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.ops.kernels import conv3x3
 
 # First matching pattern names a kernel's category.
 CATEGORIES = [
+    ("sd_attention_qk8 kernel", r"sd_attention_qk8"),
     ("sd_attention kernel", r"sd_attention"),
+    ("int8 GEMMs (torch._int_mm)", r"gemm_s8|s8s8|imma"),
     ("conv3x3 kernel", r"conv3x3_kernel"),
     ("group_norm_act kernels", r"gn_(partial|fold|apply)_kernel"),
     ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
@@ -173,14 +176,17 @@ def main(argv=None) -> int:
     x = torch.randn(args.batch, 4, 64, 64, device="cuda", generator=gen).bfloat16()
     ctx = torch.randn(args.batch, 77, 768, device="cuda", generator=gen).bfloat16()
     lat = torch.randn(1, 4, 64, 64, device="cuda", generator=gen).bfloat16()
+    params = {"library": (uparams, vparams), "kernels": (uparams, vparams),
+              "int8": (quantize.quantize_params(uparams, quantize.UNET_SKIP, "int8"),
+                       quantize.quantize_params(vparams, quantize.VAE_SKIP, "int8"))}
     with torch.inference_mode():
-        for path in ("library", "kernels"):
+        for path, (up, vp) in params.items():
             select_path(path == "kernels")
             report(f"unet {path} batch {args.batch}", profile(
-                lambda: unet.apply(uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG),
+                lambda: unet.apply(up, x, 981.0, ctx, unet.SD14_UNET_CONFIG),
                 args.runs))
             report(f"vae {path} batch 1", profile(
-                lambda: vae.decode(vparams, lat, vae.SD_VAE_CONFIG), args.runs))
+                lambda: vae.decode(vp, lat, vae.SD_VAE_CONFIG), args.runs))
         conv_table(f"unet batch {args.batch}", conv_shapes(
             lambda: unet.apply(uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)))
         conv_table("vae batch 1", conv_shapes(
