@@ -6,7 +6,7 @@ full width, and check them.
 
 Phases (each raises on failure; the exit code is non-zero unless all pass):
   1. the card: CUDA must be available; print its name and power limit;
-  2. the kernels: build the five libraries from csrc/ (one nvcc each, all at
+  2. the kernels: build the six libraries from csrc/ (one nvcc each, all at
      once), compare each kernel with its plain PyTorch version at the main
      paths' shapes and on the Pallas tests' cases (elementwise and relative
      L2 bounds), and time the kernel, the plain version and one library call
@@ -86,12 +86,12 @@ SEED = 0
 # gross faults; the relative L2 bound scales with the output at each shape.
 # Attention rounds its probabilities and output to bf16 (about 2^-9/sqrt(3)
 # ~ 1.1e-3 each; 2.9e-3 to 3.1e-3 measured at every shape on an H100).
-# GroupNorm and the conv do their plain versions' fp32 arithmetic in
-# another order and differ only where a bf16 rounding flips (measured at
-# most 2.2e-5 and 3.2e-4).
+# GroupNorm, the conv and the d=512 attention's split merge do their plain
+# versions' fp32 arithmetic in another order and differ only where a bf16
+# rounding flips (measured at most 2.2e-5, 3.2e-4 and 2.0e-5).
 ATOL, RTOL = 0.02, 0.05
 KERNEL_REL_L2 = {"sd_attention": 1e-2, "sd_attention_qk8": 1e-2,
-                 "group_norm_act": 1e-3, "conv3x3": 2e-3}
+                 "group_norm_act": 1e-3, "conv3x3": 2e-3, "d512_merge": 1e-3}
 # uce_solve: max |X_kernel - X_plain| / max |X_plain| (both fp32).
 SOLVE_REL_MAX = 1e-3
 # edit-sd: max abs diff / max abs over the 32 targets. Each method is held
@@ -125,12 +125,15 @@ VAE_LAUNCHES_INT8 = {"sd_attention_qk8": 0, "sd_attention": 1, "sd_attention_d51
 # in one forward: 9.8e-2 measured on an H100, with each of its ten calls
 # within 7.7e-4 of the plain version on the same inputs).
 INT8_VS_BF16_REL_L2 = 0.25
-# NVIDIA H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, fp32
-# CUDA cores, HBM3.
+# NVIDIA H100 SXM data-sheet peaks (dense): bf16, int8 and TF32 tensor
+# cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_INT8, PEAK_FP32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
+PEAK_TF32 = 495e12
 
+# Attention: the UNet's two long self-attentions at batch 16 (8 prompts under
+# CFG), the VAE mid-block at batch 1 (generate) and 4 (the serving rung).
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
-              (1, 1, 4096, 4096, 512)]
+              (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512)]
 # (shape NHWC, groups, eps, act)
@@ -159,8 +162,9 @@ ART = "Kelly McKernan; Thomas Kinkade; Tyler Edlin; Kilian Eng; Ajin Demi Human"
 PRESERVE = "Van Gogh; Rembrandt; Pablo Picasso"
 KERNEL_MODULES = {"sd_attention": sdk, "group_norm_act": gnk, "conv3x3": convk,
                   "uce_solve": solvek}
-BUILDS = {"sd_attention": sdk.build, "sd_attention_qk8": sdk.build_qk8,
-          "group_norm": gnk.build, "conv3x3": convk.build, "uce_solve": solvek.build}
+BUILDS = {"sd_attention": sdk.build, "sd_attention_d512": sdk.build_d512,
+          "sd_attention_qk8": sdk.build_qk8, "group_norm": gnk.build,
+          "conv3x3": convk.build, "uce_solve": solvek.build}
 SERVE_PROMPTS = ["a painting by kelly mckernan", "a photo of a dog",
                  "a house in the style of rembrandt"]
 
@@ -211,6 +215,7 @@ def reset_launches() -> None:
         mod.launches = 0
     sdk.launches_by_dim.clear()
     sdk.launches_qk8 = 0
+    sdk.launches_merge = 0
 
 
 def read_launches() -> dict[str, int]:
@@ -218,6 +223,7 @@ def read_launches() -> dict[str, int]:
     counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
     counts["sd_attention_d512"] = sdk.launches_by_dim.get(512, 0)
     counts["sd_attention_qk8"] = sdk.launches_qk8
+    counts["sd_attention_d512_merge"] = sdk.launches_merge
     return counts
 
 
@@ -257,6 +263,7 @@ def phase_build() -> None:
 
 
 def phase_attention(gen, rows: dict) -> None:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, h, sq, skv, d in ATTN_SLICE + ATTN_CASES:
         q = torch.randn(b, h, sq, d, device="cuda", generator=gen).bfloat16()
         k = torch.randn(b, h, skv, d, device="cuda", generator=gen).bfloat16()
@@ -280,7 +287,9 @@ def phase_attention(gen, rows: dict) -> None:
                 q, k, v, None, False, scale))
             bound_ms, by = bound(4.0 * b * h * sq * skv * d / PEAK_BF16,
                                  2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d))
-            if (sq, d) in ((4096, 40), (4096, 512)):
+            if d == 512:
+                line += f" ({sdk.d512_splits(b * h, sq, skv, sms)} KV splits)"
+            if (b, h, sq, d) in ((16, 8, 4096, 40), (1, 1, 4096, 512)):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=by)
             line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
@@ -288,6 +297,24 @@ def phase_attention(gen, rows: dict) -> None:
                      f"{path_ms:.4f} ms (median of 10), bound {bound_ms:.4f} ms "
                      f"({by})")
         print(line, flush=True)
+        if (b, h, sq, skv, d) == (1, 1, 4096, 4096, 512):
+            phase_merge(q, k, v, scale, rows[name])
+
+
+def phase_merge(q, k, v, scale, row: dict) -> None:
+    """The d=512 attention's split merge kernel against its plain version on
+    the partial results that the split kernel writes for these inputs."""
+    o_part, ml = sdk.sd_attention_partials(q, k, v, scale, 2)
+    got = sdk.merge_partials(o_part, ml)
+    torch.cuda.synchronize()
+    max_err, note = check_bf16("d512_merge", "sd_attention_d512 merge", got,
+                               sdk.merge_partials_reference(o_part, ml))
+    row["max_abs_err"] = max(row["max_abs_err"], max_err)
+    ms = median_ms(lambda: sdk.merge_partials(o_part, ml))
+    plain_ms = median_ms(lambda: sdk.merge_partials_reference(o_part, ml))
+    print(f"[kernel] sd_attention_d512 merge of 2 splits {tuple(q.shape)} {note} "
+          f"kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms (median of 10)",
+          flush=True)
 
 
 def phase_group_norm(gen, rows: dict) -> None:
@@ -380,13 +407,22 @@ def phase_solve(gen, rows: dict) -> None:
             ms = median_ms(lambda: solvek.newton_schulz_inverse(*args))
             plain_ms = median_ms(lambda: solvek.newton_schulz_reference(*args))
             lib_ms = median_ms(lambda: torch.linalg.inv(b_mat))
-            flops = 2.0 * d * d * (ke + kp) + solvek.NEWTON_ITERS * 2 * 2.0 * d ** 3
-            bound_ms, by = bound(flops / PEAK_FP32, 4.0 * (ke + kp) * d + 4.0 * d * d)
+            # Two floors for fp32-accurate products: the GEMMs on the fp32
+            # CUDA cores, and three TF32 tensor-core products each (3xTF32,
+            # the kernel's method: the lower one, so that the share of the
+            # bound cannot read over 100%). The Gram build is fp32 FMA work.
+            gemm_flops = solvek.NEWTON_ITERS * 2 * 2.0 * d ** 3
+            gram_flops = 2.0 * d * d * (ke + kp)
+            nbytes = 4.0 * (ke + kp) * d + 4.0 * d * d
+            fp32_ms = bound((gemm_flops + gram_flops) / PEAK_FP32, nbytes)[0]
+            bound_ms, by = bound(3 * gemm_flops / PEAK_TF32 + gram_flops / PEAK_FP32,
+                                 nbytes)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=by)
             line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
                      f"library (torch.linalg.inv) {lib_ms:.4f} ms (median of 10), "
-                     f"bound {bound_ms:.4f} ms ({by})")
+                     f"bound {bound_ms:.4f} ms ({by}: 3xTF32 at 495 TFLOP/s; "
+                     f"{fp32_ms:.4f} ms on the fp32 CUDA cores)")
         print(line, flush=True)
 
 
@@ -604,6 +640,9 @@ def phase_unet(pipe) -> None:
 def phase_vae(pipe) -> None:
     lat = draw_prompt_latents((64, 64, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
     lat = lat / pipe.vae_config.scaling_factor
+    # the mid-block attention at one head and s=4096 splits its KV range
+    merges = int(sdk.d512_splits(1, 4096, 4096, torch.cuda.get_device_properties(
+        0).multi_processor_count) > 1)
     outs, times = {}, {}
     with torch.inference_mode():
         for name in ("library", "kernels"):
@@ -614,8 +653,9 @@ def phase_vae(pipe) -> None:
                 got = read_launches()
                 want = VAE_LAUNCHES if name == "kernels" else VAE_LAUNCHES_LIBRARY
                 expect_launches(f"VAE decode ({name})", got, want)
-                if got["sd_attention_d512"] != 1:
-                    raise AssertionError(f"VAE decode ({name}): {got}")
+                if got["sd_attention_d512"] != 1 or got["sd_attention_d512_merge"] != merges:
+                    raise AssertionError(f"VAE decode ({name}): {got}, want "
+                                         f"{merges} split merges")
                 times[name] = median_ms(dec, reps=3, warmup=1)
     if outs["kernels"].shape != (1, 3, 512, 512) or not bool(
             torch.isfinite(outs["kernels"]).all()):
@@ -625,7 +665,8 @@ def phase_vae(pipe) -> None:
         raise AssertionError(f"VAE decode kernels vs library: rel L2 {rel}")
     print(f"[vae] decode batch 1 at 512x512: rel L2 kernels vs library {rel:.3e} "
           f"(bound {REL_L2_MAX}); {times['kernels']:.2f} ms on all kernels "
-          f"(launches {VAE_LAUNCHES}, sd_attention at d=512), "
+          f"(launches {VAE_LAUNCHES}, sd_attention at d=512 with {merges} split "
+          f"merge), "
           f"{times['library']:.2f} ms on the library path with sd_attention at "
           "d=512 (median of 3)", flush=True)
 
@@ -929,7 +970,7 @@ def main() -> int:
                 "launches": 0, "max_abs_err": 0.0}
             for k, f, r in (
                 ("sd_attention", "sd_attention.cu", "uce_tpu/ops/pallas/sd_attention.py:86"),
-                ("sd_attention_d512", "sd_attention.cu", "uce_tpu/ops/attention.py:96"),
+                ("sd_attention_d512", "sd_attention_d512.cu", "uce_tpu/ops/attention.py:96"),
                 ("sd_attention_qk8", "sd_attention_qk8.cu",
                  "uce_tpu/ops/pallas/sd_attention.py:166"),
                 ("group_norm_act", "group_norm.cu", "uce_tpu/ops/pallas/group_norm.py:112"),

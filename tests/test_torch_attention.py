@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from uce_tpu.ops.attention import _xla_attention
+from uce_tpu.ops.attention import _xla_attention, dot_product_attention
 from uce_tpu.ops.pallas import sd_attention as pallas_sdk
 from uce_tpu_torch.ops import attention as port_attn
 from uce_tpu_torch.ops.kernels import sd_attention as port_sdk
@@ -109,6 +109,54 @@ def test_vae_head_dim_matches_xla_attention():
     want = np.asarray(_xla_attention(qj, kj, vj, None, False, scale), np.float32)
     got = port_sdk.sd_attention(qt, kt, vt, scale)
     np.testing.assert_allclose(got.float().numpy(), want, atol=0.02, rtol=0.05)
+
+
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 1, 256, 256), (2, 1, 200, 200)])
+def test_d512_split_merge_matches_uce_tpu(b, h, sq, skv):
+    """The d=512 kernel's split path in its plain versions: the KV range
+    split in two (a ragged last tile at 200), each split's unnormalised O
+    and (max, sum), then the merge, against uce_tpu's dot_product_attention
+    with the bf16 tolerance of the cases above."""
+    rng = np.random.default_rng(6)
+    qj, qt = _bf16_pair(rng.standard_normal((b, h, sq, 512)))
+    kj, kt = _bf16_pair(rng.standard_normal((b, h, skv, 512)))
+    vj, vt = _bf16_pair(rng.standard_normal((b, h, skv, 512)))
+    scale = 512 ** -0.5
+    want = np.asarray(dot_product_attention(qj, kj, vj, scale=scale), np.float32)
+    port_sdk.launches = port_sdk.launches_merge = 0
+    o_part, ml = port_sdk.sd_attention_partials(qt, kt, vt, scale, 2)
+    assert tuple(o_part.shape) == (2, b, h, sq, 512)
+    assert tuple(ml.shape) == (2, b, h, sq, 2)
+    got = port_sdk.merge_partials(o_part, ml)
+    assert (port_sdk.launches, port_sdk.launches_merge) == (0, 0)  # CPU: plain
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.02, rtol=0.05)
+    whole = port_sdk.sd_attention_reference(qt, kt, vt, scale).float()
+    assert float((got.float() - whole).norm() / whole.norm()) < 1e-2
+
+
+def test_d512_wrappers_raise_off_the_cpu_and_card():
+    """A tensor on neither the CPU nor a CUDA card raises: the wrappers take
+    the plain versions only for CPU tensors."""
+    q = torch.empty(1, 1, 64, 512, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port_sdk.sd_attention_partials(q, q, q, 512 ** -0.5, 2)
+    o_part = torch.empty(2, 1, 1, 64, 512, device="meta")
+    with pytest.raises(ValueError, match="unsupported"):
+        port_sdk.merge_partials(o_part, torch.empty(2, 1, 1, 64, 2, device="meta"))
+
+
+@pytest.mark.parametrize("bh,sq,skv,want", [
+    (1, 4096, 4096, 2),   # the VAE decode at batch 1: 64 query tiles
+    (2, 4096, 4096, 1),   # 128 query tiles fill the card alone
+    (4, 4096, 4096, 1),   # the serving rung of 4
+    (2, 200, 200, 7),     # 8 query tiles, one split per 32-row KV tile
+])
+def test_d512_splits(bh, sq, skv, want):
+    assert port_sdk.d512_splits(bh, sq, skv, 132) == want
+    per, splits = port_sdk.kv_split_tiles(skv, want)
+    tiles = -(-skv // 32)
+    assert splits == want and (splits - 1) * per < tiles <= splits * per
 
 
 @pytest.mark.parametrize("d,want", [(512, True), (256, False), (48, False)])

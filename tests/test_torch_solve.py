@@ -49,6 +49,74 @@ def test_newton_schulz_matches_pallas_kernel(k, p, d):
     assert np.abs(got - chol).max() / scale < 5e-3
 
 
+def _tf32(x):
+    """fp32 -> TF32 value (10 explicit mantissa bits), rounded to nearest
+    with ties away from zero on the int32 view (cvt.rna.tf32.f32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the kernel's GEMM forms it: big = tf32(x), small =
+    tf32(x - big) for each operand, and small.big + big.small + big.big,
+    each product exact in fp32 (two 11-bit significands), summed in fp32."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    with tsolver.full_fp32():
+        return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def _newton_schulz_3xtf32(c_edit, c_pres, erase_scale, preserve_scale, lamb):
+    """The kernel chain with its GEMMs emulated in 3xTF32 (the Gram build,
+    the norm and X_0 are fp32, as in the kernel)."""
+    d = c_edit.shape[1]
+    eye = torch.eye(d, dtype=torch.float32)
+    with tsolver.full_fp32():
+        b = (erase_scale * (c_edit.T @ c_edit)
+             + preserve_scale * (c_pres.T @ c_pres) + lamb * eye)
+    x = eye / b.abs().sum(dim=1).max()
+    for _ in range(port_solve.NEWTON_ITERS):
+        x = _matmul_3xtf32(x, 2.0 * eye - _matmul_3xtf32(b, x))
+    return x
+
+
+def test_tf32_rounding():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 3 * 2.0 ** -12)])
+    # 1 + 2^-11 is a tie between 1 and 1 + 2^-10: away from zero
+    assert _tf32(x).tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -10)]
+
+
+@pytest.mark.parametrize("k,p,d", [(4, 3, 256), (16, 0, 256)])
+def test_newton_schulz_3xtf32_meets_the_fp32_bar(k, p, d, monkeypatch):
+    """The 3xTF32 split of the uce_solve kernel's GEMMs, emulated here, stays
+    within chip_smoke.py's 1e-3 of the fp32 plain version, and its edit
+    matrix within this file's 5e-3 of the Pallas kernel."""
+    rng = np.random.default_rng(0)
+    c_edit = rng.standard_normal((k, d)).astype(np.float32)
+    c_guide = rng.standard_normal((k, d)).astype(np.float32)
+    c_pres = rng.standard_normal((p, d)).astype(np.float32)
+    args = (_t(c_edit), _t(c_pres), 1.3, 0.7, 0.5)
+    x = _newton_schulz_3xtf32(*args)
+    ref = port_solve.newton_schulz_reference(*args)
+    assert float((x - ref).abs().max() / ref.abs().max()) < 1e-3
+    # the control: one TF32 product per GEMM stalls far from that bar
+    eye = torch.eye(d)
+    b = 1.3 * args[0].T @ args[0] + 0.7 * args[1].T @ args[1] + 0.5 * eye
+    x1 = eye / b.abs().sum(dim=1).max()
+    with tsolver.full_fp32():
+        for _ in range(port_solve.NEWTON_ITERS):
+            x1 = _tf32(x1) @ _tf32(2.0 * eye - _tf32(b) @ _tf32(x1))
+    assert float((x1 - ref).abs().max() / ref.abs().max()) > 1e-3
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_pallas(jnp.asarray(c_edit), jnp.asarray(c_guide),
+                                     jnp.asarray(c_pres), 1.3, 0.7, 0.5))
+    monkeypatch.setattr(port_solve, "newton_schulz_inverse",
+                        lambda *a: _newton_schulz_3xtf32(*a))
+    got = port_solve.uce_edit_matrix_pallas(_t(c_edit), _t(c_guide), _t(c_pres),
+                                            1.3, 0.7, 0.5).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 5e-3
+
+
 def test_newton_schulz_inverse_reference():
     rng = np.random.default_rng(1)
     c_edit, c_pres = _t(rng.standard_normal((6, 64))), _t(rng.standard_normal((2, 64)))

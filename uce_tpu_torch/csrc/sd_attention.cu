@@ -1,17 +1,13 @@
 // Mask-free multi-head attention, softmax(q k^T * scale) v over [B, H, S, D]
 // bf16 tensors, for Hopper (built for sm_90a).
 //
-// Replaces two TPU kernels:
-//  - uce_tpu/ops/pallas/sd_attention.py::_kernel, the SD UNet self-attention
-//    (D in {40, 64, 80, 128, 160}): sd_attention_kernel below;
-//  - uce_tpu/ops/attention.py::_flash_attention, JAX's bundled TPU flash
-//    kernel, which serves the VAE mid-block attention (s=4096, D=512, one
-//    head) because the sd_attention VMEM gate rejects D=512:
-//    sd_attention_wide_kernel below.
+// Replaces uce_tpu/ops/pallas/sd_attention.py::_kernel, the SD UNet
+// self-attention (D in {40, 64, 80, 128, 160}). D = 512 (the VAE mid-block)
+// has its own kernel, sd_attention_d512.cu.
 //
 // The TPU's _kernel keeps a whole K/V row and the [bq, S_kv] fp32 logits in
-// VMEM; a Hopper block has at most 227 KB of shared memory, so both kernels
-// here stream K/V in 64-row tiles with an online softmax instead (running
+// VMEM; a Hopper block has at most 227 KB of shared memory, so the kernel
+// here streams K/V in 64-row tiles with an online softmax instead (running
 // row max and row sum in fp32, the output accumulator rescaled whenever the
 // max moves).
 //
@@ -26,26 +22,14 @@
 // products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate); the QK^T
 // accumulator fragments are reused directly as the A operand of PV.
 //
-// D = 512: a thread would need D/8 = 64 PV accumulator n-tiles (256 fp32
-// registers) for O alone, so the wide kernel splits D across the grid: each
-// block owns one 64-column slice of the output, recomputes QK^T over the
-// full 512-wide contraction from shared memory (Q and the K tile, 2 x 65 KB)
-// and runs PV for its slice only. The QK^T work is repeated once per slice
-// (8x): 9 * 2 * S^2 * D flops instead of 4 * S^2 * D. That is the price of
-// a simple kernel; a faster one keeps O in several warpgroups' registers.
-//
 // What bounds it: at s=4096, d=40 the work is tensor-core work on a head
 // dim that fills little of the MMA (the QK^T contraction pads 40 -> 48) and
-// the loads are synchronous (no cp.async/TMA double buffering, no wgmma);
-// at d=512 the 8x repeated QK^T and one resident block per SM (142 KB of
-// shared memory). Those are the levers for a faster version.
+// the loads are synchronous (no cp.async/TMA double buffering, no wgmma).
+// Those are the levers for a faster version.
 
 #include "sd_attention_common.cuh"
 
 namespace {
-
-constexpr int kWideD = 512;         // head dim of the wide kernel
-constexpr int kSlice = 64;          // output columns per wide-kernel block
 
 // Copy `rows` rows of D bf16 (16-byte vectors) from global into a shared
 // tile with row stride `ld`; rows past `valid` are written as zeros.
@@ -147,74 +131,6 @@ sd_attention_kernel(const __nv_bfloat16* __restrict__ q,
                       row0 + warp * 16 + g, sq, t4);
 }
 
-// D = 512: grid (query tiles, batch*head, D / kSlice). Q stays in shared
-// memory (its A fragments would take 128 registers per thread) and is read
-// from there at every k-step.
-__global__ void __launch_bounds__(kThreads)
-sd_attention_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, int sq, int skv,
-                         float scale_log2) {
-  constexpr int D = kWideD;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = kSlice / 8;
-  constexpr int LDQ = D + kPad;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kRowsPerBlock * LDQ;
-  __nv_bfloat16* sVt = sK + kKvTile * LDQ;
-
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int c0 = blockIdx.z * kSlice;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-
-  const __nv_bfloat16* qb = q + ((size_t)bh * sq + row0) * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * skv * D;
-  const __nv_bfloat16* qw = sQ + (warp * 16) * LDQ;
-
-  load_rows<D>(sQ, LDQ, qb, kRowsPerBlock, min(kRowsPerBlock, sq - row0));
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kv0 = 0; kv0 < skv; kv0 += kKvTile) {
-    const int valid = min(kKvTile, skv - kv0);
-    __syncthreads();  // previous tile fully consumed (and Q stored)
-    load_rows<D>(sK, LDQ, kb + (size_t)kv0 * D, kKvTile, valid);
-    load_vt(sVt, vb + (size_t)kv0 * D, D, c0, kSlice, valid);
-    __syncthreads();
-
-    float s[kNTiles][4];
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
-    for (int st = 0; st < kSteps; ++st) {
-      const int c = st * 16 + t4 * 2;
-      uint32_t a[4] = {ld_u32(qw + g * LDQ + c), ld_u32(qw + (g + 8) * LDQ + c),
-                       ld_u32(qw + g * LDQ + c + 8),
-                       ld_u32(qw + (g + 8) * LDQ + c + 8)};
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n) {
-        const __nv_bfloat16* krow = sK + (n * 8 + g) * LDQ + c;
-        uint32_t b[2] = {ld_u32(krow), ld_u32(krow + 8)};
-        mma_bf16_16816(s[n], a, b);
-      }
-    }
-    softmax_pv<kDTiles>(s, acc, m_run, l_run, valid, scale_log2, sVt, g, t4);
-  }
-  store_rows<kDTiles>(o + (size_t)bh * sq * D, D, c0, acc, l_run,
-                      row0 + warp * 16 + g, sq, t4);
-}
-
 template <typename Kernel>
 int launch_kernel(Kernel kernel, dim3 grid, size_t smem, const void* q,
                   const void* k, const void* v, void* o, int sq, int skv,
@@ -242,16 +158,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
                        scale, stream);
 }
 
-int launch_wide(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int skv, float scale, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(__nv_bfloat16) * ((size_t)(kRowsPerBlock + kKvTile) * (kWideD + kPad) +
-                               (size_t)kSlice * LDV);
-  dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, bh, kWideD / kSlice);
-  return launch_kernel(sd_attention_wide_kernel, grid, smem, q, k, v, o, sq,
-                       skv, scale, stream);
-}
-
 }  // namespace
 
 // Returns a cudaError_t value (0 on success); -1 for an unsupported head dim.
@@ -265,7 +171,6 @@ extern "C" int sd_attention_bf16(const void* q, const void* k, const void* v,
     case 80: return launch<80>(q, k, v, o, bh, sq, skv, scale, s);
     case 128: return launch<128>(q, k, v, o, bh, sq, skv, scale, s);
     case 160: return launch<160>(q, k, v, o, bh, sq, skv, scale, s);
-    case kWideD: return launch_wide(q, k, v, o, bh, sq, skv, scale, s);
     default: return -1;
   }
 }

@@ -29,7 +29,7 @@ class SDPipeline:
     vae_config: vae_mod.VAEConfig
     scheduler_config: dict
     dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,

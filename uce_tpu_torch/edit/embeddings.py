@@ -32,7 +32,7 @@ def gather_last_tokens(hidden: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
 
 
 def encode_concepts_sd(params: dict, config: clip_text.CLIPTextConfig,
-                       tokenizer, concepts: Sequence[str], device="cpu"
+                       tokenizer, concepts: Sequence[str], device="cuda"
                        ) -> dict[str, torch.Tensor]:
     """SD v1.x: {concept: [d] fp32 last-real-token hidden state}."""
     unique = list(dict.fromkeys(concepts))
@@ -44,7 +44,7 @@ def encode_concepts_sd(params: dict, config: clip_text.CLIPTextConfig,
 
 
 def stack_embeds(embeds: Mapping[str, torch.Tensor], concepts: Sequence[str],
-                 device="cpu") -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """[K, d] stack in concept order (repeats as listed)."""
     if not concepts:
         d = len(next(iter(embeds.values()))) if embeds else 0

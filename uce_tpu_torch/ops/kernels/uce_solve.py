@@ -5,9 +5,10 @@ The counterpart of ``uce_tpu/ops/pallas/uce_solve.py::uce_edit_matrix_pallas``.
 ``newton_schulz_inverse`` computes ``X ~= B^-1`` for
 ``B = lam*I + s*Ce^T Ce + p*Cp^T Cp`` by ``NEWTON_ITERS`` steps of
 ``X <- X(2I - BX)`` from ``X_0 = I/||B||_inf``, all in fp32: a CPU tensor
-takes the plain version, a CUDA tensor launches ``csrc/uce_solve.cu`` or
-raises. ``uce_edit_matrix_pallas`` then forms ``E = A X`` and one step of
-iterative refinement ``E += (A - E B) X`` with fp32 matmuls, TF32 off.
+takes the plain version, a CUDA tensor launches ``csrc/uce_solve.cu`` (d a
+multiple of 4, as CLIP's 768 and 1024 are) or raises.
+``uce_edit_matrix_pallas`` then forms ``E = A X`` and one step of iterative
+refinement ``E += (A - E B) X`` with fp32 matmuls, TF32 off.
 """
 
 from __future__ import annotations
@@ -73,6 +74,9 @@ def newton_schulz_inverse(c_edit: torch.Tensor, c_pres: torch.Tensor,
                                        preserve_scale, lamb)
     if c_edit.device.type != "cuda":
         raise ValueError(f"newton_schulz_inverse: unsupported device {c_edit.device}")
+    if d % 4:
+        raise ValueError(f"newton_schulz_inverse: d={d} must be a multiple of 4 "
+                         "(the kernel's tensor maps need 16-byte rows)")
     x = torch.empty((d, d), device=c_edit.device, dtype=torch.float32)
     scratch = torch.empty(3 * d * d + 1, device=c_edit.device, dtype=torch.float32)
     bm, t, xn = (scratch[i * d * d:(i + 1) * d * d] for i in range(3))

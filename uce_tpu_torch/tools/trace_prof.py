@@ -13,6 +13,13 @@ kernel, memcpy and memset events), the idle share 1 - device / wall, the
 time by category and the top kernels. Last, each conv3x3 shape of the
 kernel path alone (CUDA events, median of 10): calls per forward, time,
 achieved TFLOP/s and blocks launched.
+
+    python -m uce_tpu_torch.tools.trace_prof --solve [--runs 5]
+
+profiles the Newton-Schulz chain (``newton_schulz_inverse``) instead, at the
+main path's art erase (5 edit, 3 preserve concepts) and at 100 concepts,
+d = 768: its launches in order, device time by kernel, and the gaps
+between one launch's end and the next one's start.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from uce_tpu_torch.models import quantize, unet, vae
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
-from uce_tpu_torch.ops.kernels import conv3x3
+from uce_tpu_torch.ops.kernels import conv3x3, uce_solve
 
 # First matching pattern names a kernel's category.
 CATEGORIES = [
@@ -153,10 +160,56 @@ def conv_table(what: str, seen: collections.Counter) -> None:
           f"GFLOP ({total_flops / total_ms / 1e9:.1f} TFLOP/s)")
 
 
+def solve_chain(ke: int, kp: int, d: int, runs: int) -> None:
+    """Kernel events of newton_schulz_inverse in launch order: device time
+    by kernel (mean over ``runs`` profiled calls), and the medians over the
+    calls of the span from the first start to the last end, of the kernel
+    time and of the gaps between launches."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    args = (torch.randn(ke, d, device="cuda", generator=gen),
+            torch.randn(kp, d, device="cuda", generator=gen), 1.3, 0.7, 0.5)
+    for _ in range(3):
+        uce_solve.newton_schulz_inverse(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            uce_solve.newton_schulz_inverse(*args)
+            torch.cuda.synchronize()
+    evts = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    what = f"solve {(ke, kp, d)}"
+    if not evts:
+        print(f"[{what}] the profiler recorded no device events")
+        return
+    per = len(evts) // runs  # every call launches the same chain
+    chains = [evts[i * per:(i + 1) * per] for i in range(runs)]
+    by_name = collections.Counter()
+    spans, busy, gaps, each = [], [], [], []
+    for chain in chains:
+        for start, end, name in chain:
+            short = re.sub(r"\(.*", "", name.split("::")[-1]) or name
+            by_name[short] += (end - start) / 1e3 / len(chains)
+        spans.append((chain[-1][1] - chain[0][0]) / 1e3)
+        busy.append(sum(end - start for start, end, _ in chain) / 1e3)
+        g = [b[0] - a[1] for a, b in zip(chain, chain[1:])]
+        gaps.append(sum(g) / 1e3)
+        each += g
+    span, gap = float(np.median(spans)), float(np.median(gaps))
+    print(f"[{what}] {len(chains)} chains of {len(chains[0])} device events, medians: "
+          f"span {span:.4f} ms, kernels {np.median(busy):.4f} ms, gaps {gap:.4f} ms "
+          f"({gap / span:.1%} of the span); a gap {np.median(each):.2f} us (median), "
+          f"{np.percentile(each, 99):.2f} us (99th percentile)")
+    for name, ms in by_name.most_common():
+        print(f"[{what}]   {ms:.4f} ms {name[:100]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=4, help="UNet batch (2 x prompts)")
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per model")
+    ap.add_argument("--solve", action="store_true",
+                    help="profile the Newton-Schulz chain instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_prof: no CUDA device", file=sys.stderr)
@@ -167,6 +220,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[card] {card}; torch {torch.__version__}")
+    if args.solve:
+        for ke, kp in ((5, 3), (100, 0)):
+            solve_chain(ke, kp, 768, args.runs)
+        print(f"[card] {card}")
+        return 0
     rng = np.random.default_rng(0)
     uparams = unet.load_params(unet.init_state_dict(unet.SD14_UNET_CONFIG, rng),
                                torch.bfloat16, "cuda")
