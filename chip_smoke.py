@@ -7,11 +7,17 @@ full width, and check them.
 Phases (each raises on failure; the exit code is non-zero unless all pass):
   1. the card: CUDA must be available; print its name and power limit;
   2. the kernels: build the six libraries from csrc/ (one nvcc each, all at
-     once), compare each kernel with its plain PyTorch version at the main
-     paths' shapes and on the Pallas tests' cases (elementwise and relative
-     L2 bounds), and time the kernel, the plain version and one library call
-     for the same function (CUDA events; the int8-QK^T attention has no such
-     call, so the bf16 kernel and SDPA are timed beside it as yardsticks);
+     once; ptxas's registers and spills of the TMA + wgmma attention and
+     conv kernels), compare each kernel with its plain PyTorch version at
+     the main paths' shapes and on the Pallas tests' cases (elementwise and
+     relative L2 bounds; the conv's split-K path at the shapes that split),
+     and time the kernel, the plain version and one
+     library call for the same function (CUDA events; the int8-QK^T
+     attention has no such call, so the bf16 kernel and SDPA are timed
+     beside it as yardsticks), with each bound: tensor cores or bytes, and
+     for the attention also the exp unit; the conv at one shape per UNet
+     level at batch 8 with its TFLOP/s and K splits; the bf16 attention and
+     the conv also back to back, beside their library calls;
   3. a seeded random-weight SD 1.4 snapshot (UNet, CLIP text, VAE, PNDM
      scheduler, a character-vocabulary tokenizer) written under build/;
   4. ``edit-sd`` through the CLI with ``--method collapsed``, ``pallas`` (the
@@ -20,11 +26,14 @@ Phases (each raises on failure; the exit code is non-zero unless all pass):
      from cond(mat2), and pallas to collapsed;
   5. full-width UNet forwards at batch 4: impl="auto" (attention kernel)
      against impl="plain", and with UCE_CONV_IMPL=UCE_GN_IMPL=pallas (all
-     kernels) against the library path, with the launches per forward;
+     kernels) against the library path, with the launches per forward (the
+     conv's by kernel: wgmma, mma.sync, split-K sums);
   6. one VAE decode at 512x512 on both paths, with its launches;
   7. ``generate`` through the CLI at 512px, PNDM, 50 steps, CFG 7.5, with the
      edit overlay, on the default path and on the kernel path: PNG checks and
      every kernel's launch count;
+     in 5-7 the first conv call at each (shape, Cout) is also held to the
+     plain version on the path's own inputs;
   8. W8A8 (``--quantize int8``): one quantized UNet forward at batch 8 (each
      int8-QK^T kernel call held to its plain version on the forward's own
      inputs; the whole forward, with a gross bound, against itself on the
@@ -41,12 +50,14 @@ The last two lines are the kernels' JSON record and the device record.
 from __future__ import annotations
 
 import base64
+import collections
 import contextlib
 import copy
 import csv
 import io
 import json
 import os
+import re
 import shutil
 import string
 import subprocess
@@ -75,6 +86,7 @@ from uce_tpu_torch.utils.prompts import resolve_edit_request
 from uce_tpu_torch.utils.torch_rng import draw_prompt_latents
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CUDA = torch.device("cuda")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 0
 
@@ -107,12 +119,19 @@ PALLAS_VS_COLLAPSED_MAX = 5e-3
 # Full-width bf16 forwards, one path against another: relative L2 bound.
 REL_L2_MAX = 5e-2
 # Per forward at SD 1.4 (UNet) and per decode (VAE): kernel launches on the
-# kernel path (UCE_CONV_IMPL=UCE_GN_IMPL=pallas), attention on "auto".
-# The library path launches only the attention kernel.
-UNET_LAUNCHES = {"conv3x3": 49, "group_norm_act": 61, "sd_attention": 10}
-VAE_LAUNCHES = {"conv3x3": 33, "group_norm_act": 28, "sd_attention": 1}
-UNET_LAUNCHES_LIBRARY = {"conv3x3": 0, "group_norm_act": 0, "sd_attention": 10}
-VAE_LAUNCHES_LIBRARY = {"conv3x3": 0, "group_norm_act": 0, "sd_attention": 1}
+# kernel path (UCE_CONV_IMPL=UCE_GN_IMPL=pallas), attention on "auto". The
+# latent-input conv (Cin = 4) takes the mma.sync conv kernel, every other
+# 3x3 conv the wgmma one; the split-K sums are counted from the convs'
+# shapes (conv_split_sums). The library path launches only the
+# attention kernel.
+UNET_LAUNCHES = {"conv3x3": 49, "conv3x3_wgmma": 48, "conv3x3_mma": 1,
+                 "group_norm_act": 61, "sd_attention": 10}
+VAE_LAUNCHES = {"conv3x3": 33, "conv3x3_wgmma": 32, "conv3x3_mma": 1,
+                "group_norm_act": 28, "sd_attention": 1}
+UNET_LAUNCHES_LIBRARY = {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
+                         "sd_attention": 10}
+VAE_LAUNCHES_LIBRARY = {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
+                        "sd_attention": 1}
 # A W8A8 UNet forward sends its ten long self-attentions to the int8-QK^T
 # kernel and none to the bf16 one; a quantized VAE decode keeps its one
 # d=512 bf16 launch.
@@ -129,10 +148,15 @@ INT8_VS_BF16_REL_L2 = 0.25
 # cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_INT8, PEAK_FP32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
 PEAK_TF32 = 495e12
+# The exp unit (MUFU): 16 exp2 results per clock per SM, at the card's
+# maximum SM clock (nvidia-smi clocks.max.sm).
+EXP_PER_CLOCK_PER_SM = 16
 
 # Attention: the UNet's two long self-attentions at batch 16 (8 prompts under
-# CFG), the VAE mid-block at batch 1 (generate) and 4 (the serving rung).
+# CFG) and 8 (4 prompts, the top serving rung), the VAE mid-block at batch 1
+# (generate) and 4 (the serving rung).
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
+              (8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
               (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512)]
@@ -142,11 +166,15 @@ GN_CASES = [((4, 32, 32, 1920), 32, 1e-5, "silu"), ((4, 8, 8, 2560), 32, 1e-5, "
             ((4, 64, 64, 320), 32, 1e-6, "none"), ((1, 512, 512, 256), 32, 1e-6, "silu"),
             ((2, 8, 8, 64), 8, 1e-5, "none"), ((3, 4, 4, 320), 32, 1e-5, "silu"),
             ((1, 16, 16, 128), 32, 1e-5, "none"), ((1, 24, 24, 64), 8, 1e-5, "none")]
-# (shape NHWC, cout)
-CONV_SLICE = [((4, 64, 64, 320), 320), ((1, 512, 512, 128), 128)]
+# (shape NHWC, cout): the UNet's 64x64 level at batch 4, one shape per UNet
+# level at batch 8 (the 8x8 one splits K), the VAE's 512x512 level.
+CONV_SLICE = [((4, 64, 64, 320), 320), ((8, 64, 64, 320), 320),
+              ((8, 32, 32, 640), 640), ((8, 16, 16, 1280), 1280),
+              ((8, 8, 8, 2560), 1280), ((1, 512, 512, 128), 128)]
 CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 640),
               ((4, 8, 8, 2560), 1280), ((1, 64, 64, 4), 512), ((1, 128, 128, 512), 512),
-              ((1, 512, 512, 128), 3), ((2, 8, 8, 12), 20), ((1, 6, 6, 4), 20)]
+              ((1, 512, 512, 128), 3), ((2, 8, 8, 12), 20), ((1, 6, 6, 4), 20),
+              ((4, 16, 16, 1280), 1280), ((2, 8, 8, 64), 96)]
 # (edit concepts, preserve concepts, d): the main path's art erase, then the
 # Pallas tests' cases and a 100-concept list.
 SOLVE_SLICE = [(5, 3, 768)]
@@ -188,6 +216,13 @@ def kernel_env(on: bool = True):
                 os.environ[k] = v
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -210,12 +245,32 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def loop_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Per-call time of ``calls`` back-to-back calls between one pair of
+    events, median of ``reps`` such runs: once the host runs ahead of the
+    card, the device's time without the host time that a single call
+    between two events (``median_ms``) includes."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def reset_launches() -> None:
     for mod in KERNEL_MODULES.values():
         mod.launches = 0
     sdk.launches_by_dim.clear()
     sdk.launches_qk8 = 0
     sdk.launches_merge = 0
+    convk.launches_wgmma = convk.launches_mma = convk.launches_reduce = 0
 
 
 def read_launches() -> dict[str, int]:
@@ -224,7 +279,42 @@ def read_launches() -> dict[str, int]:
     counts["sd_attention_d512"] = sdk.launches_by_dim.get(512, 0)
     counts["sd_attention_qk8"] = sdk.launches_qk8
     counts["sd_attention_d512_merge"] = sdk.launches_merge
+    counts["conv3x3_wgmma"] = convk.launches_wgmma
+    counts["conv3x3_mma"] = convk.launches_mma
+    counts["conv3x3_reduce"] = convk.launches_reduce
     return counts
+
+
+@contextlib.contextmanager
+def conv_shapes(seen: collections.Counter, row: dict):
+    """Count (x shape, Cout) of every conv3x3 wrapper call in the enclosed
+    calls, and hold the first call at each to the plain version on the
+    call's own inputs (raises outside the conv's bounds; the worst error
+    goes into ``row``); the kernel's output goes on."""
+    launch = convk.conv3x3
+
+    def spy(x, w, bias=None):
+        key = (tuple(x.shape), w.shape[0])
+        got = launch(x, w, bias)
+        if key not in seen:
+            max_err = check_bf16("conv3x3", f"conv3x3 {key[0]}->{key[1]} on the "
+                                 "path's own inputs", got,
+                                 convk.conv3x3_reference(x, w, bias))[0]
+            row["max_abs_err"] = max(row["max_abs_err"], max_err)
+        seen[key] += 1
+        return got
+
+    convk.conv3x3 = spy
+    try:
+        yield
+    finally:
+        convk.conv3x3 = launch
+
+
+def conv_split_sums(seen: collections.Counter) -> int:
+    """The split-K sums that ``plan`` gives the counted conv calls."""
+    return sum(n for (shape, cout), n in seen.items()
+               if convk.plan(*shape, cout, _build.sm_count(CUDA)).splits > 1)
 
 
 def bound(ops_seconds: float, nbytes: float) -> tuple[float, str]:
@@ -250,6 +340,40 @@ def check_bf16(kernel: str, what: str, got, ref) -> tuple[float, str]:
                      f"{float(ref.abs().mean()):.4f}")
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's name and template argument in a mangled symbol."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):  # a length may follow other digits
+            name = mangled[m.end():m.end() + int(m.group()[k:])]
+            if name.endswith("kernel"):
+                arg = re.match(r"ILi(\d+)E|ILb(\d)E", mangled[m.end() + len(name):])
+                return name + (f"<{arg.group(1) or arg.group(2)}>" if arg else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name and
+    template argument, registers, spill stores and loads; and ptxas's
+    warnings that it serialized wgmma instructions."""
+    lines, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            stores, loads = spill.groups()
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            lines.append(f"{name}: {used.group(1)} registers, {stores} B spill stores, "
+                         f"{loads} B spill loads")
+            name = None
+        if "serialized" in line:
+            lines.append(re.sub(r"'(_Z\S+)'", lambda m: kernel_name(m.group(1)),
+                                line.split("ptxas info    : ")[-1].strip()))
+    return lines
+
+
 def phase_build() -> None:
     """One nvcc per library, all started together."""
     start = time.perf_counter()
@@ -260,10 +384,15 @@ def phase_build() -> None:
           f"{time.perf_counter() - start:.1f} s", flush=True)
     for name in BUILDS:
         print(f"[kernel]   {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s")
+    for name in ("sd_attention", "conv3x3"):
+        log = _build.build_logs.get(name)
+        for line in ptxas_report(log) if log else ["loaded from the build cache"]:
+            print(f"[ptxas] {name}: {line}")
 
 
 def phase_attention(gen, rows: dict) -> None:
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = _build.sm_count(CUDA)
+    exp_rate = sms * EXP_PER_CLOCK_PER_SM * max_sm_clock_hz()  # exp2 a second
     for b, h, sq, skv, d in ATTN_SLICE + ATTN_CASES:
         q = torch.randn(b, h, sq, d, device="cuda", generator=gen).bfloat16()
         k = torch.randn(b, h, skv, d, device="cuda", generator=gen).bfloat16()
@@ -287,15 +416,23 @@ def phase_attention(gen, rows: dict) -> None:
                 q, k, v, None, False, scale))
             bound_ms, by = bound(4.0 * b * h * sq * skv * d / PEAK_BF16,
                                  2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d))
+            # the softmax's exp2, one per logit, on the exp unit
+            exp_ms = b * h * sq * skv / exp_rate * 1e3
             if d == 512:
                 line += f" ({sdk.d512_splits(b * h, sq, skv, sms)} KV splits)"
+            else:
+                loop_kernel = loop_ms(lambda: sdk.sd_attention(q, k, v, scale))
+                loop_lib = loop_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale))
+                line += (f" back to back: kernel {loop_kernel:.4f} ms, SDPA "
+                         f"{loop_lib:.4f} ms a call (median of 5 runs of 10);")
             if (b, h, sq, d) in ((16, 8, 4096, 40), (1, 1, 4096, 512)):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=by)
             line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
-                     f"library {lib_ms:.4f} ms, plain attention path "
+                     f"library (SDPA) {lib_ms:.4f} ms, plain attention path "
                      f"{path_ms:.4f} ms (median of 10), bound {bound_ms:.4f} ms "
-                     f"({by})")
+                     f"({by}), exp unit {exp_ms:.4f} ms")
         print(line, flush=True)
         if (b, h, sq, skv, d) == (1, 1, 4096, 4096, 512):
             phase_merge(q, k, v, scale, rows[name])
@@ -362,12 +499,16 @@ def phase_conv(gen, rows: dict) -> None:
              / (9 * cin) ** 0.5).bfloat16()
         bias = (torch.randn(cout, device="cuda", generator=gen) * 0.1).bfloat16()
         w_packed = convk.pack_weight(w)
+        p = convk.plan(*shape, cout, _build.sm_count(CUDA))
         got = convk.conv3x3(x, w_packed, bias)
         torch.cuda.synchronize()
-        max_err, note = check_bf16("conv3x3", f"conv3x3 {shape}->{cout}", got,
+        what = f"conv3x3 {shape}->{cout}"
+        max_err, note = check_bf16("conv3x3", what, got,
                                    convk.conv3x3_reference(x, w_packed, bias))
         row["max_abs_err"] = max(row["max_abs_err"], max_err)
-        line = f"[kernel] conv3x3 {shape}->{cout} {note}"
+        line = (f"[kernel] {what} ({p.variant}, {p.m_tiles} x {p.n_tiles} tiles of "
+                f"{convk.TILE_PIXELS if p.variant == 'wgmma' else convk.MMA_TILE} x "
+                f"{p.bn}, {p.splits} K splits) {note}")
         if (shape, cout) in CONV_SLICE:
             x_nchw = x.permute(0, 3, 1, 2)
             w_cl = w.contiguous(memory_format=torch.channels_last)
@@ -375,14 +516,20 @@ def phase_conv(gen, rows: dict) -> None:
             plain_ms = median_ms(lambda: convk.conv3x3_reference(x, w_packed, bias))
             lib_ms = median_ms(lambda: F.conv2d(x_nchw, w_cl, bias, padding=1))
             m = x.numel() // cin
-            bound_ms, by = bound(2.0 * m * cout * 9 * cin / PEAK_BF16,
+            flops = 2.0 * m * cout * 9 * cin
+            bound_ms, by = bound(flops / PEAK_BF16,
                                  2.0 * (x.numel() + w.numel() + cout + m * cout))
             if shape == CONV_SLICE[0][0]:
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=by)
-            line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
-                     f"library {lib_ms:.4f} ms (median of 10), bound "
-                     f"{bound_ms:.4f} ms ({by})")
+            loop_kernel = loop_ms(lambda: convk.conv3x3(x, w_packed, bias))
+            loop_lib = loop_ms(lambda: F.conv2d(x_nchw, w_cl, bias, padding=1))
+            line += (f" kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                     f"version {plain_ms:.4f} ms, library (cuDNN, channels_last) "
+                     f"{lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s) (median "
+                     f"of 10), bound {bound_ms:.4f} ms ({by}); back to back: kernel "
+                     f"{loop_kernel:.4f} ms, cuDNN {loop_lib:.4f} ms a call (median of "
+                     "5 runs of 10)")
         print(line, flush=True)
 
 
@@ -603,7 +750,7 @@ def expect_launches(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches (got, want) {wrong}")
 
 
-def phase_unet(pipe) -> None:
+def phase_unet(pipe, conv_row: dict) -> None:
     prompts = ["a painting by kelly mckernan", "a photo of a dog"]
     with torch.inference_mode():
         context = torch.cat([pipe.encode_prompts(["", ""]),
@@ -614,15 +761,23 @@ def phase_unet(pipe) -> None:
                 "kernels": ("auto", True)}
         want = {"plain": {**UNET_LAUNCHES_LIBRARY, "sd_attention": 0},
                 "library": UNET_LAUNCHES_LIBRARY, "kernels": UNET_LAUNCHES}
-        outs, times = {}, {}
+        outs, times, seen = {}, {}, collections.Counter()
         for name, (impl, kernels) in runs.items():
             fwd = lambda: unet.apply(pipe.unet_params, x, 981.0, context,
                                      pipe.unet_config, attn_impl=impl)
             with kernel_env(kernels):
                 reset_launches()
-                outs[name] = fwd().float()
+                with conv_shapes(seen, conv_row):
+                    outs[name] = fwd().float()
+                if name == "kernels":
+                    want[name] = {**want[name], "conv3x3_reduce": conv_split_sums(seen)}
                 expect_launches(f"UNet forward ({name})", read_launches(), want[name])
                 times[name] = median_ms(fwd, reps=5)
+    unsplit = [k for k in seen if k[0][1] == 8 and convk.plan(
+        *k[0], k[1], _build.sm_count(CUDA)).splits == 1]
+    if unsplit:
+        raise AssertionError(f"UNet forward: the 8x8 level's convs {unsplit} do "
+                             "not split K")
     if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
         raise AssertionError("UNet forward: non-finite output")
     for a, b in (("library", "plain"), ("kernels", "library")):
@@ -632,26 +787,29 @@ def phase_unet(pipe) -> None:
         print(f"[unet] batch 4 (2 prompts x CFG) at 64x64 latents: rel L2 {a} vs "
               f"{b} {rel:.3e} (bound {REL_L2_MAX})")
     print(f"[unet] forward, median of 5: {times['kernels']:.2f} ms on all kernels "
-          f"(launches per forward {UNET_LAUNCHES}), {times['library']:.2f} ms on "
-          f"the library path with the attention kernel, {times['plain']:.2f} ms "
-          "plain", flush=True)
+          f"(launches per forward {want['kernels']}; {len(seen)} conv shapes each "
+          f"held to the plain version on the forward's inputs), "
+          f"{times['library']:.2f} ms on the library path with the attention "
+          f"kernel, {times['plain']:.2f} ms plain", flush=True)
 
 
-def phase_vae(pipe) -> None:
+def phase_vae(pipe, conv_row: dict) -> None:
     lat = draw_prompt_latents((64, 64, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
     lat = lat / pipe.vae_config.scaling_factor
     # the mid-block attention at one head and s=4096 splits its KV range
-    merges = int(sdk.d512_splits(1, 4096, 4096, torch.cuda.get_device_properties(
-        0).multi_processor_count) > 1)
-    outs, times = {}, {}
+    merges = int(sdk.d512_splits(1, 4096, 4096, _build.sm_count(CUDA)) > 1)
+    outs, times, seen = {}, {}, collections.Counter()
     with torch.inference_mode():
         for name in ("library", "kernels"):
             dec = lambda: vae.decode(pipe.vae_params, lat, pipe.vae_config)
             with kernel_env(name == "kernels"):
                 reset_launches()
-                outs[name] = dec().float()
+                with conv_shapes(seen, conv_row):
+                    outs[name] = dec().float()
                 got = read_launches()
                 want = VAE_LAUNCHES if name == "kernels" else VAE_LAUNCHES_LIBRARY
+                if name == "kernels":
+                    want = {**want, "conv3x3_reduce": conv_split_sums(seen)}
                 expect_launches(f"VAE decode ({name})", got, want)
                 if got["sd_attention_d512"] != 1 or got["sd_attention_d512_merge"] != merges:
                     raise AssertionError(f"VAE decode ({name}): {got}, want "
@@ -663,15 +821,17 @@ def phase_vae(pipe) -> None:
     rel = rel_l2(outs["kernels"], outs["library"])
     if rel > REL_L2_MAX:
         raise AssertionError(f"VAE decode kernels vs library: rel L2 {rel}")
+    reduces = conv_split_sums(seen)
     print(f"[vae] decode batch 1 at 512x512: rel L2 kernels vs library {rel:.3e} "
           f"(bound {REL_L2_MAX}); {times['kernels']:.2f} ms on all kernels "
-          f"(launches {VAE_LAUNCHES}, sd_attention at d=512 with {merges} split "
-          f"merge), "
+          f"(launches {VAE_LAUNCHES}, {reduces} conv split-K sums, {len(seen)} conv "
+          f"shapes held to the plain version on the decode's inputs, sd_attention at "
+          f"d=512 with {merges} split merge), "
           f"{times['library']:.2f} ms on the library path with sd_attention at "
           "d=512 (median of 3)", flush=True)
 
 
-def phase_generate(snap: str, edit_path: str, path: str) -> dict:
+def phase_generate(snap: str, edit_path: str, path: str, conv_row: dict) -> dict:
     csv_path = os.path.join(WORK, "prompts.csv")
     with open(csv_path, "w", newline="") as f:
         w = csv.writer(f)
@@ -683,14 +843,17 @@ def phase_generate(snap: str, edit_path: str, path: str) -> dict:
     per_call = UNET_LAUNCHES if path == "kernels" else UNET_LAUNCHES_LIBRARY
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
     want = {k: 2 * (calls * per_call[k] + per_decode[k]) for k in per_call}
+    seen = collections.Counter()  # generate runs each row alone: UNet batch 2
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
-        rc = cli_main(["generate", "--model_id", snap, "--prompts_path", csv_path,
-                       "--save_path", out, "--uce_model_path", edit_path,
-                       "--device", "cuda"])
+        with conv_shapes(seen, conv_row):
+            rc = cli_main(["generate", "--model_id", snap, "--prompts_path", csv_path,
+                           "--save_path", out, "--uce_model_path", edit_path,
+                           "--device", "cuda"])
         launches = read_launches()
         seconds = time.perf_counter() - start
+    want["conv3x3_reduce"] = conv_split_sums(seen)
     if rc != 0:
         raise AssertionError(f"generate ({path}): rc {rc}")
     expect_launches(f"generate ({path}), 2 rows x ({calls} UNet calls + 1 decode)",
@@ -703,7 +866,9 @@ def phase_generate(snap: str, edit_path: str, path: str) -> dict:
                                  f"{img.dtype}, std {img.std()}")
     print(f"[generate] {path} path: 2 PNGs 512x512x3 uint8 in {seconds:.2f} s "
           f"(CLI wall, load included); launches {launches} = 2 rows x "
-          f"({calls} UNet calls x {per_call} + {per_decode})", flush=True)
+          f"({calls} UNet calls x {per_call} + {per_decode}) and "
+          f"{want['conv3x3_reduce']} conv split-K sums; {len(seen)} conv shapes held "
+          "to the plain version on the run's own inputs", flush=True)
     return launches
 
 
@@ -988,10 +1153,10 @@ def main() -> int:
               f"{time.perf_counter() - start:.1f} s", flush=True)
         edit_path, rows["uce_solve"]["launches"] = phase_edit(snap)
         pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
-        phase_unet(pipe)
-        phase_vae(pipe)
-        phase_generate(snap, edit_path, "library")
-        launches = phase_generate(snap, edit_path, "kernels")
+        phase_unet(pipe, rows["conv3x3"])
+        phase_vae(pipe, rows["conv3x3"])
+        phase_generate(snap, edit_path, "library", rows["conv3x3"])
+        launches = phase_generate(snap, edit_path, "kernels", rows["conv3x3"])
         for k in ("conv3x3", "group_norm_act", "sd_attention_d512"):
             rows[k]["launches"] = launches[k]
         rows["sd_attention"]["launches"] = (launches["sd_attention"]

@@ -159,7 +159,11 @@ def test_d512_splits(bh, sq, skv, want):
     assert splits == want and (splits - 1) * per < tiles <= splits * per
 
 
-@pytest.mark.parametrize("d,want", [(512, True), (256, False), (48, False)])
+@pytest.mark.parametrize("d,want", [(40, True), (64, True), (80, True), (128, True),
+                                    (160, True), (512, True), (256, False),
+                                    (48, False)])
 def test_supported_head_dims(d, want):
+    """The bf16 kernel's head dims (SD 1.x's 40, 80, 160 among them) and the
+    VAE's 512 take a kernel; no other D does."""
     shape = (1, 1, 4096, d)
     assert port_sdk.supported_shape(shape, shape, torch.bfloat16) is want

@@ -9,6 +9,7 @@ import torch
 
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.edit import embeddings, sd
+from uce_tpu_torch.models import unet
 
 
 def test_pipeline_device_defaults_to_cuda():
@@ -20,9 +21,15 @@ def test_pipeline_device_defaults_to_cuda():
 
 @pytest.mark.parametrize("fn", [embeddings.encode_concepts_sd,
                                 embeddings.stack_embeds, sd.load_text_encoder,
-                                sd.load_resources, sd.erase_from_embeddings])
+                                sd.load_resources, sd.erase_from_embeddings,
+                                unet.load_params])
 def test_edit_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_load_params_on_the_cpu_when_asked():
+    params = unet.load_params({"w": [[1.0, 2.0]]}, dtype=torch.bfloat16, device="cpu")
+    assert params["w"].device.type == "cpu" and params["w"].dtype == torch.bfloat16
 
 
 def test_stack_embeds_on_the_cpu_when_asked():

@@ -108,11 +108,12 @@ def test_quantized_unet_routes_long_self_attention_to_qk8(monkeypatch):
                            layers_per_block=1, cross_attention_dim=24,
                            attention_head_dim=2, norm_num_groups=8)
     flat = tunet.init_state_dict(cfg, np.random.default_rng(9), scale=0.05)
-    params = quantize.quantize_params(tunet.load_params(flat, dtype=torch.bfloat16))
+    params = quantize.quantize_params(
+        tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"))
     rng = np.random.default_rng(10)
     x = torch.from_numpy(rng.standard_normal((2, 4, 32, 32)).astype(np.float32))
     ctx = torch.from_numpy(rng.standard_normal((2, 7, 24)).astype(np.float32))
-    want = tunet.apply(tunet.load_params(flat), x, 500.0, ctx, cfg).double()
+    want = tunet.apply(tunet.load_params(flat, device="cpu"), x, 500.0, ctx, cfg).double()
     calls = _spy(monkeypatch)
     got = tunet.apply(params, x.bfloat16(), 500.0, ctx.bfloat16(), cfg).double()
     assert calls == {"qk8": 3, "bf16": 0}
@@ -126,8 +127,8 @@ def test_quantized_vae_keeps_bf16_attention(monkeypatch):
     cfg = tvae.VAEConfig(block_out_channels=(8, 40), layers_per_block=1,
                          norm_num_groups=4)
     flat = tvae.init_state_dict(cfg, np.random.default_rng(2), scale=0.1)
-    params = quantize.quantize_params(tunet.load_params(flat, dtype=torch.bfloat16),
-                                      quantize.VAE_SKIP)
+    params = quantize.quantize_params(
+        tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"), quantize.VAE_SKIP)
     lat = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (1, 4, 32, 32)).astype(np.float32)).bfloat16()
     calls = _spy(monkeypatch)

@@ -163,7 +163,7 @@ def test_quantize_params_matches_uce_tpu(model, cfg_kw, skip, mode):
     flat = tmod.init_state_dict(config(**cfg_kw), np.random.default_rng(5))
     want = nested_to_state_dict(jquantize.quantize_params(
         junet.nest_state_dict(flat), getattr(jquantize, skip), mode=mode))
-    got = tquantize.quantize_params(tunet.load_params(flat),
+    got = tquantize.quantize_params(tunet.load_params(flat, device="cpu"),
                                     getattr(tquantize, skip), mode=mode)
     is_q = lambda v: tquant.is_quantized(v) or tquant.is_weight_only(v)  # noqa: E731
     quantized = sorted(k for k, v in got.items() if is_q(v))

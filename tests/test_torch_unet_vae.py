@@ -74,7 +74,7 @@ def test_unet_sd14_structure_matches_uce_tpu():
     ctx = rng.standard_normal((1, 7, 24)).astype(np.float32)
     want = np.asarray(junet.apply(junet.nest_state_dict(ref_flat), jnp.asarray(x),
                                   jnp.asarray([500.0]), jnp.asarray(ctx), jcfg))
-    got = tunet.apply(tunet.load_params(flat), _nchw(x), 500.0,
+    got = tunet.apply(tunet.load_params(flat, device="cpu"), _nchw(x), 500.0,
                       torch.from_numpy(ctx), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=3e-4, atol=3e-4)
 
@@ -86,7 +86,7 @@ def test_overlay_edits_matches_uce_tpu():
     key = "down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k.weight"
     edit = np.random.default_rng(3).standard_normal(flat[key].shape).astype(np.float32)
     jparams = junet.overlay_edits(junet.nest_state_dict(flat), {key: edit})
-    tparams = tunet.overlay_edits(tunet.load_params(flat),
+    tparams = tunet.overlay_edits(tunet.load_params(flat, device="cpu"),
                                   {key: torch.from_numpy(edit), "missing.weight":
                                    torch.zeros(1)})
     assert torch.equal(tparams[key], torch.from_numpy(edit))
@@ -111,7 +111,7 @@ def test_vae_decode_matches_uce_tpu():
         jcfg, np.random.default_rng(2), scale=0.1))
     lat = np.random.default_rng(4).standard_normal((2, 8, 8, 4)).astype(np.float32)
     want = np.asarray(jvae.decode(jparams, jnp.asarray(lat), jcfg))
-    got = tvae.decode(tunet.load_params(flat), _nchw(lat), tcfg)
+    got = tvae.decode(tunet.load_params(flat, device="cpu"), _nchw(lat), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=2e-4, atol=2e-4)
 
 
@@ -176,7 +176,7 @@ def test_unet_kernel_path_bf16_matches_uce_tpu(kernel_path):
     want = np.asarray(junet.apply(junet.nest_state_dict(jp),
                                   jnp.asarray(x, jnp.bfloat16), jnp.asarray([500.0]),
                                   jnp.asarray(ctx, jnp.bfloat16), jcfg), np.float32)
-    got = tunet.apply(tunet.load_params(flat, dtype=torch.bfloat16),
+    got = tunet.apply(tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"),
                       _nchw(x).bfloat16(), 500.0,
                       torch.from_numpy(ctx).bfloat16(), tcfg)
     calls, copies = kernel_path
@@ -199,7 +199,7 @@ def test_vae_kernel_path_bf16_matches_uce_tpu(kernel_path):
                                 for k, v in flat.items()})
     want = np.asarray(jvae.decode(jp, jnp.asarray(lat, jnp.bfloat16), jcfg),
                       np.float32)
-    got = tvae.decode(tunet.load_params(flat, dtype=torch.bfloat16),
+    got = tvae.decode(tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"),
                       _nchw(lat).bfloat16(), tcfg)
     calls, copies = kernel_path
     assert calls == {"conv3x3": 33, "group_norm_act": 28}

@@ -53,9 +53,7 @@
 //    per step two GEMMs, the first with the 2I - (.) update fused into its
 //    epilogue. The wrapper allocates all scratch.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -110,10 +108,6 @@ __global__ void scaled_eye_kernel(float* __restrict__ x, int d,
   x[idx] = (idx / d == idx % d) ? 1.f / norm[0] : 0.f;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Raw stage tiles as TMA lands them: A [BM x BK] with the 128-byte swizzle
 // (16-byte chunk c / 4 of row r at chunk (c / 4) ^ (r % 8)), B [BK x BN]
 // dense. Both are read by split_tile without bank conflicts.
@@ -121,21 +115,6 @@ __device__ __forceinline__ int a_index(int r, int c) {
   return r * BK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
 }
 __device__ __forceinline__ int b_index(int r, int c) { return r * BN + c; }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
 
 // One BK step of the A tile (rows row0.., cols k0..) and the B tile (rows
 // k0.., cols col0..) by two TMA loads (boxes past d are zero-filled),
@@ -145,20 +124,10 @@ __device__ __forceinline__ void load_tiles_tma(float* sa, float* sb, uint64_t* b
                                                const CUtensorMap* map_b, int row0,
                                                int col0, int k0) {
   if (threadIdx.x != 0) return;
-  const uint32_t mbar = smem_u32(bar);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(mbar), "r"(4 * kStageFloats) : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(sa)), "l"(reinterpret_cast<uint64_t>(map_a)), "r"(k0),
-         "r"(row0), "r"(mbar) : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(sb)), "l"(reinterpret_cast<uint64_t>(map_b)), "r"(col0),
-         "r"(k0), "r"(mbar) : "memory");
+  mbar_expect_tx(bar, 4 * kStageFloats);
+  tma_load_2d(smem_u32(sa), map_a, k0, row0, bar);
+  tma_load_2d(smem_u32(sb), map_b, col0, k0, bar);
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
@@ -180,23 +149,6 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Pin accumulator registers in program order around the asynchronous
-// wgmma (the compiler does not know that wgmma writes them late).
-__device__ __forceinline__ void fence_regs(float (&r)[36]) {
-#pragma unroll
-  for (int i = 0; i < 36; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d[64 x 72] (+)= A[64 x 8] B[8 x 72]: A TF32 fragments in registers, B
@@ -312,8 +264,8 @@ gemm_3xtf32_kernel(const __grid_constant__ CUtensorMap map_a,
   };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(full + i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < kStages; ++i) mbar_init(full + i, 1);
+    fence_barrier_init();
   }
   __syncthreads();
 #pragma unroll
@@ -375,33 +327,13 @@ gemm_3xtf32_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // A tensor map over a row-major d x d fp32 matrix, loading boxes of `rows`
 // rows x `cols` columns; boxes past the edge are zero-filled.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 static int make_map(CUtensorMap* map, float* base, int d, int rows, int cols,
                     CUtensorMapSwizzle swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                                  cudaEnableDefault, &found);
-    if (e != cudaSuccess) return (int)e;
-    if (found != cudaDriverEntryPointSuccess) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)d};
   const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
   const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims,
-                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(map, base, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                    swizzle);
 }
 
 #define UCE_CHECK_LAUNCH()                       \

@@ -259,7 +259,7 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
 # ---------------------------------------------------------------------------
 
 def load_params(state_dict: Mapping[str, object], dtype=torch.float32,
-                device="cpu") -> dict[str, torch.Tensor]:
+                device="cuda") -> dict[str, torch.Tensor]:
     """Flat diffusers state dict (tensors or numpy) -> params on ``device``."""
     return {k: torch.as_tensor(v).to(device=device, dtype=dtype)
             for k, v in state_dict.items()}

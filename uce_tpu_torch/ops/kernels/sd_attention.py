@@ -4,8 +4,10 @@ PyTorch version.
 ``sd_attention`` computes ``softmax(q k^T * scale) v`` over ``[B, H, S, D]``
 bf16 tensors, as ``uce_tpu/ops/pallas/sd_attention.py::_kernel`` does:
 fp32 logits, fp32 softmax with max subtraction, P rounded to bf16, PV
-accumulated in fp32. D = 512 (the VAE mid-block, which uce_tpu serves with
-JAX's TPU flash kernel ``uce_tpu/ops/attention.py::_flash_attention``) runs
+accumulated in fp32. D <= 160 runs ``csrc/sd_attention.cu``: TMA loads from
+a producer warp, two consumer warpgroups on wgmma with their softmax
+overlapped. D = 512 (the VAE mid-block, which uce_tpu serves with JAX's
+TPU flash kernel ``uce_tpu/ops/attention.py::_flash_attention``) runs
 ``csrc/sd_attention_d512.cu``: a wgmma kernel that may split the KV range
 across blocks (``d512_splits``) and then merges the splits' partial results
 in a second kernel (``merge_partials``). ``qk_int8=True`` is the W8A8
@@ -19,8 +21,11 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from uce_tpu_torch.ops.kernels._build import launch_on, load_library, sm_count
 
 HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 QK8_HEAD_DIMS = (40, 64, 80, 128, 160)
@@ -142,9 +147,8 @@ def sd_attention_qk8_reference(q, ki, ks, v, scale: float) -> torch.Tensor:
     return out
 
 
+@functools.cache
 def _lib():
-    from uce_tpu_torch.ops.kernels._build import load_library
-
     lib = load_library("sd_attention", (SOURCE,))
     fn = lib.sd_attention_bf16
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -154,8 +158,6 @@ def _lib():
 
 
 def _lib_d512():
-    from uce_tpu_torch.ops.kernels._build import load_library
-
     lib = load_library("sd_attention_d512", (D512_SOURCE,))
     fn = lib.sd_attention_d512
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
@@ -168,8 +170,6 @@ def _lib_d512():
 
 
 def _lib_qk8():
-    from uce_tpu_torch.ops.kernels._build import load_library
-
     lib = load_library("sd_attention_qk8", (QK8_SOURCE,))
     fn = lib.sd_attention_qk8
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -230,10 +230,6 @@ def sd_attention_qk8(q, ki, ks, v, scale: float) -> torch.Tensor:
                            f"(cudaError {err})")
     launches_qk8 += 1
     return out
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_d512(q, k, v, scale: float, splits: int):
@@ -334,12 +330,12 @@ def sd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_contiguous(q=q, k=k, v=v)
     b, h, sq, d = q.shape
     if d == 512:
-        splits = d512_splits(b * h, sq, k.shape[2], _sm_count(q.device))
+        splits = d512_splits(b * h, sq, k.shape[2], sm_count(q.device))
         got = _launch_d512(q, k, v, scale, splits)
         return got if splits == 1 else merge_partials(*got)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    context, stream = launch_on(q.device)
+    with context:
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b * h, sq, k.shape[2], d, float(scale), stream)
     if err != 0:

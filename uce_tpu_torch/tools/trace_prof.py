@@ -11,8 +11,9 @@ median host wall time of 5 unprofiled calls (each ended by a synchronize),
 then ``--runs`` profiled calls: device time per call (the sum of the CUDA
 kernel, memcpy and memset events), the idle share 1 - device / wall, the
 time by category and the top kernels. Last, each conv3x3 shape of the
-kernel path alone (CUDA events, median of 10): calls per forward, time,
-achieved TFLOP/s and blocks launched.
+kernel path alone (CUDA events, median of 10): calls per forward, the
+kernel's time and achieved TFLOP/s beside cuDNN's (channels_last) on the
+same inputs, the kernel that ``plan`` picks, its blocks and K splits.
 
     python -m uce_tpu_torch.tools.trace_prof --solve [--runs 5]
 
@@ -44,7 +45,7 @@ CATEGORIES = [
     ("sd_attention_qk8 kernel", r"sd_attention_qk8"),
     ("sd_attention kernel", r"sd_attention"),
     ("int8 GEMMs (torch._int_mm)", r"gemm_s8|s8s8|imma"),
-    ("conv3x3 kernel", r"conv3x3_kernel"),
+    ("conv3x3 kernels", r"conv3x3_(wgmma|mma)_kernel|split_reduce_kernel"),
     ("group_norm_act kernels", r"gn_(partial|fold|apply)_kernel"),
     ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
     ("convolutions (library)", r"conv|xmma|implicit|fprop|dgrad|winograd"),
@@ -131,33 +132,53 @@ def conv_shapes(fn) -> collections.Counter:
     return seen
 
 
+def median_ms(fn) -> float:
+    """CUDA events around one call, median of 10 after 2 warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(10):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def conv_table(what: str, seen: collections.Counter) -> None:
     gen = torch.Generator("cuda").manual_seed(1)
-    total_ms = total_flops = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    total_ms = total_lib_ms = total_flops = 0.0
+    by_level = collections.defaultdict(lambda: [0.0, 0.0])  # H: flops, ms
     for (shape, cout), calls in sorted(seen.items()):
         x = torch.randn(shape, device="cuda", generator=gen).bfloat16()
         w = torch.randn(cout, 3, 3, shape[3], device="cuda", generator=gen).bfloat16()
         bias = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
-        for _ in range(2):
-            conv3x3.conv3x3(x, w, bias)
-        times = []
-        for _ in range(10):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            conv3x3.conv3x3(x, w, bias)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        ms = float(np.median(times))
+        ms = median_ms(lambda: conv3x3.conv3x3(x, w, bias))
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last memory, as the models
+        w_oihw = w.permute(0, 3, 1, 2)
+        lib_ms = median_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, bias,
+                                                              padding=1))
         m = shape[0] * shape[1] * shape[2]
         flops = 2.0 * m * cout * 9 * shape[3]
         total_ms += calls * ms
+        total_lib_ms += calls * lib_ms
         total_flops += calls * flops
-        blocks = -(-m // 128) * -(-cout // 128)
+        by_level[shape[1]][0] += calls * flops
+        by_level[shape[1]][1] += calls * ms
+        p = conv3x3.plan(*shape, cout, sms)
         print(f"[{what}] conv3x3 {shape}->{cout} x{calls}: {ms:.4f} ms, "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {blocks} blocks")
+              f"{flops / ms / 1e9:.1f} TFLOP/s; cuDNN {lib_ms:.4f} ms, "
+              f"{flops / lib_ms / 1e9:.1f} TFLOP/s; {p.variant}, "
+              f"{p.m_tiles * p.n_tiles * p.splits} blocks, {p.splits} K splits")
+    for level, (flops, ms) in sorted(by_level.items()):
+        print(f"[{what}] conv3x3 at {level}x{level}: {flops / 1e9:.1f} GFLOP in "
+              f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
     print(f"[{what}] conv3x3 total {total_ms:.3f} ms for {total_flops / 1e9:.1f} "
-          f"GFLOP ({total_flops / total_ms / 1e9:.1f} TFLOP/s)")
+          f"GFLOP ({total_flops / total_ms / 1e9:.1f} TFLOP/s); cuDNN "
+          f"{total_lib_ms:.3f} ms ({total_flops / total_lib_ms / 1e9:.1f} TFLOP/s)")
 
 
 def solve_chain(ke: int, kp: int, d: int, runs: int) -> None:
