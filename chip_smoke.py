@@ -16,8 +16,10 @@ Phases (each raises on failure; the exit code is non-zero unless all pass):
      attention has no such call, so the bf16 kernel and SDPA are timed
      beside it as yardsticks), with each bound: tensor cores or bytes, and
      for the attention also the exp unit; the conv at one shape per UNet
-     level at batch 8 with its TFLOP/s and K splits; the bf16 attention and
-     the conv also back to back, beside their library calls;
+     level at batch 8 with its TFLOP/s and K splits; the bf16 and int8-QK^T
+     attentions, GroupNorm and the conv also back to back, beside their
+     library calls (and yardsticks); ptxas must report no spills and no
+     serialized wgmma for the int8-QK^T kernel at any head dim;
   3. a seeded random-weight SD 1.4 snapshot (UNet, CLIP text, VAE, PNDM
      scheduler, a character-vocabulary tokenizer) written under build/;
   4. ``edit-sd`` through the CLI with ``--method collapsed``, ``pallas`` (the
@@ -32,8 +34,10 @@ Phases (each raises on failure; the exit code is non-zero unless all pass):
   7. ``generate`` through the CLI at 512px, PNDM, 50 steps, CFG 7.5, with the
      edit overlay, on the default path and on the kernel path: PNG checks and
      every kernel's launch count;
-     in 5-7 the first conv call at each (shape, Cout) is also held to the
-     plain version on the path's own inputs;
+     in 5-7 the first conv call at each (shape, Cout) and the first
+     group_norm_act call at each (shape, groups, eps, act) are also held to
+     the plain version on the path's own inputs (and GroupNorm to a second
+     call, bit for bit);
   8. W8A8 (``--quantize int8``): one quantized UNet forward at batch 8 (each
      int8-QK^T kernel call held to its plain version on the forward's own
      inputs; the whole forward, with a gross bound, against itself on the
@@ -160,12 +164,14 @@ ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512)]
-# (shape NHWC, groups, eps, act)
+# (shape NHWC, groups, eps, act); the last two cases are the UNet's 64x64
+# level at batch 8, which plan streams.
 GN_SLICE = [((4, 64, 64, 320), 32, 1e-5, "silu"), ((1, 512, 512, 128), 32, 1e-6, "silu")]
 GN_CASES = [((4, 32, 32, 1920), 32, 1e-5, "silu"), ((4, 8, 8, 2560), 32, 1e-5, "silu"),
             ((4, 64, 64, 320), 32, 1e-6, "none"), ((1, 512, 512, 256), 32, 1e-6, "silu"),
             ((2, 8, 8, 64), 8, 1e-5, "none"), ((3, 4, 4, 320), 32, 1e-5, "silu"),
-            ((1, 16, 16, 128), 32, 1e-5, "none"), ((1, 24, 24, 64), 8, 1e-5, "none")]
+            ((1, 16, 16, 128), 32, 1e-5, "none"), ((1, 24, 24, 64), 8, 1e-5, "none"),
+            ((8, 64, 64, 320), 32, 1e-5, "silu"), ((8, 64, 64, 960), 32, 1e-5, "silu")]
 # (shape NHWC, cout): the UNet's 64x64 level at batch 4, one shape per UNet
 # level at batch 8 (the 8x8 one splits K), the VAE's 512x512 level.
 CONV_SLICE = [((4, 64, 64, 320), 320), ((8, 64, 64, 320), 320),
@@ -181,10 +187,12 @@ SOLVE_SLICE = [(5, 3, 768)]
 SOLVE_CASES = [(4, 3, 256), (16, 0, 256), (100, 0, 768)]
 # int8-QK^T attention: the top serving rung (4 prompts under CFG) at 512²,
 # then tests/test_sd_attention.py::test_int8_qk_close_to_fp's cases, a
-# ragged Skv and one q tile.
+# ragged Skv and one q tile, then the serving ladder's lower rungs (UNet
+# batch 2 and 4).
 QK8_SLICE = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80)]
 QK8_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 200, 200, 40),
-             (1, 2, 64, 64, 80)]
+             (1, 2, 64, 64, 80), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
+             (4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80)]
 
 ART = "Kelly McKernan; Thomas Kinkade; Tyler Edlin; Kilian Eng; Ajin Demi Human"
 PRESERVE = "Van Gogh; Rembrandt; Pablo Picasso"
@@ -311,6 +319,37 @@ def conv_shapes(seen: collections.Counter, row: dict):
         convk.conv3x3 = launch
 
 
+@contextlib.contextmanager
+def gn_shapes(seen: collections.Counter, row: dict):
+    """Count (x shape, groups, eps, act) of every group_norm_act wrapper call
+    in the enclosed calls, and hold the first call at each to the plain
+    version on the call's own inputs and to a second kernel call, bit for
+    bit (raises outside the bounds; the worst error goes into ``row``); the
+    kernel's output goes on."""
+    launch = gnk.group_norm_act
+
+    def spy(x, scale, bias, groups=32, eps=1e-5, act="none"):
+        key = (tuple(x.shape), groups, eps, act)
+        got = launch(x, scale, bias, groups, eps, act)
+        if key not in seen:
+            what = f"group_norm_act {key} on the path's own inputs"
+            max_err = check_bf16("group_norm_act", what, got,
+                                 gnk.group_norm_act_reference(x, scale, bias, groups,
+                                                              eps, act))[0]
+            if not torch.equal(got, launch(x, scale, bias, groups, eps, act)):
+                raise AssertionError(f"{what}: results differ run to run")
+            gnk.launches -= 1  # the repeat is a check, not the path's launch
+            row["max_abs_err"] = max(row["max_abs_err"], max_err)
+        seen[key] += 1
+        return got
+
+    gnk.group_norm_act = spy
+    try:
+        yield
+    finally:
+        gnk.group_norm_act = launch
+
+
 def conv_split_sums(seen: collections.Counter) -> int:
     """The split-K sums that ``plan`` gives the counted conv calls."""
     return sum(n for (shape, cout), n in seen.items()
@@ -384,10 +423,22 @@ def phase_build() -> None:
           f"{time.perf_counter() - start:.1f} s", flush=True)
     for name in BUILDS:
         print(f"[kernel]   {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s")
-    for name in ("sd_attention", "conv3x3"):
+    for name in ("sd_attention", "sd_attention_qk8", "conv3x3", "group_norm"):
         log = _build.build_logs.get(name)
         for line in ptxas_report(log) if log else ["loaded from the build cache"]:
             print(f"[ptxas] {name}: {line}")
+    # The int8-QK^T kernel at every head dim it dispatches: no spills and
+    # no wgmma serialized by ptxas (C7520, C7512).
+    log = _build.build_logs.get("sd_attention_qk8")
+    if log:
+        report = ptxas_report(log)
+        dims = {int(m) for line in report
+                for m in re.findall(r"sd_attention_qk8_kernel<(\d+)>", line)}
+        faults = [line for line in report if "serialized" in line
+                  or re.search(r"[1-9]\d* B spill (stores|loads)", line)]
+        if faults or dims != set(sdk.QK8_HEAD_DIMS):
+            raise AssertionError(f"sd_attention_qk8 ptxas: head dims {sorted(dims)}, "
+                                 f"faults {faults}")
 
 
 def phase_attention(gen, rows: dict) -> None:
@@ -484,9 +535,15 @@ def phase_group_norm(gen, rows: dict) -> None:
             if shape == GN_SLICE[0][0]:
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=by)
+            loop_kernel = loop_ms(lambda: gnk.group_norm_act(x, scale, bias, groups,
+                                                             eps, act))
+            loop_lib = loop_ms(lambda: F.silu(F.group_norm(x_nchw, groups, scale16,
+                                                           bias16, eps)))
             line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
                      f"library {lib_ms:.4f} ms (median of 10), bound "
-                     f"{bound_ms:.4f} ms ({by})")
+                     f"{bound_ms:.4f} ms ({by}); back to back: kernel "
+                     f"{loop_kernel:.4f} ms, F.group_norm+F.silu {loop_lib:.4f} ms a "
+                     "call (median of 5 runs of 10)")
         print(line, flush=True)
 
 
@@ -577,6 +634,7 @@ def phase_qk8(gen, rows: dict) -> None:
     """The int8-QK^T kernel against its plain version on the same quantized
     K (the wrapper's pre-pass runs once per input)."""
     row = rows["sd_attention_qk8"]
+    exp_rate = _build.sm_count(CUDA) * EXP_PER_CLOCK_PER_SM * max_sm_clock_hz()
     for b, h, sq, skv, d in QK8_SLICE + QK8_CASES:
         q = torch.randn(b, h, sq, d, device="cuda", generator=gen).bfloat16()
         k = (torch.randn(b, h, skv, d, device="cuda", generator=gen) + 0.3).bfloat16()
@@ -607,11 +665,18 @@ def phase_qk8(gen, rows: dict) -> None:
             if (sq, d) == (4096, 40):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                            bound_ms=bound_ms, bound_by=by)
+            loop_kernel = loop_ms(lambda: sdk.sd_attention_qk8(q, ki, ks, v, scale))
+            loop_bf16 = loop_ms(lambda: sdk.sd_attention(q, k, v, scale))
+            loop_sdpa = loop_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+            exp_ms = b * h * sq * skv / exp_rate * 1e3
             line += (f" kernel {ms:.4f} ms (with the K pre-pass {wrapper_ms:.4f}), "
                      f"plain version {plain_ms:.4f} ms (median of 3), yardsticks: "
                      f"bf16 sd_attention kernel {bf16_ms:.4f} ms, SDPA "
                      f"{sdpa_ms:.4f} ms (median of 10); bound {bound_ms:.4f} ms "
-                     f"({by})")
+                     f"({by}), exp unit {exp_ms:.4f} ms; back to back: kernel "
+                     f"{loop_kernel:.4f} ms, bf16 kernel {loop_bf16:.4f} ms, SDPA "
+                     f"{loop_sdpa:.4f} ms a call (median of 5 runs of 10)")
         print(line, flush=True)
 
 
@@ -750,7 +815,7 @@ def expect_launches(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches (got, want) {wrong}")
 
 
-def phase_unet(pipe, conv_row: dict) -> None:
+def phase_unet(pipe, rows: dict) -> None:
     prompts = ["a painting by kelly mckernan", "a photo of a dog"]
     with torch.inference_mode():
         context = torch.cat([pipe.encode_prompts(["", ""]),
@@ -761,13 +826,15 @@ def phase_unet(pipe, conv_row: dict) -> None:
                 "kernels": ("auto", True)}
         want = {"plain": {**UNET_LAUNCHES_LIBRARY, "sd_attention": 0},
                 "library": UNET_LAUNCHES_LIBRARY, "kernels": UNET_LAUNCHES}
-        outs, times, seen = {}, {}, collections.Counter()
+        outs, times = {}, {}
+        seen, gn_seen = collections.Counter(), collections.Counter()
         for name, (impl, kernels) in runs.items():
             fwd = lambda: unet.apply(pipe.unet_params, x, 981.0, context,
                                      pipe.unet_config, attn_impl=impl)
             with kernel_env(kernels):
                 reset_launches()
-                with conv_shapes(seen, conv_row):
+                with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                        gn_seen, rows["group_norm_act"]):
                     outs[name] = fwd().float()
                 if name == "kernels":
                     want[name] = {**want[name], "conv3x3_reduce": conv_split_sums(seen)}
@@ -787,24 +854,27 @@ def phase_unet(pipe, conv_row: dict) -> None:
         print(f"[unet] batch 4 (2 prompts x CFG) at 64x64 latents: rel L2 {a} vs "
               f"{b} {rel:.3e} (bound {REL_L2_MAX})")
     print(f"[unet] forward, median of 5: {times['kernels']:.2f} ms on all kernels "
-          f"(launches per forward {want['kernels']}; {len(seen)} conv shapes each "
-          f"held to the plain version on the forward's inputs), "
+          f"(launches per forward {want['kernels']}; {len(seen)} conv and "
+          f"{len(gn_seen)} group_norm_act shapes each held to the plain version on "
+          f"the forward's inputs), "
           f"{times['library']:.2f} ms on the library path with the attention "
           f"kernel, {times['plain']:.2f} ms plain", flush=True)
 
 
-def phase_vae(pipe, conv_row: dict) -> None:
+def phase_vae(pipe, rows: dict) -> None:
     lat = draw_prompt_latents((64, 64, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
     lat = lat / pipe.vae_config.scaling_factor
     # the mid-block attention at one head and s=4096 splits its KV range
     merges = int(sdk.d512_splits(1, 4096, 4096, _build.sm_count(CUDA)) > 1)
-    outs, times, seen = {}, {}, collections.Counter()
+    outs, times = {}, {}
+    seen, gn_seen = collections.Counter(), collections.Counter()
     with torch.inference_mode():
         for name in ("library", "kernels"):
             dec = lambda: vae.decode(pipe.vae_params, lat, pipe.vae_config)
             with kernel_env(name == "kernels"):
                 reset_launches()
-                with conv_shapes(seen, conv_row):
+                with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                        gn_seen, rows["group_norm_act"]):
                     outs[name] = dec().float()
                 got = read_launches()
                 want = VAE_LAUNCHES if name == "kernels" else VAE_LAUNCHES_LIBRARY
@@ -825,13 +895,14 @@ def phase_vae(pipe, conv_row: dict) -> None:
     print(f"[vae] decode batch 1 at 512x512: rel L2 kernels vs library {rel:.3e} "
           f"(bound {REL_L2_MAX}); {times['kernels']:.2f} ms on all kernels "
           f"(launches {VAE_LAUNCHES}, {reduces} conv split-K sums, {len(seen)} conv "
-          f"shapes held to the plain version on the decode's inputs, sd_attention at "
+          f"and {len(gn_seen)} group_norm_act shapes held to the plain version on the "
+          f"decode's inputs, sd_attention at "
           f"d=512 with {merges} split merge), "
           f"{times['library']:.2f} ms on the library path with sd_attention at "
           "d=512 (median of 3)", flush=True)
 
 
-def phase_generate(snap: str, edit_path: str, path: str, conv_row: dict) -> dict:
+def phase_generate(snap: str, edit_path: str, path: str, rows: dict) -> dict:
     csv_path = os.path.join(WORK, "prompts.csv")
     with open(csv_path, "w", newline="") as f:
         w = csv.writer(f)
@@ -844,10 +915,12 @@ def phase_generate(snap: str, edit_path: str, path: str, conv_row: dict) -> dict
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
     want = {k: 2 * (calls * per_call[k] + per_decode[k]) for k in per_call}
     seen = collections.Counter()  # generate runs each row alone: UNet batch 2
+    gn_seen = collections.Counter()
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
-        with conv_shapes(seen, conv_row):
+        with conv_shapes(seen, rows["conv3x3"]), gn_shapes(gn_seen,
+                                                           rows["group_norm_act"]):
             rc = cli_main(["generate", "--model_id", snap, "--prompts_path", csv_path,
                            "--save_path", out, "--uce_model_path", edit_path,
                            "--device", "cuda"])
@@ -867,8 +940,9 @@ def phase_generate(snap: str, edit_path: str, path: str, conv_row: dict) -> dict
     print(f"[generate] {path} path: 2 PNGs 512x512x3 uint8 in {seconds:.2f} s "
           f"(CLI wall, load included); launches {launches} = 2 rows x "
           f"({calls} UNet calls x {per_call} + {per_decode}) and "
-          f"{want['conv3x3_reduce']} conv split-K sums; {len(seen)} conv shapes held "
-          "to the plain version on the run's own inputs", flush=True)
+          f"{want['conv3x3_reduce']} conv split-K sums; {len(seen)} conv and "
+          f"{len(gn_seen)} group_norm_act shapes held to the plain version on the "
+          "run's own inputs", flush=True)
     return launches
 
 
@@ -1153,10 +1227,10 @@ def main() -> int:
               f"{time.perf_counter() - start:.1f} s", flush=True)
         edit_path, rows["uce_solve"]["launches"] = phase_edit(snap)
         pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
-        phase_unet(pipe, rows["conv3x3"])
-        phase_vae(pipe, rows["conv3x3"])
-        phase_generate(snap, edit_path, "library", rows["conv3x3"])
-        launches = phase_generate(snap, edit_path, "kernels", rows["conv3x3"])
+        phase_unet(pipe, rows)
+        phase_vae(pipe, rows)
+        phase_generate(snap, edit_path, "library", rows)
+        launches = phase_generate(snap, edit_path, "kernels", rows)
         for k in ("conv3x3", "group_norm_act", "sd_attention_d512"):
             rows[k]["launches"] = launches[k]
         rows["sd_attention"]["launches"] = (launches["sd_attention"]

@@ -50,8 +50,12 @@ def test_k_prepass_matches_uce_tpu(b, h, sq, skv, d):
     _, (kj, kt), _ = _inputs(b, h, sq, skv, d)
     ki, ks = port_sdk.quantize_k(kt)
     want_ki, want_ks = _uce_tpu_k_prepass(kj)
-    assert ki.dtype == torch.int8 and tuple(ks.shape) == (b, h, skv)
-    diff = np.abs(ki.numpy().astype(np.int32) - want_ki.astype(np.int32))
+    # rows padded to whole 16-byte units (TMA's stride rule), pad columns zero
+    dp = -(-d // 16) * 16
+    assert ki.dtype == torch.int8 and tuple(ki.shape) == (b, h, skv, dp)
+    assert tuple(ks.shape) == (b, h, skv) and port_sdk.k_cols(d) == dp
+    assert not ki[..., d:].any()
+    diff = np.abs(ki[..., :d].numpy().astype(np.int32) - want_ki.astype(np.int32))
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
     np.testing.assert_allclose(ks.numpy(), want_ks, rtol=1e-6)
 
@@ -135,3 +139,67 @@ def test_quantized_vae_keeps_bf16_attention(monkeypatch):
     out = tvae.decode(params, lat, cfg)
     assert calls == {"qk8": 0, "bf16": 1}
     assert out.shape == (1, 3, 64, 64) and torch.isfinite(out.float()).all()
+
+
+def test_magic_number_dequantize_is_exact():
+    """The kernel's dequantize: for |acc| < 2^22 the float with the bits of
+    acc + 0x4B400000 is 12582912 + acc exactly (|acc| <= 127^2 * 160 at the
+    largest head dim)."""
+    edge = [2 ** 21, -2 ** 21, 127 ** 2 * 160, -127 ** 2 * 160, 0, 1, -1]
+    rand = np.random.default_rng(3).integers(-127 ** 2 * 160, 127 ** 2 * 160 + 1,
+                                             10 ** 4)
+    acc = torch.tensor(edge + rand.tolist(), dtype=torch.int32)
+    got = (acc + 0x4B400000).view(torch.float32) - 12582912.0
+    assert got.dtype == torch.float32
+    assert torch.equal(got, acc.float())
+
+
+def _kernel_order_emulation(q, ki, ks, v, scale, kv_tile):
+    """fp32 emulation of the kernel's arithmetic order for one batch row at
+    a time: exact int32 QK^T, y = fma(f, ks, -12582912 ks) with f the magic
+    float of acc (the fma as an exact float64 product and sum rounded once),
+    row max of y, p = exp2(fma(y, qc, -m qc)) with qc = qs * scale * log2(e),
+    an online softmax over K/V tiles of ``kv_tile`` rows, P rounded to bf16,
+    PV in fp32, normalised at the end."""
+    d = q.shape[-1]
+    ki = ki[..., :d]
+    out = torch.empty_like(q)
+    for i in range(q.shape[0]):
+        qf = q[i].float()
+        qs = qf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+        qi = torch.round(qf / qs).to(torch.int64)
+        acc = torch.matmul(qi, ki[i].to(torch.int64).transpose(-1, -2)).to(torch.int32)
+        f = (acc + 0x4B400000).view(torch.float32).double()
+        ksi = ks[i][:, None, :]
+        nk = (-12582912.0 * ksi).float().double()   # the kernel's FMUL
+        y = (f * ksi.double() + nk).float()
+        qc = (qs * (scale * 1.4426950408889634)).float()
+        m = torch.full(qs.shape, -float("inf"))
+        l_sum = torch.zeros(qs.shape)
+        o = torch.zeros(*q.shape[1:3], d)
+        for t0 in range(0, y.shape[-1], kv_tile):
+            yt = y[..., t0:t0 + kv_tile]
+            m_new = torch.maximum(m, yt.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * qc)
+            p = torch.exp2(yt * qc - m_new * qc)
+            l_sum = l_sum * alpha + p.sum(dim=-1, keepdim=True)
+            o = o * alpha + torch.matmul(p.bfloat16().float(),
+                                         v[i, :, t0:t0 + kv_tile].float())
+            m = m_new
+        out[i] = (o / l_sum).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", CASES + [(1, 2, 128, 256, 160)])
+def test_kernel_order_emulation_matches_plain_version(b, h, sq, skv, d):
+    """The kernel's logit order (IADD, two FFMAs, exp2, online softmax over
+    its K/V tiles: 128 rows at d <= 80, 64 above) stays within the card's
+    bound (rel L2 1e-2) of the plain version, and far inside it."""
+    (_, qt), (_, kt), (_, vt) = _inputs(b, h, sq, skv, d)
+    scale = d ** -0.5
+    ki, ks = port_sdk.quantize_k(kt)
+    want = port_sdk.sd_attention_qk8_reference(qt, ki, ks, vt, scale).float()
+    got = _kernel_order_emulation(qt, ki, ks, vt, scale, 128 if d <= 80 else 64).float()
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 5e-3, rel
+    assert ((got - want).abs() <= 0.02 + 0.05 * want.abs()).all()

@@ -1,358 +1,387 @@
-// Mask-free multi-head attention with an int8 QK^T, for Hopper (built for
-// sm_90a): softmax(q k^T * scale) v over [B, H, S, D], q and v bf16, K
-// given as int8 `ki` [B, H, Skv, D] with fp32 per-token scales `ks`
-// [B, H, Skv] (centred per channel and quantized once by the wrapper).
+// Mask-free multi-head attention with an int8 QK^T, for Hopper (sm_90a):
+// softmax(q k^T * scale) v over [B, H, S, D], q and v bf16, K given as int8
+// `ki` [B, H, Skv, Dp] (Dp = D rounded up to 16, columns past D zero) with
+// fp32 per-token scales `ks` [B, H, Skv] (centred per channel and quantized
+// once by the wrapper's pre-pass).
 //
-// Replaces uce_tpu/ops/pallas/sd_attention.py::_kernel_qk8, the W8A8
+// Replaces uce_tpu/ops/pallas/sd_attention.py::_kernel_qk8 (:166), the W8A8
 // serving variant of the SD UNet's long self-attention. Numerics follow it:
 // each q row is quantized here (amax over D in fp32, qs = max(amax,
 // 1e-6)/127, qi = round-half-even(q / qs) by a true division), QK^T
-// accumulates exactly in int32, logits = float(acc) * (qs * ks) * scale,
-// the softmax runs in fp32 with max subtraction, P is rounded to bf16 and
-// PV accumulates in fp32. K/V stream in 64-row
-// tiles with an online softmax (the TPU kernel holds a whole K row in VMEM;
-// a Hopper block cannot, and need not) and P is normalised after PV.
+// accumulates exactly in int32, logits = acc * qs * ks * scale, the softmax
+// runs in fp32 with max subtraction, P is rounded to bf16 and PV accumulates
+// in fp32. K/V stream in tiles with an online softmax (the TPU kernel holds
+// a whole K row in VMEM) and P is normalised after PV.
 //
-// Design: one block of 4 warps per (batch*head, 64 query rows). The block
-// quantizes its q rows into shared memory (int8, D zero-padded to a
-// multiple of 32: 40 -> 64, 80 -> 96, in shared memory only), keeps them
-// as the A fragments of mma.sync m16n8k32 s8 (four 32-bit registers of four
-// int8 each) and runs QK^T against each int8 K tile; `ki` [Skv, D]
-// row-major is already the `col` B operand. The s32 accumulator fragment
-// has the layout of the fp32 C of m16n8k16, so after the per-entry scaling
-// the online-softmax + PV step (softmax_pv below) reuses the fragments as
-// the bf16 A operand of PV.
+// What bounds it: at D = 40 the exp unit. At (8, 8, 4096, 4096, 40) the
+// products are 86 GOP int8 + 86 GFLOP bf16 (0.13 ms), the softmax 1.07e9
+// exp2 on the MUFU unit, 16 a clock per SM (0.26 ms at 1.98 GHz); the
+// dequantize adds an IADD and an FFMA per logit on the other pipes.
 //
-// What bounds it: tensor-core work on a head dim that
-// fills little of the MMA (40 pads to 64 in the int8 contraction), PV in
-// bf16 at half the int8 rate, and synchronous loads (no cp.async/TMA
-// double buffering, no wgmma). Those are the levers for a faster version.
+// Design: csrc/sd_attention.cu's schedule (one block per 128 query rows of
+// one batch*head):
+//  - A producer warp issues TMA loads: bf16 Q once (128 rows), then per
+//    K/V tile of kKv rows the int8 K tile, the bf16 V tile and the tile's
+//    fp32 ks slice into a ring of kStages stages with "full" and "empty"
+//    mbarriers. K's tensor map is [bh, Skv, Dp] with a 128-byte box: TMA
+//    needs 16-byte global strides, hence the pre-pass's Dp (48 at D = 40),
+//    and zero-fills the columns past Dp, so the int8 contraction runs over
+//    D rounded up to 32 (64 at D = 40, 96 at 80, 160 at 160) in k32 steps of
+//    32 bytes, the same byte offsets as a bf16 k16 step. ks is read through
+//    a 1-D map over all bh * Skv scales (its rows need no 16-byte stride).
+//  - Two consumer warpgroups own 64 query rows each. Each quantizes its
+//    rows once, from the TMA'd bf16 tile into a 128-byte-swizzled int8 tile
+//    (the K-major A operand), with __fdiv_rn and __float2int_rn.
+//    S = Qi Ki^T is wgmma m64n{kKv}k32 .s32.s8.s8, both operands K-major in
+//    shared memory (8-bit wgmma has no transpose bit and needs none).
+//  - Dequantize without I2F: the s32 fragment has the fp32 one's layout,
+//    and for |acc| < 2^22 (here |acc| <= 127^2 * 160) the float with bits
+//    acc + 0x4B400000 is 12582912 + acc exactly. One FFMA folds the magic
+//    constant and the column's ks (y = f * ks - 12582912 * ks), a second
+//    one the row's qs * scale * log2(e) and the row max before ex2.
+//  - P is rounded to bf16 in registers as the A fragments of O += P V,
+//    wgmma m64n{D}k16 with V read MN-major through the transpose bit.
+//  - Tile t's QK^T is issued with tile t-1's PV, and the two warpgroups
+//    take turns at issuing through two named barriers (ping-pong), so one
+//    warpgroup's dequantize and exp2 run under the other's products. The
+//    first tile is peeled so that every wgmma issue is branch-free (ptxas
+//    serialises wgmma otherwise, C7520).
 //
 // Built without --use_fast_math: the q quantization relies on IEEE division
 // and round-to-nearest-even.
 
-// Shared pieces below: the block shape, the bf16 mma.sync m16n8k16 helpers,
-// the V^T tile load, the online-softmax + PV step and the normalised store.
-// One block of 4 warps owns 64 query rows, each warp 16 of them.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 64;   // query rows per block
-constexpr int kKvTile = 64;         // K/V rows per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;             // bf16 elements of row padding (bank spread)
-constexpr int kNTiles = kKvTile / 8;  // n-tiles of QK^T
-constexpr int LDV = kKvTile + kPad;   // V^T row stride
+constexpr int kBlockRows = 128;              // query rows per block
+constexpr int kConsumerWarps = 8;            // two warpgroups
+constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
+constexpr int kLine = 128;                   // bytes of one swizzled line
+constexpr int kSmemBudget = 200 * 1024;
+constexpr int kMagic = 0x4B400000;           // the bits of 1.5 * 2^23
+constexpr float kMagicF = 12582912.f;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// V^T tile: sVt[c][kv] = v[kv][c0 + c] for `cols` columns of rows with
-// stride D; rows past `valid` are zero so 0 * padding stays 0.
-__device__ __forceinline__ void load_vt(__nv_bfloat16* sVt,
-                                        const __nv_bfloat16* v, int D, int c0,
-                                        int cols, int valid) {
-  for (int i = threadIdx.x; i < kKvTile * (cols / 2); i += kThreads) {
-    const int r = i / (cols / 2), c = (i % (cols / 2)) * 2;
-    __nv_bfloat162 val = __floats2bfloat162_rn(0.f, 0.f);
-    if (r < valid)
-      val = *reinterpret_cast<const __nv_bfloat162*>(v + (size_t)r * D + c0 + c);
-    sVt[c * LDV + r] = val.x;
-    sVt[(c + 1) * LDV + r] = val.y;
-  }
-}
-
-// One K/V tile of the online softmax for this warp's 16 rows: s holds the
-// unscaled logits (16 rows x 64 kv columns, m16n8 accumulator layout);
-// updates the running max/sum and adds P V^T (kDTiles n-tiles of 8
-// columns) into acc.
-template <int kDTiles>
-__device__ __forceinline__ void softmax_pv(float (&s)[kNTiles][4],
-                                           float (&acc)[kDTiles][4],
-                                           float (&m_run)[2], float (&l_run)[2],
-                                           int valid, float scale_log2,
-                                           const __nv_bfloat16* sVt, int g,
-                                           int t4) {
-  // Online softmax in log2 units; columns past skv are masked out.
-  float m_tile[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = n * 8 + t4 * 2 + (e & 1);
-      const float x = col < valid ? s[n][e] * scale_log2 : -INFINITY;
-      s[n][e] = x;
-      m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
-    }
-  }
-  float alpha[2], m_new[2], l_tile[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffff, m_tile[r], 1));
-    m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffff, m_tile[r], 2));
-    m_new[r] = fmaxf(m_run[r], m_tile[r]);
-    alpha[r] = exp2f(m_run[r] - m_new[r]);  // 0 on the first tile
-    m_run[r] = m_new[r];
-  }
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(s[n][e] - m_new[e >> 1]);
-      s[n][e] = p;
-      l_tile[e >> 1] += p;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_tile[r] += __shfl_xor_sync(0xffffffff, l_tile[r], 1);
-    l_tile[r] += __shfl_xor_sync(0xffffffff, l_tile[r], 2);
-    l_run[r] = l_run[r] * alpha[r] + l_tile[r];
-  }
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    acc[j][0] *= alpha[0];
-    acc[j][1] *= alpha[0];
-    acc[j][2] *= alpha[1];
-    acc[j][3] *= alpha[1];
-  }
-
-  // O += P V: the S accumulators of n-tiles 2c and 2c+1 form the A
-  // fragment of kv chunk c.
-#pragma unroll
-  for (int c = 0; c < kKvTile / 16; ++c) {
-    uint32_t pa[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
-                      pack_bf16(s[2 * c][2], s[2 * c][3]),
-                      pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                      pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      const __nv_bfloat16* vrow = sVt + (j * 8 + g) * LDV + c * 16 + t4 * 2;
-      uint32_t b[2] = {ld_u32(vrow), ld_u32(vrow + 8)};
-      mma_bf16_16816(acc[j], pa, b);
-    }
-  }
-}
-
-// Normalise and store rows r_lo and r_lo + 8 of acc into columns
-// [c0, c0 + 8 * kDTiles) of the [sq, D] output ob.
-template <int kDTiles>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* ob, int D, int c0,
-                                           const float (&acc)[kDTiles][4],
-                                           const float (&l_run)[2], int r_lo,
-                                           int sq, int t4) {
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-  const int r_hi = r_lo + 8;
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    const int c = c0 + j * 8 + t4 * 2;
-    if (r_lo < sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r_lo * D + c) =
-          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (r_hi < sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r_hi * D + c) =
-          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
-  }
-}
-
-}  // namespace
-
-
-namespace {
-
-constexpr int kQkPad = 16;  // int8 bytes of row padding in sQ and sK (bank spread)
-
-__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy 64 rows of D int8 (8-byte vectors: a row of 40 bytes is 8-byte but
-// not 16-byte aligned) into a shared tile with row stride `ld` bytes; rows
-// past `valid` are written as zeros.
-template <int D>
-__device__ __forceinline__ void load_k8(int8_t* dst, int ld, const int8_t* src,
-                                        int valid) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kKvTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint2 val = make_uint2(0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint2*>(src + (size_t)r * D + c);
-    *reinterpret_cast<uint2*>(dst + r * ld + c) = val;
-  }
+// Byte offset of element (r, c) of a tile of 128-byte lines, lines of
+// `line_elems` elements of `elem` bytes, chunks of `rows` lines, as TMA's
+// 128-byte swizzle lands it.
+__device__ __forceinline__ int sw128(int r, int c, int line_elems, int elem, int rows) {
+  const int byte = (c % line_elems) * elem;
+  return (c / line_elems) * rows * kLine + r * kLine +
+         ((((byte >> 4) ^ (r & 7))) << 4) + (byte & 15);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-sd_attention_qk8_kernel(const __nv_bfloat16* __restrict__ q,
-                        const int8_t* __restrict__ ki,
-                        const float* __restrict__ ks,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ o, int sq, int skv,
-                        float scale_log2) {
-  constexpr int DK = (D + 31) / 32 * 32;  // int8 contraction, zero padded
-  constexpr int kSteps = DK / 32;         // k-steps of QK^T
-  constexpr int kDTiles = D / 8;          // n-tiles of PV (D % 8 == 0)
-  constexpr int LDQ = DK + kQkPad;        // sQ and sK row stride (bytes)
-  constexpr int kPerLane = (D + 31) / 32;
+struct Cfg {
+  static constexpr int kDk = (D + 31) / 32 * 32;      // int8 contraction
+  static constexpr int kSteps = kDk / 32;             // k32 steps of QK^T
+  static constexpr int kChunks8 = (kDk + 127) / 128;  // lines of an int8 row
+  static constexpr int kChunks = (D + 63) / 64;       // lines of a bf16 row
+  static constexpr int kKv = D <= 80 ? 128 : 64;      // K/V rows per tile
+  static constexpr int kQBytes = kChunks * kBlockRows * kLine;    // bf16 Q
+  static constexpr int kQ8Bytes = kChunks8 * kBlockRows * kLine;  // int8 Q
+  static constexpr int kKBytes = kChunks8 * kKv * kLine;
+  static constexpr int kVBytes = kChunks * kKv * kLine;
+  static constexpr int kStageTx = kKBytes + kVBytes + kKv * 4;  // + ks
+  static constexpr int kStageBytes = (kStageTx + 1023) / 1024 * 1024;
+  static constexpr int kStagesFit = (kSmemBudget - kQBytes - kQ8Bytes) / kStageBytes;
+  static constexpr int kStages = kStagesFit > 4 ? 4 : kStagesFit;
+  static constexpr int kSmem = kQBytes + kQ8Bytes + kStages * kStageBytes + 1024;
+  static_assert(kStages >= 2, "K/V ring needs two stages");
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* sQ = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* sK = sQ + kRowsPerBlock * LDQ;
-  float* sQs = reinterpret_cast<float*>(sK + kKvTile * LDQ);
-  float* sKs = sQs + kRowsPerBlock;
-  __nv_bfloat16* sVt = reinterpret_cast<__nv_bfloat16*>(sKs + kKvTile);
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+sd_attention_qk8_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_ks,
+                        const __grid_constant__ CUtensorMap map_v,
+                        __nv_bfloat16* __restrict__ o, int sq, int skv, float c) {
+  using C = Cfg<D>;
+  constexpr int kKv = C::kKv, kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+  __shared__ float s_qs[kBlockRows];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  unsigned char* base = smem_raw + (sQ - raw);  // generic address of sQ
+  const uint32_t sQ8 = sQ + C::kQBytes;
+  const uint32_t sKV = sQ8 + C::kQ8Bytes;  // stage s: K, V, ks
+  auto k_tile = [&](int st) { return sKV + st * C::kStageBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + C::kKBytes; };
+  auto ks_tile = [&](int st) { return v_tile(st) + C::kVBytes; };
 
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int bh = blockIdx.y, row0 = blockIdx.x * kBlockRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
+  const int n = (skv + kKv - 1) / kKv;
 
-  const __nv_bfloat16* qb = q + ((size_t)bh * sq + row0) * D;
-  const int8_t* kb = ki + (size_t)bh * skv * D;
-  const float* ksb = ks + (size_t)bh * skv;
-  const __nv_bfloat16* vb = v + (size_t)bh * skv * D;
-
-  // Zero the contraction padding of Q and K once; nothing else writes it.
-  if constexpr (DK != D) {
-    constexpr int kPadCols = DK - D;
-    for (int i = threadIdx.x; i < (kRowsPerBlock + kKvTile) * kPadCols; i += kThreads) {
-      const int r = i / kPadCols, c = D + i % kPadCols;
-      sQ[r * LDQ + c] = 0;  // rows past kRowsPerBlock fall into sK
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
     }
-  }
-
-  // Quantize this warp's 16 q rows (rows past sq quantize zeros, unstored).
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const bool in = row0 + r < sq;
-    float x[kPerLane];
-    float amax = 0.f;
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      x[j] = (in && c < D) ? __bfloat162float(qb[(size_t)r * D + c]) : 0.f;
-      amax = fmaxf(amax, fabsf(x[j]));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, off));
-    const float qs = __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int c = lane + 32 * j;
-      if (c < D) sQ[r * LDQ + c] = (int8_t)__float2int_rn(__fdiv_rn(x[j], qs));
-    }
-    if (lane == 0) sQs[r] = qs;
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // This warp's 16 int8 Q rows as m16n8k32 A fragments, kept in registers.
-  uint32_t qa[kSteps][4];
-  {
-    const int8_t* base = sQ + (warp * 16) * LDQ;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      const int c = st * 32 + t4 * 4;
-      qa[st][0] = ld_u32(base + g * LDQ + c);
-      qa[st][1] = ld_u32(base + (g + 8) * LDQ + c);
-      qa[st][2] = ld_u32(base + g * LDQ + c + 16);
-      qa[st][3] = ld_u32(base + (g + 8) * LDQ + c + 16);
-    }
-  }
-  const float qs_lo = sQs[warp * 16 + g], qs_hi = sQs[warp * 16 + g + 8];
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // Rows g and g + 8 of this warp's block: running max (log2 units) and sum.
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kv0 = 0; kv0 < skv; kv0 += kKvTile) {
-    const int valid = min(kKvTile, skv - kv0);
-    __syncthreads();  // previous tile fully consumed
-    load_k8<D>(sK, LDQ, kb + (size_t)kv0 * D, valid);
-    for (int i = threadIdx.x; i < kKvTile; i += kThreads)
-      sKs[i] = i < valid ? ksb[kv0 + i] : 0.f;
-    load_vt(sVt, vb + (size_t)kv0 * D, D, 0, D, valid);
-    __syncthreads();
-
-    // S = (qi ki^T) * (qs * ks) for 16 rows x 64 kv columns; softmax_pv
-    // applies scale (in log2 units).
-    float s[kNTiles][4];
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-      int si[4] = {0, 0, 0, 0};
-      const int8_t* krow = sK + (n * 8 + g) * LDQ + t4 * 4;
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        uint32_t b[2] = {ld_u32(krow + st * 32), ld_u32(krow + st * 32 + 16)};
-        mma_s8_16832(si, qa[st], b);
+  if (warp == kConsumerWarps) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(&q_full, C::kQBytes);
+      for (int ch = 0; ch < C::kChunks; ++ch)
+        tma_load_3d(sQ + ch * kBlockRows * kLine, &map_q, ch * 64, row0, bh, &q_full);
+      for (int t = 0; t < n; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty + st, (t / kStages - 1) & 1);
+        mbar_expect_tx(full + st, C::kStageTx);
+        for (int ch = 0; ch < C::kChunks8; ++ch)
+          tma_load_3d(k_tile(st) + ch * kKv * kLine, &map_k, ch * 128, t * kKv, bh,
+                      full + st);
+        for (int ch = 0; ch < C::kChunks; ++ch)
+          tma_load_3d(v_tile(st) + ch * kKv * kLine, &map_v, ch * 64, t * kKv, bh,
+                      full + st);
+        tma_load_1d(ks_tile(st), &map_ks, bh * skv + t * kKv, full + st);
       }
-      const float ks0 = sKs[n * 8 + t4 * 2], ks1 = sKs[n * 8 + t4 * 2 + 1];
-      s[n][0] = (float)si[0] * (qs_lo * ks0);
-      s[n][1] = (float)si[1] * (qs_lo * ks1);
-      s[n][2] = (float)si[2] * (qs_hi * ks0);
-      s[n][3] = (float)si[3] * (qs_hi * ks1);
     }
-    softmax_pv<kDTiles>(s, acc, m_run, l_run, valid, scale_log2, sVt, g, t4);
+    return;
   }
-  store_rows<kDTiles>(o + (size_t)bh * sq * D, D, 0, acc, l_run,
-                      row0 + warp * 16 + g, sq, t4);
+
+  // Consumer warpgroup wg: query rows [64 wg, 64 wg + 64) of the block.
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  if (wg == 1) named_arrive(1, 256);  // warpgroup 0 issues first
+  const uint32_t sQ8w = sQ8 + wg * 64 * kLine;
+
+  // Quantize this warp's 16 q rows into the int8 tile; the contraction
+  // padding past D is written as zeros (rows past sq arrive as zeros).
+  mbar_wait(&q_full, 0);
+  {
+    const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(base);
+    int8_t* q8 = reinterpret_cast<int8_t*>(base + C::kQBytes);
+    for (int i = 0; i < 16; ++i) {
+      const int r = wg * 64 + wq * 16 + i;
+      float x[C::kSteps];
+      float amax = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::kSteps; ++j) {
+        const int col = lane + 32 * j;
+        x[j] = col < D ? __bfloat162float(qb[sw128(r, col, 64, 2, kBlockRows) / 2]) : 0.f;
+        amax = fmaxf(amax, fabsf(x[j]));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, off));
+      const float qs = __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
+#pragma unroll
+      for (int j = 0; j < C::kSteps; ++j) {
+        const int col = lane + 32 * j;
+        q8[sw128(r, col, 128, 1, kBlockRows)] =
+            col < D ? (int8_t)__float2int_rn(__fdiv_rn(x[j], qs)) : (int8_t)0;
+      }
+      if (lane == 0) s_qs[r] = qs;
+    }
+  }
+  fence_proxy_async();      // the int8 tile is read by wgmma (async proxy)
+  named_sync(3 + wg, 128);  // this warpgroup's four warps
+  // qs * scale * log2(e) of rows 16 wq + g (+ 8) of this warpgroup
+  const float qc[2] = {s_qs[wg * 64 + wq * 16 + g] * c,
+                       s_qs[wg * 64 + wq * 16 + g + 8] * c};
+
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // in units of acc * ks
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  uint32_t pa[kKv / 16][4];      // P of the previous tile, bf16 A fragments
+
+  auto issue_pv = [&](int st) {
+#pragma unroll
+    for (int cc = 0; cc < kKv / 16; ++cc)
+      wgmma_rs(o_acc, pa[cc],
+               desc_sw128(v_tile(st) + cc * 16 * kLine, kKv * kLine, 1024));
+  };
+  // S = Qi Ki_st^T over D rounded up to 32; the first step overwrites S.
+  auto issue_qk = [&](int st, int (&s)[kKv / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < C::kSteps; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_s8(s, desc_sw128(sQ8w + (kk / 4) * kBlockRows * kLine + off, 16, 1024),
+                  desc_sw128(k_tile(st) + (kk / 4) * kKv * kLine + off, 16, 1024),
+                  kk > 0);
+    }
+  };
+  // Dequantize and online softmax of tile t in place: s (int32 sums) comes
+  // back as the bits of fp32 P; the running max and this thread's row sums
+  // move, alpha rescales O.
+  auto softmax = [&](int t, int st, int (&s)[kKv / 2], float (&alpha)[2]) {
+    const float* ksv = reinterpret_cast<const float*>(base + (ks_tile(st) - sQ));
+    float y[kKv / 2];
+#pragma unroll
+    for (int j = 0; j < kKv / 8; ++j) {
+      const float2 k2 = *reinterpret_cast<const float2*>(ksv + j * 8 + t4 * 2);
+      const float nk0 = -kMagicF * k2.x, nk1 = -kMagicF * k2.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        y[i] = fmaf(__int_as_float(s[i] + kMagic), (e & 1) ? k2.y : k2.x,
+                    (e & 1) ? nk1 : nk0);
+      }
+    }
+    if ((t + 1) * kKv > skv) {  // columns past skv
+#pragma unroll
+      for (int i = 0; i < kKv / 2; ++i) {
+        const int col = t * kKv + (i / 4) * 8 + t4 * 2 + (i & 1);
+        if (col >= skv) y[i] = -INFINITY;
+      }
+    }
+    float m_tile[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kKv / 2; ++i)
+      m_tile[(i >> 1) & 1] = fmaxf(m_tile[(i >> 1) & 1], y[i]);
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffff, m_tile[r], 1));
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffff, m_tile[r], 2));
+      const float m_new = fmaxf(m_run[r], m_tile[r]);
+      alpha[r] = exp2_ftz((m_run[r] - m_new) * qc[r]);  // 0 on the first tile
+      m_run[r] = m_new;
+      mc[r] = m_new * qc[r];
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kKv / 2; ++i) {
+      const float p = exp2_ftz(fmaf(y[i], qc[(i >> 1) & 1], -mc[(i >> 1) & 1]));
+      s[i] = __float_as_int(p);
+      l_run[(i >> 1) & 1] += p;
+    }
+  };
+  // S n-tiles 2cc and 2cc + 1 are the A fragment of kv rows [16cc, 16cc + 16).
+  auto pack = [&](const int (&s)[kKv / 2]) {
+#pragma unroll
+    for (int cc = 0; cc < kKv / 16; ++cc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[cc][e] = pack_bf16(__int_as_float(s[8 * cc + 2 * e]),
+                              __int_as_float(s[8 * cc + 2 * e + 1]));
+  };
+
+  int s[kKv / 2] = {};
+  float alpha[2];
+  // Tile 0: QK^T alone (O is still zero).
+  mbar_wait(full, 0);
+  named_sync(1 + wg, 256);  // this warpgroup's turn to issue
+  fence_regs(s);
+  wgmma_fence();
+  issue_qk(0, s);
+  wgmma_commit();
+  named_arrive(2 - wg, 256);  // the other warpgroup's turn
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(0, 0, s, alpha);
+  pack(s);
+  // Tile t: QK^T of t and PV of t - 1 issued together; the softmax of t runs
+  // while PV t - 1 completes.
+  for (int t = 1; t < n; ++t) {
+    const int st = t % kStages, prev = (t - 1) % kStages;
+    mbar_wait(full + st, (t / kStages) & 1);
+    named_sync(1 + wg, 256);
+    fence_regs(s);
+    fence_regs(o_acc);
+    wgmma_fence();
+    issue_qk(st, s);
+    wgmma_commit();
+    issue_pv(prev);
+    wgmma_commit();
+    named_arrive(2 - wg, 256);
+    wgmma_wait<1>();  // S_t complete; PV_{t-1} may still run
+    fence_regs(s);
+    softmax(t, st, s, alpha);
+    wgmma_wait<0>();  // PV_{t-1} complete: its stage and pa are free
+    fence_regs(o_acc);
+    if (lane == 0) mbar_arrive(empty + prev);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+    pack(s);
+  }
+  // The last tile's PV.
+  fence_regs(o_acc);
+  wgmma_fence();
+  issue_pv((n - 1) % kStages);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o_acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffff, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffff, l_run[r], 2);
+  }
+  // Rows 16 wq + g (+ 8) of this warpgroup; columns 8 j + 2 t4 (+ 1).
+  __nv_bfloat16* ob = o + (size_t)bh * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + wg * 64 + wq * 16 + g + h * 8;
+    if (r >= sq) continue;
+    const float inv = 1.f / l_run[h];
+    __nv_bfloat16* orow = ob + (size_t)r * D + t4 * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(
+          o_acc[j * 4 + h * 2] * inv, o_acc[j * 4 + h * 2 + 1] * inv);
+  }
+}
+
+// Tensor map over a [bh, rows, cols] tensor of `elem`-byte elements,
+// loading [box_rows, 128-byte] boxes with the 128-byte swizzle.
+int make_map(CUtensorMap* map, const void* base, int cols, int rows, int bh,
+             int box_rows, int elem, CUtensorMapDataType type) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem,
+                                 (cuuint64_t)rows * cols * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(kLine / elem), (cuuint32_t)box_rows, 1};
+  return encode_map(map, base, 3, dims, strides, box, type);
 }
 
 template <int D>
 int launch(const void* q, const void* ki, const void* ks, const void* v, void* o,
            int bh, int sq, int skv, float scale, cudaStream_t stream) {
-  constexpr int DK = (D + 31) / 32 * 32;
-  constexpr size_t smem = (size_t)(kRowsPerBlock + kKvTile) * (DK + kQkPad) +
-                          sizeof(float) * (kRowsPerBlock + kKvTile) +
-                          sizeof(__nv_bfloat16) * (size_t)D * LDV;
-  cudaError_t err = cudaFuncSetAttribute(
-      sd_attention_qk8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const float log2e = 1.4426950408889634f;
-  dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-  sd_attention_qk8_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(ki),
-      static_cast<const float*>(ks), static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), sq, skv, scale * log2e);
+  using C = Cfg<D>;
+  constexpr int kDp = (D + 15) / 16 * 16;
+  CUtensorMap mq, mk, mks, mv;
+  int err = make_map(&mq, q, D, sq, bh, kBlockRows, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  if (err == 0)
+    err = make_map(&mk, ki, kDp, skv, bh, C::kKv, 1, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == 0)
+    err = make_map(&mv, v, D, skv, bh, C::kKv, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  if (err == 0) {
+    const cuuint64_t dims[1] = {(cuuint64_t)bh * skv};
+    const cuuint64_t strides[1] = {0};  // unused at rank 1
+    const cuuint32_t box[1] = {(cuuint32_t)C::kKv};
+    err = encode_map(&mks, ks, 1, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != 0) return err;
+  static unsigned sized = 0;
+  err = set_smem_once(sd_attention_qk8_kernel<D>, C::kSmem, sized);
+  if (err != 0) return err;
+  const dim3 grid((sq + kBlockRows - 1) / kBlockRows, bh);
+  sd_attention_qk8_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+      mq, mk, mks, mv, static_cast<__nv_bfloat16*>(o), sq, skv,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t value (0 on success); -1 for an unsupported head dim.
+// q, v [bh, sq|skv, d] bf16, ki [bh, skv, round_up(d, 16)] int8, ks [bh, skv]
+// fp32, all 16-byte aligned. Returns a cudaError_t value (0 on success); -1
+// for an unsupported head dim.
 extern "C" int sd_attention_qk8(const void* q, const void* ki, const void* ks,
                                 const void* v, void* o, int bh, int sq, int skv,
                                 int d, float scale, void* stream) {

@@ -17,9 +17,22 @@ from uce_tpu_torch.utils.imaging import case_window, save_case_images, uce_outpu
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+# The strings that pandas.read_csv reads as NA by default (pandas'
+# STR_NA_VALUES). uce_tpu reads the prompts CSV with pandas and passes
+# str(prompt), so such a prompt reaches its pipeline as the text "nan";
+# this reader does the same without pandas.
+PANDAS_NA_STRINGS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"})
+
+
 def read_prompts_csv(path: str) -> list[dict]:
+    """Rows ``{case_number, prompt, evaluation_seed}`` of a prompts CSV, as
+    uce_tpu's pandas reading yields them (an NA prompt becomes "nan")."""
     with open(path, newline="", encoding="utf-8") as f:
-        return [{"case_number": int(r["case_number"]), "prompt": r["prompt"],
+        return [{"case_number": int(r["case_number"]),
+                 "prompt": "nan" if r["prompt"] in PANDAS_NA_STRINGS else r["prompt"],
                  "evaluation_seed": int(r["evaluation_seed"])}
                 for r in csv.DictReader(f)]
 

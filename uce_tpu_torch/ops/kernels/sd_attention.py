@@ -13,9 +13,10 @@ across blocks (``d512_splits``) and then merges the splits' partial results
 in a second kernel (``merge_partials``). ``qk_int8=True`` is the W8A8
 serving variant (``_kernel_qk8``): K is centred per channel and quantized
 per token once here, in plain tensor ops (uce_tpu does it in XLA outside
-its kernel), and ``csrc/sd_attention_qk8.cu`` quantizes q per row and runs
-QK^T in int8. A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+its kernel) into rows padded to 16 bytes, and ``csrc/sd_attention_qk8.cu``
+(the bf16 kernel's TMA + wgmma schedule, QK^T on int8 wgmma) quantizes q
+per row and runs QK^T in int8. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -117,23 +118,35 @@ def merge_partials_reference(o_part, ml) -> torch.Tensor:
     return ((w[..., None] * o_part).sum(dim=0) / l_sum[..., None]).to(torch.bfloat16)
 
 
+def k_cols(d: int) -> int:
+    """Columns of the int8 K that ``quantize_k`` writes for head dim d: d
+    rounded up to 16, so that each row is a whole number of 16-byte units
+    (TMA's stride rule; 48 at d=40)."""
+    return -(-d // 16) * 16
+
+
 def quantize_k(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K [B,H,Skv,D] -> (ki int8 [B,H,Skv,D], ks fp32 [B,H,Skv]): centred per
-    channel over the sequence (softmax cancels the per-row constant this adds
-    to the logits), then symmetric per-token int8."""
+    """K [B,H,Skv,D] -> (ki int8 [B,H,Skv,k_cols(D)], ks fp32 [B,H,Skv]):
+    centred per channel over the sequence (softmax cancels the per-row
+    constant this adds to the logits), then symmetric per-token int8; the
+    columns past D are zero."""
     kf = k.float()
     kc = kf - kf.mean(dim=2, keepdim=True)
     ks = kc.abs().amax(dim=3).clamp_min(1e-6) / 127.0
-    return torch.round(kc / ks[..., None]).to(torch.int8), ks
+    d = k.shape[-1]
+    ki = torch.zeros((*k.shape[:-1], k_cols(d)), dtype=torch.int8, device=k.device)
+    ki[..., :d] = torch.round(kc / ks[..., None])
+    return ki, ks
 
 
 def sd_attention_qk8_reference(q, ki, ks, v, scale: float) -> torch.Tensor:
     """Plain PyTorch version of the int8-QK^T kernel (``_kernel_qk8`` line
-    by line), one batch row at a time. Its QK^T is an fp32 product of the
-    int-valued tensors, which is exact: |sum| <= 127^2 * D < 2^24 for
-    D <= 1040, with TF32 off (``full_fp32``)."""
+    by line) on ``quantize_k``'s padded K, one batch row at a time. Its QK^T
+    is an fp32 product of the int-valued tensors, which is exact: |sum| <=
+    127^2 * D < 2^24 for D <= 1040, with TF32 off (``full_fp32``)."""
     from uce_tpu_torch.ops.solver import full_fp32
 
+    ki = ki[..., :q.shape[-1]]
     out = torch.empty_like(q)
     for i in range(q.shape[0]):
         qf = q[i].float()
@@ -202,7 +215,7 @@ def _check_contiguous(**tensors) -> None:
 
 def sd_attention_qk8(q, ki, ks, v, scale: float) -> torch.Tensor:
     """The int8-QK^T kernel on a pre-quantized K (``quantize_k``): q and v
-    [B,H,S,D] bf16, ki int8 [B,H,Skv,D], ks fp32 [B,H,Skv] -> bf16."""
+    [B,H,S,D] bf16, ki int8 [B,H,Skv,k_cols(D)], ks fp32 [B,H,Skv] -> bf16."""
     global launches_qk8
     if q.device.type == "cpu":
         return sd_attention_qk8_reference(q, ki, ks, v, scale)
@@ -210,19 +223,22 @@ def sd_attention_qk8(q, ki, ks, v, scale: float) -> torch.Tensor:
         raise ValueError(f"sd_attention_qk8: unsupported device {q.device}")
     b, h, sq, d = q.shape
     skv = ki.shape[2]
-    want = {"ki": ((b, h, skv, d), torch.int8), "ks": ((b, h, skv), torch.float32),
+    want = {"ki": ((b, h, skv, k_cols(d)), torch.int8),
+            "ks": ((b, h, skv), torch.float32),
             "v": ((b, h, skv, d), torch.bfloat16)}
     for name, t in (("ki", ki), ("ks", ks), ("v", v)):
         if (tuple(t.shape), t.dtype) != want[name] or t.device != q.device:
             raise ValueError(f"sd_attention_qk8: {name} {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}, want {want[name]}")
-    if q.dtype != torch.bfloat16 or d not in QK8_HEAD_DIMS or b * h > 65535:
+    if (q.dtype != torch.bfloat16 or d not in QK8_HEAD_DIMS or b * h > 65535
+            or b * h * skv >= 2 ** 31):
         raise ValueError(f"sd_attention_qk8: unsupported q {tuple(q.shape)} "
-                         f"{q.dtype} (bf16, D in {QK8_HEAD_DIMS}, B*H <= 65535)")
+                         f"{q.dtype} (bf16, D in {QK8_HEAD_DIMS}, B*H <= 65535, "
+                         "B*H*Skv < 2^31)")
     _check_contiguous(q=q, ki=ki, ks=ks, v=v)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    context, stream = launch_on(q.device)
+    with context:
         err = _lib_qk8()(q.data_ptr(), ki.data_ptr(), ks.data_ptr(), v.data_ptr(),
                          out.data_ptr(), b * h, sq, skv, d, float(scale), stream)
     if err != 0:

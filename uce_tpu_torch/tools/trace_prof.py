@@ -10,10 +10,18 @@ a random 77-token context. For each path and model: 3 warm-up calls, the
 median host wall time of 5 unprofiled calls (each ended by a synchronize),
 then ``--runs`` profiled calls: device time per call (the sum of the CUDA
 kernel, memcpy and memset events), the idle share 1 - device / wall, the
-time by category and the top kernels. Last, each conv3x3 shape of the
+time by category, the top kernels and the group_norm_act kernels by name
+(device time and launches per call), and the kernel path's group_norm_act
+calls by the schedule its planner picks. Last, each conv3x3 shape of the
 kernel path alone (CUDA events, median of 10): calls per forward, the
 kernel's time and achieved TFLOP/s beside cuDNN's (channels_last) on the
 same inputs, the kernel that ``plan`` picks, its blocks and K splits.
+
+    python -m uce_tpu_torch.tools.trace_prof --gn [--batch 8]
+
+prints only the group_norm_act table: the kernel's and F.group_norm's
+device time per call (torch.profiler, 20 calls each) at each GroupNorm
+shape of the UNet and the VAE decode, beside the bytes bound.
 
     python -m uce_tpu_torch.tools.trace_prof --solve [--runs 5]
 
@@ -38,7 +46,7 @@ import torch
 
 from uce_tpu_torch.models import quantize, unet, vae
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
-from uce_tpu_torch.ops.kernels import conv3x3, uce_solve
+from uce_tpu_torch.ops.kernels import conv3x3, group_norm, uce_solve
 
 # First matching pattern names a kernel's category.
 CATEGORIES = [
@@ -46,7 +54,7 @@ CATEGORIES = [
     ("sd_attention kernel", r"sd_attention"),
     ("int8 GEMMs (torch._int_mm)", r"gemm_s8|s8s8|imma"),
     ("conv3x3 kernels", r"conv3x3_(wgmma|mma)_kernel|split_reduce_kernel"),
-    ("group_norm_act kernels", r"gn_(partial|fold|apply)_kernel"),
+    ("group_norm_act kernels", r"gn_\w+_kernel"),
     ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
     ("convolutions (library)", r"conv|xmma|implicit|fprop|dgrad|winograd"),
     ("GroupNorm (library)", r"GroupNorm|group_norm|RowwiseMoments|ComputeFused"),
@@ -88,17 +96,20 @@ def profile(fn, runs: int) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    by_name = collections.Counter()
+    by_name, count = collections.Counter(), collections.Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] += (evt.time_range.end - evt.time_range.start) / 1e3
+            count[evt.name] += 1
     device = sum(by_name.values()) / runs
     wall = float(np.median(walls))
     by_cat = collections.Counter()
     for name, ms in by_name.items():
         by_cat[category(name)] += ms / runs
+    gn = [(n, ms / runs, count[n] / runs) for n, ms in by_name.most_common()
+          if category(n) == "group_norm_act kernels"]
     return {"wall_ms": wall, "device_ms": device, "by_cat": by_cat,
-            "top": [(n, ms / runs) for n, ms in by_name.most_common(8)]}
+            "top": [(n, ms / runs) for n, ms in by_name.most_common(8)], "gn": gn}
 
 
 def report(what: str, r: dict) -> None:
@@ -112,6 +123,9 @@ def report(what: str, r: dict) -> None:
         print(f"[{what}]   {label}: {ms:.3f} ms ({ms / r['device_ms']:.1%})")
     for name, ms in r["top"]:
         print(f"[{what}]   top: {ms:.3f} ms {name[:110]}")
+    for name, ms, launches in r["gn"]:
+        print(f"[{what}]   group_norm_act: {ms:.4f} ms in {launches:g} launches per "
+              f"call ({ms / launches * 1e3:.2f} us each) {name[:80]}")
 
 
 def conv_shapes(fn) -> collections.Counter:
@@ -181,6 +195,76 @@ def conv_table(what: str, seen: collections.Counter) -> None:
           f"{total_lib_ms:.3f} ms ({total_flops / total_lib_ms / 1e9:.1f} TFLOP/s)")
 
 
+def gn_shapes(fn) -> collections.Counter:
+    """(x shape, groups, eps, act) -> calls of the group_norm_act wrapper in
+    fn() on the kernel path."""
+    seen = collections.Counter()
+    launch = group_norm.group_norm_act
+
+    def spy(x, scale, bias, groups=32, eps=1e-5, act="none"):
+        seen[(tuple(x.shape), groups, eps, act)] += 1
+        return launch(x, scale, bias, groups, eps, act)
+
+    group_norm.group_norm_act = spy
+    select_path(True)
+    try:
+        fn()
+    finally:
+        group_norm.group_norm_act = launch
+    return seen
+
+
+def gn_table(what: str, seen: collections.Counter, calls: int = 20) -> None:
+    """Device time per call of the group_norm_act kernel(s) and of
+    F.group_norm + F.silu (channels_last) at each shape in ``seen``, from one
+    profiled run of ``calls`` calls of each, beside the bytes bound (one read
+    of x, one write of y), weighted by the calls per forward."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    plan = getattr(group_norm, "plan", None)
+    totals = np.zeros(3)
+    for (shape, groups, eps, act), n in sorted(seen.items()):
+        x = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        scale = torch.randn(shape[3], device="cuda", generator=gen)
+        bias = torch.randn(shape[3], device="cuda", generator=gen)
+        x_nchw = x.permute(0, 3, 1, 2)
+        s16, b16 = scale.bfloat16(), bias.bfloat16()
+        kernel = lambda: group_norm.group_norm_act(x, scale, bias, groups, eps, act)
+        lib = lambda: (torch.nn.functional.silu if act == "silu" else (lambda t: t))(
+            torch.nn.functional.group_norm(x_nchw, groups, s16, b16, eps))
+        for fn in (kernel, lib):
+            fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                kernel()
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                lib()
+            torch.cuda.synchronize()
+        ours, theirs, launches = 0.0, 0.0, 0
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = (evt.time_range.end - evt.time_range.start) / calls
+            if re.search(r"gn_\w+_kernel", evt.name):
+                ours += us
+                launches += 1
+            else:
+                theirs += us
+        bound_us = 4.0 * x.numel() / 3.35e12 * 1e6
+        totals += n * np.array([ours, theirs, bound_us])
+        how = plan(shape, groups) if plan else None
+        sched = (f"{how.schedule}, slab {how.slab}, cluster {how.cluster}, "
+                 f"{how.blocks} blocks" if how else "three kernels")
+        print(f"[{what}] group_norm_act {shape} {act} x{n}: kernel {ours:.2f} us "
+              f"device per call ({launches / calls:g} launches), F.group_norm"
+              f"{'+F.silu' if act == 'silu' else ''} {theirs:.2f} us, bound "
+              f"{bound_us:.2f} us ({sched})")
+    print(f"[{what}] group_norm_act per forward: kernel {totals[0] / 1e3:.4f} ms, "
+          f"library {totals[1] / 1e3:.4f} ms, bound {totals[2] / 1e3:.4f} ms")
+
+
 def solve_chain(ke: int, kp: int, d: int, runs: int) -> None:
     """Kernel events of newton_schulz_inverse in launch order: device time
     by kernel (mean over ``runs`` profiled calls), and the medians over the
@@ -231,6 +315,9 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per model")
     ap.add_argument("--solve", action="store_true",
                     help="profile the Newton-Schulz chain instead")
+    ap.add_argument("--gn", action="store_true",
+                    help="only the group_norm_act table: each shape of the UNet "
+                         "and the VAE against F.group_norm")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_prof: no CUDA device", file=sys.stderr)
@@ -259,6 +346,13 @@ def main(argv=None) -> int:
               "int8": (quantize.quantize_params(uparams, quantize.UNET_SKIP, "int8"),
                        quantize.quantize_params(vparams, quantize.VAE_SKIP, "int8"))}
     with torch.inference_mode():
+        if args.gn:
+            gn_table(f"unet batch {args.batch}", gn_shapes(
+                lambda: unet.apply(uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)))
+            gn_table("vae batch 1", gn_shapes(
+                lambda: vae.decode(vparams, lat, vae.SD_VAE_CONFIG)))
+            print(f"[card] {card}")
+            return 0
         for path, (up, vp) in params.items():
             select_path(path == "kernels")
             report(f"unet {path} batch {args.batch}", profile(
@@ -266,6 +360,17 @@ def main(argv=None) -> int:
                 args.runs))
             report(f"vae {path} batch 1", profile(
                 lambda: vae.decode(vp, lat, vae.SD_VAE_CONFIG), args.runs))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for what, fn in ((f"unet kernels batch {args.batch}", lambda: unet.apply(
+                uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)),
+                         ("vae kernels batch 1", lambda: vae.decode(
+                             vparams, lat, vae.SD_VAE_CONFIG))):
+            calls = collections.Counter()
+            for (shape, groups, _, _), n in gn_shapes(fn).items():
+                calls[group_norm.plan(shape, groups, sms).schedule] += n
+            print(f"[{what}] group_norm_act calls per call: {calls['resident']} "
+                  f"resident (one launch each), {calls['stream']} streaming (three "
+                  "launches each)")
         conv_table(f"unet batch {args.batch}", conv_shapes(
             lambda: unet.apply(uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)))
         conv_table("vae batch 1", conv_shapes(
