@@ -1,31 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths once on one CUDA card at SD 1.4's
-full width, and check them.
+"""Drive the PyTorch port's main paths once on one CUDA card at the full
+widths of SD 1.4, SD 2.1 (768-v) and SDXL base 1.0, and check them.
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; the exit code is non-zero unless all pass):
+Phases (each raises on failure; the exit code is non-zero unless all pass;
+each phase's seconds and the total are printed):
   1. the card: CUDA must be available; print its name and power limit;
   2. the kernels: build the six libraries from csrc/ (one nvcc each, all at
      once; ptxas's registers and spills of the TMA + wgmma attention and
-     conv kernels), compare each kernel with its plain PyTorch version at
-     the main paths' shapes and on the Pallas tests' cases (elementwise and
+     conv kernels; the bf16 attention at d=64 must not spill), compare each
+     kernel with its plain PyTorch version at the main paths' shapes (SD
+     1.4's, and SD 2.1's and SDXL's: d=64 attention, d=512 at s=9216 and
+     16384, the 96x96, 128x128 and 1024x1024 conv and GroupNorm maps,
+     uce_solve at d=1024) and on the Pallas tests' cases (elementwise and
      relative L2 bounds; the conv's split-K path at the shapes that split),
      and time the kernel, the plain version and one
      library call for the same function (CUDA events; the int8-QK^T
      attention has no such call, so the bf16 kernel and SDPA are timed
      beside it as yardsticks), with each bound: tensor cores or bytes, and
      for the attention also the exp unit; the conv at one shape per UNet
-     level at batch 8 with its TFLOP/s and K splits; the bf16 and int8-QK^T
-     attentions, GroupNorm and the conv also back to back, beside their
-     library calls (and yardsticks); ptxas must report no spills and no
+     level at batch 8 with its TFLOP/s and K splits; every kernel at its
+     main-path shapes also back to back, beside its library call (the
+     int8-QK^T attention beside its yardsticks); ptxas must report no spills and no
      serialized wgmma for the int8-QK^T kernel at any head dim;
-  3. a seeded random-weight SD 1.4 snapshot (UNet, CLIP text, VAE, PNDM
-     scheduler, a character-vocabulary tokenizer) written under build/;
+  3. SD 1.4: a seeded random-weight snapshot (UNet, CLIP text, VAE, PNDM
+     scheduler, a character-vocabulary tokenizer), drawn on the card and
+     written in fp16 under build/;
   4. ``edit-sd`` through the CLI with ``--method collapsed``, ``pallas`` (the
      uce_solve kernel) and ``general``: 32 finite cross-attention K/V targets
      each, held to a float64 solve of the same embeddings within a bound set
-     from cond(mat2), and pallas to collapsed;
+     from cond(mat2), and general and pallas to collapsed;
   5. full-width UNet forwards at batch 4: impl="auto" (attention kernel)
      against impl="plain", and with UCE_CONV_IMPL=UCE_GN_IMPL=pallas (all
      kernels) against the library path, with the launches per forward (the
@@ -34,10 +39,10 @@ Phases (each raises on failure; the exit code is non-zero unless all pass):
   7. ``generate`` through the CLI at 512px, PNDM, 50 steps, CFG 7.5, with the
      edit overlay, on the default path and on the kernel path: PNG checks and
      every kernel's launch count;
-     in 5-7 the first conv call at each (shape, Cout) and the first
-     group_norm_act call at each (shape, groups, eps, act) are also held to
-     the plain version on the path's own inputs (and GroupNorm to a second
-     call, bit for bit);
+     in 5-7 (and 12-14) the first conv call at each (shape, Cout) and the
+     first group_norm_act call at each (shape, groups, eps, act) are also
+     held to the plain version on the path's own inputs (and GroupNorm to a
+     second call, bit for bit);
   8. W8A8 (``--quantize int8``): one quantized UNet forward at batch 8 (each
      int8-QK^T kernel call held to its plain version on the forward's own
      inputs; the whole forward, with a gross bound, against itself on the
@@ -47,8 +52,20 @@ Phases (each raises on failure; the exit code is non-zero unless all pass):
      Poisson load through the batch ladder 1,2,4 (JSON report, launches),
      then the socket server in a subprocess (three concurrent requests,
      stats, shutdown; PNG checks);
- 10. img/s on the library path, the kernel path and the int8 pipeline.
-The last two lines are the kernels' JSON record and the device record.
+ 10. img/s on the library path, the kernel path and the int8 pipeline;
+ 11. SD 2.1 and then SDXL, each: a seeded random-weight snapshot at full
+     width (SDXL with both text encoders, its tokenizer_2 padding with "!");
+ 12. ``edit-sd`` (SD 2.1, d=1024: pallas launches uce_solve once) and
+     ``edit-sdxl`` (d=2048: pallas takes the collapsed solve with uce_tpu's
+     warning, no launch), each method held to a float64 solve;
+ 13. a UNet forward at UNet batch 2 (one prompt under CFG; SDXL with its
+     text_time conditioning) on the three paths, and a VAE decode at 768^2
+     or 1024^2 on both, with launches;
+ 14. ``generate`` at 768^2 (DDIM, v-prediction) or 1024^2 (Euler), 50 steps,
+     CFG 7.5, with the edit overlay, on both paths (and on SD 2.1 a short
+     ``--scheduler lms`` run on the kernel path): PNGs and launches.
+The last two lines are the kernels' JSON record (launches summed over the
+main paths' runs) and the device record.
 """
 
 from __future__ import annotations
@@ -58,8 +75,10 @@ import collections
 import contextlib
 import copy
 import csv
+import dataclasses
 import io
 import json
+import logging
 import os
 import re
 import shutil
@@ -75,7 +94,7 @@ import torch.nn.functional as F
 
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
-from uce_tpu_torch.diffusion.schedulers import pndm_plan
+from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
 from uce_tpu_torch.edit import sd as edit_sd
 from uce_tpu_torch.models import clip_text, quantize, unet, vae
 from uce_tpu_torch.models.hf_loader import read_safetensors, save_safetensors
@@ -87,7 +106,7 @@ from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.serving import socket_api
 from uce_tpu_torch.utils.imaging import decode_png
 from uce_tpu_torch.utils.prompts import resolve_edit_request
-from uce_tpu_torch.utils.torch_rng import draw_prompt_latents
+from uce_tpu_torch.utils.torch_rng import DeviceNormalRng, draw_prompt_latents
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CUDA = torch.device("cuda")
@@ -110,15 +129,25 @@ KERNEL_REL_L2 = {"sd_attention": 1e-2, "sd_attention_qk8": 1e-2,
                  "group_norm_act": 1e-3, "conv3x3": 2e-3, "d512_merge": 1e-3}
 # uce_solve: max |X_kernel - X_plain| / max |X_plain| (both fp32).
 SOLVE_REL_MAX = 1e-3
-# edit-sd: max abs diff / max abs over the 32 targets. Each method is held
-# to a float64 solve of the same fp32 embeddings: an fp32 solve is accurate
-# to about cond(mat2) * eps32 relative, so the bound is EDIT_COND_FACTOR times
-# that (capped at EDIT_REL_CAP, beyond which the check would not tell a
-# wrong solve from round-off). --method pallas is also held to collapsed
-# within the bar of tests/test_pallas_solve.py.
+# edit-sd / edit-sdxl, each method held to a float64 solve of the same fp32
+# embeddings, two ways. Forward: max abs diff / max abs over the targets. An
+# fp32 solve is accurate to about cond(mat2) * eps32 relative, so the bound
+# is EDIT_COND_FACTOR times that; it tells a wrong solve from round-off
+# only while it stays small (SD 1.4's 4.4e-3 at cond 9.2e3), not at SDXL's
+# cond of ~3e5, where the forming of the Gram matrices in fp32 alone moves
+# the edit by cond * eps32 ~ 4e-2. Backward: the float64 residual of the
+# edited weights in the normal equations, ||W_new mat2 - W mat_a||_F /
+# (||W_new||_F ||mat2||_F + ||W||_F ||mat_a||_F), held under sqrt(d) * eps32
+# (the probabilistic bound of a length-d fp32 product; a wrong solve leaves
+# O(1)). Neither sees an error along mat2's small singular directions below
+# cond * eps32, so the methods are also held to one another: general to
+# collapsed within GENERAL_VS_COLLAPSED_FACTOR * cond * eps32 (read at
+# 0.77-1.26 x cond * eps32 on SD 1.4, SD 2.1 and SDXL), pallas to collapsed
+# within the bar of tests/test_pallas_solve.py, and bit for bit where it
+# takes the collapsed solve (d > MAX_PALLAS_DIM).
 EPS32 = float(torch.finfo(torch.float32).eps)
 EDIT_COND_FACTOR = 4.0
-EDIT_REL_CAP = 1e-2
+GENERAL_VS_COLLAPSED_FACTOR = 2.0
 PALLAS_VS_COLLAPSED_MAX = 5e-3
 # Full-width bf16 forwards, one path against another: relative L2 bound.
 REL_L2_MAX = 5e-2
@@ -127,13 +156,11 @@ REL_L2_MAX = 5e-2
 # latent-input conv (Cin = 4) takes the mma.sync conv kernel, every other
 # 3x3 conv the wgmma one; the split-K sums are counted from the convs'
 # shapes (conv_split_sums). The library path launches only the
-# attention kernel.
+# attention kernel (library_launches).
 UNET_LAUNCHES = {"conv3x3": 49, "conv3x3_wgmma": 48, "conv3x3_mma": 1,
                  "group_norm_act": 61, "sd_attention": 10}
 VAE_LAUNCHES = {"conv3x3": 33, "conv3x3_wgmma": 32, "conv3x3_mma": 1,
                 "group_norm_act": 28, "sd_attention": 1}
-UNET_LAUNCHES_LIBRARY = {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
-                         "sd_attention": 10}
 VAE_LAUNCHES_LIBRARY = {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
                         "sd_attention": 1}
 # A W8A8 UNet forward sends its ten long self-attentions to the int8-QK^T
@@ -156,34 +183,45 @@ PEAK_TF32 = 495e12
 # maximum SM clock (nvidia-smi clocks.max.sm).
 EXP_PER_CLOCK_PER_SM = 16
 
-# Attention: the UNet's two long self-attentions at batch 16 (8 prompts under
-# CFG) and 8 (4 prompts, the top serving rung), the VAE mid-block at batch 1
-# (generate) and 4 (the serving rung).
+# Attention: SD 1.4's two long self-attentions at batch 16 (8 prompts under
+# CFG) and 8 (4 prompts, the top serving rung), its VAE mid-block at batch 1
+# (generate) and 4 (the serving rung); then SDXL's (1024², latents 128²) and
+# SD 2.1's (768², latents 96²) UNet self-attentions at UNet batch 2, d=64,
+# and their VAE mid-blocks at s=16384 and 9216.
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
-              (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512)]
+              (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512),
+              (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64),
+              (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
+              (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
-              (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512)]
+              (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512),
+              (2, 2, 200, 200, 64)]
 # (shape NHWC, groups, eps, act); the last two cases are the UNet's 64x64
 # level at batch 8, which plan streams.
-GN_SLICE = [((4, 64, 64, 320), 32, 1e-5, "silu"), ((1, 512, 512, 128), 32, 1e-6, "silu")]
+GN_SLICE = [((4, 64, 64, 320), 32, 1e-5, "silu"), ((1, 512, 512, 128), 32, 1e-6, "silu"),
+            ((2, 128, 128, 320), 32, 1e-5, "silu"), ((1, 1024, 1024, 128), 32, 1e-6, "silu")]
 GN_CASES = [((4, 32, 32, 1920), 32, 1e-5, "silu"), ((4, 8, 8, 2560), 32, 1e-5, "silu"),
             ((4, 64, 64, 320), 32, 1e-6, "none"), ((1, 512, 512, 256), 32, 1e-6, "silu"),
             ((2, 8, 8, 64), 8, 1e-5, "none"), ((3, 4, 4, 320), 32, 1e-5, "silu"),
             ((1, 16, 16, 128), 32, 1e-5, "none"), ((1, 24, 24, 64), 8, 1e-5, "none"),
             ((8, 64, 64, 320), 32, 1e-5, "silu"), ((8, 64, 64, 960), 32, 1e-5, "silu")]
 # (shape NHWC, cout): the UNet's 64x64 level at batch 4, one shape per UNet
-# level at batch 8 (the 8x8 one splits K), the VAE's 512x512 level.
+# level at batch 8 (the 8x8 one splits K), the VAE's 512x512 level; then
+# SDXL's 128x128 UNet level, SD 2.1's 96x96 and 12x12 ones at UNet batch 2,
+# and the VAE's 1024x1024 level (SDXL).
 CONV_SLICE = [((4, 64, 64, 320), 320), ((8, 64, 64, 320), 320),
               ((8, 32, 32, 640), 640), ((8, 16, 16, 1280), 1280),
-              ((8, 8, 8, 2560), 1280), ((1, 512, 512, 128), 128)]
+              ((8, 8, 8, 2560), 1280), ((1, 512, 512, 128), 128),
+              ((2, 128, 128, 320), 320), ((2, 96, 96, 320), 320),
+              ((2, 12, 12, 1280), 1280), ((1, 1024, 1024, 128), 128)]
 CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 640),
               ((4, 8, 8, 2560), 1280), ((1, 64, 64, 4), 512), ((1, 128, 128, 512), 512),
               ((1, 512, 512, 128), 3), ((2, 8, 8, 12), 20), ((1, 6, 6, 4), 20),
               ((4, 16, 16, 1280), 1280), ((2, 8, 8, 64), 96)]
 # (edit concepts, preserve concepts, d): the main path's art erase, then the
 # Pallas tests' cases and a 100-concept list.
-SOLVE_SLICE = [(5, 3, 768)]
+SOLVE_SLICE = [(5, 3, 768), (5, 3, 1024)]
 SOLVE_CASES = [(4, 3, 256), (16, 0, 256), (100, 0, 768)]
 # int8-QK^T attention: the top serving rung (4 prompts under CFG) at 512²,
 # then tests/test_sd_attention.py::test_int8_qk_close_to_fp's cases, a
@@ -194,6 +232,8 @@ QK8_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 200, 200, 40),
              (1, 2, 64, 64, 80), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80)]
 
+# Steps of the LMS run through generate on SD 2.1 (the third new scheduler).
+LMS_STEPS = 5
 ART = "Kelly McKernan; Thomas Kinkade; Tyler Edlin; Kilian Eng; Ajin Demi Human"
 PRESERVE = "Van Gogh; Rembrandt; Pablo Picasso"
 KERNEL_MODULES = {"sd_attention": sdk, "group_norm_act": gnk, "conv3x3": convk,
@@ -203,6 +243,74 @@ BUILDS = {"sd_attention": sdk.build, "sd_attention_d512": sdk.build_d512,
           "conv3x3": convk.build, "uce_solve": solvek.build}
 SERVE_PROMPTS = ["a painting by kelly mckernan", "a photo of a dog",
                  "a house in the style of rembrandt"]
+# diffusers' scheduler_config.json of each model.
+_SCHEDULER_COMMON = {"beta_start": 0.00085, "beta_end": 0.012,
+                     "beta_schedule": "scaled_linear", "num_train_timesteps": 1000,
+                     "set_alpha_to_one": False, "steps_offset": 1,
+                     "skip_prk_steps": True, "clip_sample": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """One model of the main paths at its published widths: its parts'
+    configurations (``texts``: (subfolder, config, pad token) per text
+    encoder), its scheduler, image size, the cross-attention K/V targets an
+    edit writes, and the kernel path's launches per UNet forward."""
+
+    name: str
+    family: str          # "sd" (edit-sd) or "sdxl" (edit-sdxl)
+    unet: unet.UNetConfig
+    texts: tuple
+    vae: vae.VAEConfig
+    scheduler: dict
+    size: int
+    targets: int
+    unet_launches: dict
+
+    @property
+    def latent(self) -> int:
+        return self.size // 8
+
+    @property
+    def tag(self) -> str:
+        return self.name.replace(" ", "").replace(".", "").lower()
+
+
+SD14 = Model("SD 1.4", "sd", unet.SD14_UNET_CONFIG,
+             (("text_encoder", clip_text.SD14_TEXT_CONFIG, "<|endoftext|>"),),
+             vae.SD_VAE_CONFIG, {"_class_name": "PNDMScheduler", **_SCHEDULER_COMMON},
+             512, 32, UNET_LAUNCHES)
+# SD 2.1 (768-v) and SDXL base 1.0: stabilityai/stable-diffusion-2-1 and
+# stabilityai/stable-diffusion-xl-base-1.0 (their text configs carry the
+# legacy eos_token_id 2, SDXL's tokenizer_2 pads with "!"). Per UNet forward
+# (counted on meta tensors in tests/test_torch_sdxl_sd21_shapes.py): SD 2.1
+# 49 convs and 61 GroupNorms, its 96x96 and 48x48 levels' 10 self-attentions
+# at d=64; SDXL 38 and 46, its 64x64 and 32x32 levels' 70.
+SD21 = Model("SD 2.1", "sd", unet.SD21_UNET_CONFIG,
+             (("text_encoder", dataclasses.replace(clip_text.SD2_TEXT_CONFIG,
+                                                   eos_token_id=2), "<|endoftext|>"),),
+             vae.SD_VAE_CONFIG,
+             {"_class_name": "DDIMScheduler", "prediction_type": "v_prediction",
+              **_SCHEDULER_COMMON},
+             768, 32, {"conv3x3": 49, "conv3x3_wgmma": 48, "conv3x3_mma": 1,
+                       "group_norm_act": 61, "sd_attention": 10})
+SDXL = Model("SDXL", "sdxl", unet.SDXL_UNET_CONFIG,
+             (("text_encoder", dataclasses.replace(clip_text.SD14_TEXT_CONFIG,
+                                                   eos_token_id=2), "<|endoftext|>"),
+              ("text_encoder_2", dataclasses.replace(clip_text.SDXL_TEXT2_CONFIG,
+                                                     eos_token_id=2), "!")),
+             dataclasses.replace(vae.SD_VAE_CONFIG, scaling_factor=0.13025),
+             {"_class_name": "EulerDiscreteScheduler", "prediction_type": "epsilon",
+              "timestep_spacing": "leading", "interpolation_type": "linear",
+              **_SCHEDULER_COMMON},
+             1024, 140, {"conv3x3": 38, "conv3x3_wgmma": 37, "conv3x3_mma": 1,
+                         "group_norm_act": 46, "sd_attention": 70})
+
+
+def library_launches(per_call: dict) -> dict:
+    """The library path's launches for a kernel path's: the attention only."""
+    return {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
+            "sd_attention": per_call["sd_attention"]}
 
 
 @contextlib.contextmanager
@@ -428,17 +536,30 @@ def phase_build() -> None:
         for line in ptxas_report(log) if log else ["loaded from the build cache"]:
             print(f"[ptxas] {name}: {line}")
     # The int8-QK^T kernel at every head dim it dispatches: no spills and
-    # no wgmma serialized by ptxas (C7520, C7512).
-    log = _build.build_logs.get("sd_attention_qk8")
-    if log:
-        report = ptxas_report(log)
-        dims = {int(m) for line in report
-                for m in re.findall(r"sd_attention_qk8_kernel<(\d+)>", line)}
-        faults = [line for line in report if "serialized" in line
-                  or re.search(r"[1-9]\d* B spill (stores|loads)", line)]
-        if faults or dims != set(sdk.QK8_HEAD_DIMS):
-            raise AssertionError(f"sd_attention_qk8 ptxas: head dims {sorted(dims)}, "
-                                 f"faults {faults}")
+    # no wgmma serialized by ptxas (C7520, C7512). The bf16 kernel at d=64,
+    # the head dim of every SD 2.x and SDXL attention: no spills.
+    check_ptxas("sd_attention_qk8", "sd_attention_qk8_kernel", sdk.QK8_HEAD_DIMS,
+                whole_library=True)
+    check_ptxas("sd_attention", "sd_attention_kernel", (64,), whole_library=False)
+
+
+def check_ptxas(lib: str, kernel: str, dims, whole_library: bool) -> None:
+    """Raise unless ptxas's report of ``lib`` lists ``kernel`` at every head
+    dim of ``dims`` with no spills; with ``whole_library``, no kernel of the
+    library may spill or have wgmma serialized by ptxas."""
+    log = _build.build_logs.get(lib)
+    if not log:
+        return
+    report = ptxas_report(log)
+    at = lambda line: re.search(kernel + r"<(\d+)>", line)
+    found = {int(m.group(1)) for m in map(at, report) if m}
+    checked = report if whole_library else [
+        line for line in report if at(line) and int(at(line).group(1)) in dims]
+    faults = [line for line in checked if (whole_library and "serialized" in line)
+              or re.search(r"[1-9]\d* B spill (stores|loads)", line)]
+    if faults or not set(dims) <= found:
+        raise AssertionError(f"{lib} ptxas: head dims {sorted(found)} (want "
+                             f"{sorted(dims)}), faults {faults}")
 
 
 def phase_attention(gen, rows: dict) -> None:
@@ -471,12 +592,11 @@ def phase_attention(gen, rows: dict) -> None:
             exp_ms = b * h * sq * skv / exp_rate * 1e3
             if d == 512:
                 line += f" ({sdk.d512_splits(b * h, sq, skv, sms)} KV splits)"
-            else:
-                loop_kernel = loop_ms(lambda: sdk.sd_attention(q, k, v, scale))
-                loop_lib = loop_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=scale))
-                line += (f" back to back: kernel {loop_kernel:.4f} ms, SDPA "
-                         f"{loop_lib:.4f} ms a call (median of 5 runs of 10);")
+            loop_kernel = loop_ms(lambda: sdk.sd_attention(q, k, v, scale))
+            loop_lib = loop_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+            line += (f" back to back: kernel {loop_kernel:.4f} ms, SDPA "
+                     f"{loop_lib:.4f} ms a call (median of 5 runs of 10);")
             if (b, h, sq, d) in ((16, 8, 4096, 40), (1, 1, 4096, 512)):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=by)
@@ -621,12 +741,17 @@ def phase_solve(gen, rows: dict) -> None:
             fp32_ms = bound((gemm_flops + gram_flops) / PEAK_FP32, nbytes)[0]
             bound_ms, by = bound(3 * gemm_flops / PEAK_TF32 + gram_flops / PEAK_FP32,
                                  nbytes)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=by)
+            if (ke, kp, d) == SOLVE_SLICE[0]:
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=by)
+            loop_kernel = loop_ms(lambda: solvek.newton_schulz_inverse(*args))
+            loop_lib = loop_ms(lambda: torch.linalg.inv(b_mat))
             line += (f" kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
                      f"library (torch.linalg.inv) {lib_ms:.4f} ms (median of 10), "
                      f"bound {bound_ms:.4f} ms ({by}: 3xTF32 at 495 TFLOP/s; "
-                     f"{fp32_ms:.4f} ms on the fp32 CUDA cores)")
+                     f"{fp32_ms:.4f} ms on the fp32 CUDA cores); back to back: "
+                     f"kernel {loop_kernel:.4f} ms, torch.linalg.inv "
+                     f"{loop_lib:.4f} ms a call (median of 5 runs of 10)")
         print(line, flush=True)
 
 
@@ -689,10 +814,12 @@ def phase_kernels(rows: dict) -> None:
     phase_solve(gen, rows)
 
 
-def write_tokenizer(path: str) -> None:
-    """A character vocabulary with CLIP's special tokens (no merges)."""
+def write_tokenizer(path: str, pad: str) -> None:
+    """A character vocabulary with CLIP's special tokens (no merges), "!"
+    at id 0 as in CLIP's vocabulary and the eos token the largest id;
+    ``pad`` is the pad token (SDXL's tokenizer_2 pads with "!")."""
     os.makedirs(path, exist_ok=True)
-    chars = list(string.ascii_lowercase + string.digits + "'-")
+    chars = ["!"] + list(string.ascii_lowercase + string.digits + "'-")
     vocab = {c: i for i, c in enumerate(chars)}
     vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
     vocab["<|startoftext|>"] = len(vocab)
@@ -703,57 +830,59 @@ def write_tokenizer(path: str) -> None:
         f.write("#version: 0.2\n")
     with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
         json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
-                   "pad_token": "<|endoftext|>", "unk_token": "<|endoftext|>"}, f)
+                   "pad_token": pad, "unk_token": "<|endoftext|>"}, f)
 
 
-def write_snapshot(root: str) -> None:
-    """SD 1.4 at full width with seeded random weights, stored in fp16."""
-    rng = np.random.default_rng(SEED)
-    parts = [("unet", unet.SD14_UNET_CONFIG, unet.init_state_dict,
+def write_snapshot(root: str, model: Model) -> None:
+    """``model`` at its full width with seeded random weights, stored in
+    fp16, as a diffusers snapshot directory."""
+    rng = DeviceNormalRng(SEED, "cuda")
+    parts = [("unet", model.unet, unet.init_state_dict,
               "diffusion_pytorch_model.safetensors"),
-             ("vae", vae.SD_VAE_CONFIG, vae.init_state_dict,
-              "diffusion_pytorch_model.safetensors"),
-             ("text_encoder", clip_text.SD14_TEXT_CONFIG, clip_text.init_state_dict,
-              "model.safetensors")]
+             ("vae", model.vae, vae.init_state_dict,
+              "diffusion_pytorch_model.safetensors")]
+    parts += [(sub, cfg, clip_text.init_state_dict, "model.safetensors")
+              for sub, cfg, _ in model.texts]
     for sub, cfg, init, fname in parts:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         with open(os.path.join(root, sub, "config.json"), "w") as f:
             json.dump(cfg.to_hf(), f)
-        sd = {k: v.astype(np.float16) for k, v in init(cfg, rng).items()}
+        sd = {k: torch.as_tensor(v).to(torch.float16) for k, v in init(cfg, rng).items()}
         save_safetensors(sd, os.path.join(root, sub, fname))
-    write_tokenizer(os.path.join(root, "tokenizer"))
+    for sub, _, pad in model.texts:
+        write_tokenizer(os.path.join(root, sub.replace("text_encoder", "tokenizer")),
+                        pad)
     os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
     with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
-        json.dump({"_class_name": "PNDMScheduler", "beta_start": 0.00085,
-                   "beta_end": 0.012, "beta_schedule": "scaled_linear",
-                   "num_train_timesteps": 1000, "set_alpha_to_one": False,
-                   "steps_offset": 1, "skip_prk_steps": True}, f)
+        json.dump(model.scheduler, f)
 
 
-def run_edit(snap: str, name: str, extra: list[str]) -> tuple[dict, float]:
-    out = os.path.join(WORK, "edits")
+def run_edit(snap: str, name: str, extra: list[str], model: Model
+             ) -> tuple[dict, float]:
+    out = os.path.join(WORK, f"edits_{model.tag}")
+    command = "edit-sdxl" if model.family == "sdxl" else "edit-sd"
     start = time.perf_counter()
-    rc = cli_main(["edit-sd", "--model_id", snap, "--edit_concepts", ART,
+    rc = cli_main([command, "--model_id", snap, "--edit_concepts", ART,
                    "--concept_type", "art", "--preserve_concepts", PRESERVE,
                    "--save_dir", out, "--exp_name", name, "--device", "cuda", *extra])
     seconds = time.perf_counter() - start
     edits = read_safetensors(os.path.join(out, name + ".safetensors"))
-    if rc != 0 or len(edits) != 32:
-        raise AssertionError(f"edit-sd {extra}: rc {rc}, {len(edits)} targets "
-                             "(want 32)")
+    if rc != 0 or len(edits) != model.targets:
+        raise AssertionError(f"{command} {extra}: rc {rc}, {len(edits)} targets "
+                             f"(want {model.targets})")
     for k, v in edits.items():
         if not (k.endswith(".weight") and is_sd_cross_attn_kv(k)):
-            raise AssertionError(f"edit-sd wrote an unexpected key {k}")
+            raise AssertionError(f"{command} wrote an unexpected key {k}")
         if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"edit-sd {extra}: non-finite values in {k}")
+            raise AssertionError(f"{command} {extra}: non-finite values in {k}")
     return edits, seconds
 
 
-def edit_float64(snap: str) -> tuple[dict, float]:
+def edit_float64(snap: str, model: Model) -> tuple:
     """The art erase solved in float64 from the same fp32 concept
-    embeddings, and cond(mat2)."""
+    embeddings, cond(mat2), and the backward error of edited weights."""
     edits, guides, preserves = resolve_edit_request(ART, None, PRESERVE, "art")
-    res = edit_sd.load_resources(snap, device="cuda")
+    res = edit_sd.load_resources(snap, family=model.family, device="cuda")
     emb = res.encode_concepts(edits + guides + preserves)
     stack = lambda names: torch.stack([emb[n].double() for n in names])
     c_edit, c_guide, c_pres = stack(edits), stack(guides), stack(preserves)
@@ -761,8 +890,18 @@ def edit_float64(snap: str) -> tuple[dict, float]:
     mat2 = lam + c_edit.T @ c_edit + c_pres.T @ c_pres
     mat_a = lam + c_guide.T @ c_edit + c_pres.T @ c_pres
     e = torch.linalg.solve(mat2, mat_a.T).T
-    return ({k: (w.double().cuda() @ e).float().cpu() for k, w in res.targets.items()},
-            float(torch.linalg.cond(mat2)))
+    targets = {k: w.double().to(e.device) for k, w in res.targets.items()}
+
+    def backward_error(edited: dict) -> float:
+        new = {k: edited[k].double().to(e.device) for k in targets}
+        resid = sum(float((new[k] @ mat2 - w @ mat_a).norm()) ** 2
+                    for k, w in targets.items()) ** 0.5
+        norm = lambda ws: sum(float(w.norm()) ** 2 for w in ws) ** 0.5
+        return resid / (norm(new.values()) * float(mat2.norm())
+                        + norm(targets.values()) * float(mat_a.norm()))
+
+    return ({k: (w @ e).float().cpu() for k, w in targets.items()},
+            float(torch.linalg.cond(mat2)), backward_error)
 
 
 def rel_max(got: dict, want: dict) -> float:
@@ -770,39 +909,75 @@ def rel_max(got: dict, want: dict) -> float:
     return max(float((got[k] - want[k]).abs().max()) for k in want) / scale
 
 
-def phase_edit(snap: str) -> tuple[str, int]:
-    exact, cond = edit_float64(snap)
-    bound = min(EDIT_COND_FACTOR * cond * EPS32, EDIT_REL_CAP)
-    print(f"[edit] cond(mat2) {cond:.4e}; bound on the distance from a float64 "
-          f"solve {bound:.3e} ({EDIT_COND_FACTOR} x cond x eps32, cap {EDIT_REL_CAP})")
+@contextlib.contextmanager
+def edit_warnings(records: list):
+    """Collect the warnings that edit/sd.py logs in the enclosed calls."""
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: records.append(record.getMessage())
+    log = logging.getLogger(edit_sd.__name__)
+    log.addHandler(handler)
+    try:
+        yield
+    finally:
+        log.removeHandler(handler)
+
+
+def phase_edit(snap: str, model: Model) -> tuple[str, int]:
+    """``edit-sd`` (``edit-sdxl``) with each method, each held to a float64
+    solve; --method pallas launches uce_solve once where d <= MAX_PALLAS_DIM
+    and otherwise takes the collapsed solve, with uce_tpu's warning."""
+    exact, cond, backward_error = edit_float64(snap, model)
+    bound = EDIT_COND_FACTOR * cond * EPS32
+    d = next(iter(exact.values())).shape[1]
+    backward_bound = d ** 0.5 * EPS32
+    general_bound = GENERAL_VS_COLLAPSED_FACTOR * cond * EPS32
+    kernel_solve = d <= solvek.MAX_PALLAS_DIM
+    print(f"[edit] {model.name}, d={d}: cond(mat2) {cond:.4e}; bounds on the "
+          f"distance from a float64 solve: forward {bound:.3e} ({EDIT_COND_FACTOR} x "
+          f"cond x eps32), backward {backward_bound:.3e} (sqrt(d) x eps32); general "
+          f"from collapsed {general_bound:.3e} ({GENERAL_VS_COLLAPSED_FACTOR} x cond "
+          f"x eps32)")
     results, solve_launches = {}, 0
     for method in ("collapsed", "pallas", "general"):
         reset_launches()
         name = "erase_art" if method == "collapsed" else f"erase_art_{method}"
-        edits, seconds = run_edit(snap, name, ["--method", method])
+        warnings = []
+        with edit_warnings(warnings):
+            edits, seconds = run_edit(snap, name, ["--method", method], model)
         launches = read_launches()["uce_solve"]
-        want = 1 if method == "pallas" else 0
+        want = int(method == "pallas" and kernel_solve)
         if launches != want:
-            raise AssertionError(f"edit-sd --method {method}: uce_solve launched "
-                                 f"{launches} times (want {want})")
-        rel = rel_max(edits, exact)
-        if not rel <= bound:
-            raise AssertionError(f"edit-sd --method {method}: relative max diff "
-                                 f"{rel} from a float64 solve > {bound}")
-        line = (f"[edit] --method {method}: 32 finite targets in {seconds:.2f} s "
-                f"(CLI wall, load included), relative max diff from a float64 "
-                f"solve {rel:.3e} (bound {bound:.3e})")
+            raise AssertionError(f"{model.name} edit --method {method}: uce_solve "
+                                 f"launched {launches} times (want {want})")
+        collapsed_route = any("pallas edit kernel needs d <=" in w for w in warnings)
+        if collapsed_route != (method == "pallas" and not kernel_solve):
+            raise AssertionError(f"{model.name} edit --method {method} at d={d}: "
+                                 f"warnings {warnings}")
+        rel, back = rel_max(edits, exact), backward_error(edits)
+        if not (rel <= bound and back <= backward_bound):
+            raise AssertionError(f"{model.name} edit --method {method}: relative "
+                                 f"max diff {rel} from a float64 solve (bound "
+                                 f"{bound}), backward error {back} (bound "
+                                 f"{backward_bound})")
+        line = (f"[edit] {model.name} --method {method}: {model.targets} finite "
+                f"targets in {seconds:.2f} s (CLI wall, load included), relative max "
+                f"diff from a float64 solve {rel:.3e} (bound {bound:.3e}), backward "
+                f"error {back:.3e} (bound {backward_bound:.3e})")
         if method != "collapsed":
             rel_c = rel_max(edits, results["collapsed"])
-            if method == "pallas" and not rel_c <= PALLAS_VS_COLLAPSED_MAX:
-                raise AssertionError(f"edit-sd --method pallas: relative max diff "
-                                     f"{rel_c} from collapsed > "
-                                     f"{PALLAS_VS_COLLAPSED_MAX}")
+            limit = (0.0 if collapsed_route else PALLAS_VS_COLLAPSED_MAX
+                     if method == "pallas" else general_bound)
+            if not rel_c <= limit:
+                raise AssertionError(f"{model.name} edit --method {method}: relative "
+                                     f"max diff {rel_c} from collapsed > {limit}")
             line += f", from collapsed {rel_c:.3e}"
+        if collapsed_route:
+            line += f" (took the collapsed solve: {warnings[0]!r})"
         print(f"{line}, uce_solve launches {launches}", flush=True)
         results[method] = edits
         solve_launches += launches
-    return os.path.join(WORK, "edits", "erase_art.safetensors"), solve_launches
+    return (os.path.join(WORK, f"edits_{model.tag}", "erase_art.safetensors"),
+            solve_launches)
 
 
 def rel_l2(a, b) -> float:
@@ -815,22 +990,39 @@ def expect_launches(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches (got, want) {wrong}")
 
 
-def phase_unet(pipe, rows: dict) -> None:
-    prompts = ["a painting by kelly mckernan", "a photo of a dog"]
+def unet_inputs(pipe, model: Model, prompts: list[str]):
+    """(x, context, added_cond) of one UNet call under CFG for ``prompts``
+    at the model's latent size."""
+    n = len(prompts)
+    added_cond = None
+    if pipe.is_sdxl:
+        cond, pooled_cond = pipe.encode_prompts_sdxl(prompts)
+        uncond, pooled_uncond = pipe.encode_prompts_sdxl([""] * n)
+        added_cond = pipe._sdxl_added_cond(pooled_cond, pooled_uncond, model.size,
+                                           model.size)
+    else:
+        cond, uncond = pipe.encode_prompts(prompts), pipe.encode_prompts([""] * n)
+    latents = draw_prompt_latents((model.latent, model.latent, 4), SEED, n, 1)
+    latents = latents.to("cuda", pipe.dtype)
+    return torch.cat([latents, latents]), torch.cat([uncond, cond]), added_cond
+
+
+def phase_unet(pipe, rows: dict, model: Model, prompts: list[str]) -> None:
+    """UNet forwards at UNet batch 2 x len(prompts): impl="auto" against
+    "plain", and all kernels against the library path, with launches."""
     with torch.inference_mode():
-        context = torch.cat([pipe.encode_prompts(["", ""]),
-                             pipe.encode_prompts(prompts)])
-        latents = draw_prompt_latents((64, 64, 4), SEED, 2, 1).to("cuda", pipe.dtype)
-        x = torch.cat([latents, latents])
+        x, context, added_cond = unet_inputs(pipe, model, prompts)
         runs = {"plain": ("plain", False), "library": ("auto", False),
                 "kernels": ("auto", True)}
-        want = {"plain": {**UNET_LAUNCHES_LIBRARY, "sd_attention": 0},
-                "library": UNET_LAUNCHES_LIBRARY, "kernels": UNET_LAUNCHES}
+        library = library_launches(model.unet_launches)
+        want = {"plain": {**library, "sd_attention": 0}, "library": library,
+                "kernels": model.unet_launches}
         outs, times = {}, {}
         seen, gn_seen = collections.Counter(), collections.Counter()
         for name, (impl, kernels) in runs.items():
             fwd = lambda: unet.apply(pipe.unet_params, x, 981.0, context,
-                                     pipe.unet_config, attn_impl=impl)
+                                     pipe.unet_config, attn_impl=impl,
+                                     added_cond=added_cond)
             with kernel_env(kernels):
                 reset_launches()
                 with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
@@ -838,34 +1030,40 @@ def phase_unet(pipe, rows: dict) -> None:
                     outs[name] = fwd().float()
                 if name == "kernels":
                     want[name] = {**want[name], "conv3x3_reduce": conv_split_sums(seen)}
-                expect_launches(f"UNet forward ({name})", read_launches(), want[name])
+                expect_launches(f"{model.name} UNet forward ({name})", read_launches(),
+                                want[name])
                 times[name] = median_ms(fwd, reps=5)
-    unsplit = [k for k in seen if k[0][1] == 8 and convk.plan(
-        *k[0], k[1], _build.sm_count(CUDA)).splits == 1]
-    if unsplit:
-        raise AssertionError(f"UNet forward: the 8x8 level's convs {unsplit} do "
-                             "not split K")
+    if model is SD14:
+        unsplit = [k for k in seen if k[0][1] == 8 and convk.plan(
+            *k[0], k[1], _build.sm_count(CUDA)).splits == 1]
+        if unsplit:
+            raise AssertionError(f"UNet forward: the 8x8 level's convs {unsplit} do "
+                                 "not split K")
     if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
-        raise AssertionError("UNet forward: non-finite output")
+        raise AssertionError(f"{model.name} UNet forward: non-finite output")
     for a, b in (("library", "plain"), ("kernels", "library")):
         rel = rel_l2(outs[a], outs[b])
         if rel > REL_L2_MAX:
-            raise AssertionError(f"UNet forward {a} vs {b}: rel L2 {rel} > {REL_L2_MAX}")
-        print(f"[unet] batch 4 (2 prompts x CFG) at 64x64 latents: rel L2 {a} vs "
-              f"{b} {rel:.3e} (bound {REL_L2_MAX})")
-    print(f"[unet] forward, median of 5: {times['kernels']:.2f} ms on all kernels "
-          f"(launches per forward {want['kernels']}; {len(seen)} conv and "
+            raise AssertionError(f"{model.name} UNet forward {a} vs {b}: rel L2 "
+                                 f"{rel} > {REL_L2_MAX}")
+        print(f"[unet] {model.name} batch {x.shape[0]} ({len(prompts)} prompts x "
+              f"CFG) at {model.latent}x{model.latent} latents: rel L2 {a} vs {b} "
+              f"{rel:.3e} (bound {REL_L2_MAX})")
+    print(f"[unet] {model.name} forward, median of 5: {times['kernels']:.2f} ms on all "
+          f"kernels (launches per forward {want['kernels']}; {len(seen)} conv and "
           f"{len(gn_seen)} group_norm_act shapes each held to the plain version on "
           f"the forward's inputs), "
           f"{times['library']:.2f} ms on the library path with the attention "
           f"kernel, {times['plain']:.2f} ms plain", flush=True)
 
 
-def phase_vae(pipe, rows: dict) -> None:
-    lat = draw_prompt_latents((64, 64, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
+def phase_vae(pipe, rows: dict, model: Model) -> None:
+    n = model.latent
+    lat = draw_prompt_latents((n, n, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
     lat = lat / pipe.vae_config.scaling_factor
-    # the mid-block attention at one head and s=4096 splits its KV range
-    merges = int(sdk.d512_splits(1, 4096, 4096, _build.sm_count(CUDA)) > 1)
+    # the mid-block attention at one head splits its KV range where its
+    # query tiles alone do not fill the card (s=4096 does, 9216 and 16384 not)
+    merges = int(sdk.d512_splits(1, n * n, n * n, _build.sm_count(CUDA)) > 1)
     outs, times = {}, {}
     seen, gn_seen = collections.Counter(), collections.Counter()
     with torch.inference_mode():
@@ -880,42 +1078,51 @@ def phase_vae(pipe, rows: dict) -> None:
                 want = VAE_LAUNCHES if name == "kernels" else VAE_LAUNCHES_LIBRARY
                 if name == "kernels":
                     want = {**want, "conv3x3_reduce": conv_split_sums(seen)}
-                expect_launches(f"VAE decode ({name})", got, want)
+                expect_launches(f"{model.name} VAE decode ({name})", got, want)
                 if got["sd_attention_d512"] != 1 or got["sd_attention_d512_merge"] != merges:
-                    raise AssertionError(f"VAE decode ({name}): {got}, want "
-                                         f"{merges} split merges")
+                    raise AssertionError(f"{model.name} VAE decode ({name}): {got}, "
+                                         f"want {merges} split merges")
                 times[name] = median_ms(dec, reps=3, warmup=1)
-    if outs["kernels"].shape != (1, 3, 512, 512) or not bool(
+    size = model.size
+    if outs["kernels"].shape != (1, 3, size, size) or not bool(
             torch.isfinite(outs["kernels"]).all()):
-        raise AssertionError(f"VAE decode: {tuple(outs['kernels'].shape)}")
+        raise AssertionError(f"{model.name} VAE decode: {tuple(outs['kernels'].shape)}")
     rel = rel_l2(outs["kernels"], outs["library"])
     if rel > REL_L2_MAX:
-        raise AssertionError(f"VAE decode kernels vs library: rel L2 {rel}")
+        raise AssertionError(f"{model.name} VAE decode kernels vs library: rel L2 {rel}")
     reduces = conv_split_sums(seen)
-    print(f"[vae] decode batch 1 at 512x512: rel L2 kernels vs library {rel:.3e} "
-          f"(bound {REL_L2_MAX}); {times['kernels']:.2f} ms on all kernels "
-          f"(launches {VAE_LAUNCHES}, {reduces} conv split-K sums, {len(seen)} conv "
-          f"and {len(gn_seen)} group_norm_act shapes held to the plain version on the "
-          f"decode's inputs, sd_attention at "
+    print(f"[vae] {model.name} decode batch 1 at {size}x{size}: rel L2 kernels vs "
+          f"library {rel:.3e} (bound {REL_L2_MAX}); {times['kernels']:.2f} ms on all "
+          f"kernels (launches {VAE_LAUNCHES}, {reduces} conv split-K sums, {len(seen)} "
+          f"conv and {len(gn_seen)} group_norm_act shapes held to the plain version on "
+          f"the decode's inputs, sd_attention at "
           f"d=512 with {merges} split merge), "
           f"{times['library']:.2f} ms on the library path with sd_attention at "
           "d=512 (median of 3)", flush=True)
 
 
-def phase_generate(snap: str, edit_path: str, path: str, rows: dict) -> dict:
-    csv_path = os.path.join(WORK, "prompts.csv")
+def phase_generate(snap: str, edit_path: str, path: str, rows: dict, model: Model,
+                   cases: list, scheduler: str | None = None, steps: int = 50) -> dict:
+    """``generate`` through the CLI with the edit overlay, one image per CSV
+    row of ``cases`` ([case, prompt, seed]): PNG checks and every kernel's
+    launches (per row: ``steps`` scheduler calls of the UNet, one decode)."""
+    csv_path = os.path.join(WORK, f"prompts_{model.tag}.csv")
     with open(csv_path, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["case_number", "prompt", "evaluation_seed"])
-        w.writerows([[0, "a painting by kelly mckernan", 1],
-                     [1, "a house in the style of rembrandt", 2]])
-    out = os.path.join(WORK, f"images_{path}")
-    calls = pndm_plan(50).num_calls
-    per_call = UNET_LAUNCHES if path == "kernels" else UNET_LAUNCHES_LIBRARY
+        w.writerows(cases)
+    out = os.path.join(WORK, f"images_{model.tag}_{path}_{scheduler or 'default'}")
+    plan = (plan_from_hf(model.scheduler, steps) if scheduler is None
+            else plan_from_hf_as(scheduler, model.scheduler, steps))
+    calls = plan.num_calls
+    per_call = (model.unet_launches if path == "kernels"
+                else library_launches(model.unet_launches))
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
-    want = {k: 2 * (calls * per_call[k] + per_decode[k]) for k in per_call}
+    rows_n = len(cases)
+    want = {k: rows_n * (calls * per_call[k] + per_decode[k]) for k in per_call}
     seen = collections.Counter()  # generate runs each row alone: UNet batch 2
     gn_seen = collections.Counter()
+    extra = ["--scheduler", scheduler] if scheduler else []
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
@@ -923,22 +1130,25 @@ def phase_generate(snap: str, edit_path: str, path: str, rows: dict) -> dict:
                                                            rows["group_norm_act"]):
             rc = cli_main(["generate", "--model_id", snap, "--prompts_path", csv_path,
                            "--save_path", out, "--uce_model_path", edit_path,
-                           "--device", "cuda"])
+                           "--image_size", str(model.size), "--num_inference_steps",
+                           str(steps), "--device", "cuda", *extra])
         launches = read_launches()
         seconds = time.perf_counter() - start
     want["conv3x3_reduce"] = conv_split_sums(seen)
     if rc != 0:
-        raise AssertionError(f"generate ({path}): rc {rc}")
-    expect_launches(f"generate ({path}), 2 rows x ({calls} UNet calls + 1 decode)",
-                    launches, want)
-    for case in (0, 1):
+        raise AssertionError(f"{model.name} generate ({path}): rc {rc}")
+    what = (f"{model.name} generate ({path}, {plan.kind}), {rows_n} "
+            f"rows x ({calls} UNet calls + 1 decode)")
+    expect_launches(what, launches, want)
+    size = model.size
+    for case, _, _ in cases:
         with open(os.path.join(out, "erase_art", f"{case}_0.png"), "rb") as f:
             img = decode_png(f.read())
-        if img.shape != (512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
-            raise AssertionError(f"generate ({path}): image {case} is {img.shape} "
-                                 f"{img.dtype}, std {img.std()}")
-    print(f"[generate] {path} path: 2 PNGs 512x512x3 uint8 in {seconds:.2f} s "
-          f"(CLI wall, load included); launches {launches} = 2 rows x "
+        if img.shape != (size, size, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"{what}: image {case} is {img.shape} {img.dtype}, "
+                                 f"std {img.std()}")
+    print(f"[generate] {what}: {rows_n} PNGs {size}x{size}x3 uint8 in {seconds:.2f} s "
+          f"(CLI wall, load included); launches {launches} = {rows_n} rows x "
           f"({calls} UNet calls x {per_call} + {per_decode}) and "
           f"{want['conv3x3_reduce']} conv split-K sums; {len(seen)} conv and "
           f"{len(gn_seen)} group_norm_act shapes held to the plain version on the "
@@ -1193,6 +1403,87 @@ def phase_throughput(pipe, path: str) -> float:
     return rate
 
 
+@contextlib.contextmanager
+def timed(what: str, seconds: dict):
+    """Print the enclosed phase's wall seconds and keep them in ``seconds``."""
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds[what] = time.perf_counter() - start
+        print(f"[time] {what}: {seconds[what]:.1f} s", flush=True)
+
+
+def add_launches(rows: dict, launches: dict) -> None:
+    """Add a main-path run's launches to the kernels' rows."""
+    for k in ("conv3x3", "group_norm_act", "sd_attention_d512", "sd_attention_qk8"):
+        rows[k]["launches"] += launches[k]
+    rows["sd_attention"]["launches"] += (launches["sd_attention"]
+                                         - launches["sd_attention_d512"])
+
+
+def run_sd14(rows: dict, seconds: dict) -> None:
+    """SD 1.4: edit, UNet, VAE, generate on both paths, W8A8, serving and
+    img/s."""
+    snap = os.path.join(WORK, "sd14_random")
+    with timed("SD 1.4 snapshot", seconds):
+        write_snapshot(snap, SD14)
+    with timed("SD 1.4 edit", seconds):
+        edit_path, solves = phase_edit(snap, SD14)
+    rows["uce_solve"]["launches"] += solves
+    pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
+    with timed("SD 1.4 UNet and VAE", seconds):
+        phase_unet(pipe, rows, SD14, ["a painting by kelly mckernan", "a photo of a dog"])
+        phase_vae(pipe, rows, SD14)
+    cases = [[0, "a painting by kelly mckernan", 1],
+             [1, "a house in the style of rembrandt", 2]]
+    with timed("SD 1.4 generate", seconds):
+        phase_generate(snap, edit_path, "library", rows, SD14, cases)
+        add_launches(rows, phase_generate(snap, edit_path, "kernels", rows, SD14, cases))
+    with timed("SD 1.4 W8A8", seconds):
+        phase_quant_unet(pipe)
+        phase_quant_vae(pipe)
+    with timed("SD 1.4 serve", seconds):
+        add_launches(rows, phase_serve(snap, edit_path))
+        phase_socket(snap, edit_path)
+    with timed("SD 1.4 img/s", seconds):
+        int8_pipe = copy.copy(pipe)
+        int8_pipe.quantize_weights("int8")
+        for path, p in (("library", pipe), ("kernels", pipe), ("int8", int8_pipe)):
+            phase_throughput(p, path)
+    shutil.rmtree(snap)
+
+
+def run_model(model: Model, rows: dict, seconds: dict,
+              lms_steps: int | None = None) -> None:
+    """SD 2.1 or SDXL at full width: edit with every method, a UNet forward
+    at UNet batch 2, a VAE decode, and ``generate`` on both paths at 50
+    steps of the model's scheduler (and, given ``lms_steps``, an LMS run on
+    the kernel path)."""
+    snap = os.path.join(WORK, f"{model.tag}_random")
+    with timed(f"{model.name} snapshot", seconds):
+        write_snapshot(snap, model)
+    with timed(f"{model.name} edit", seconds):
+        edit_path, solves = phase_edit(snap, model)
+    rows["uce_solve"]["launches"] += solves
+    pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
+    with timed(f"{model.name} UNet and VAE", seconds):
+        phase_unet(pipe, rows, model, ["a painting by kelly mckernan"])
+        phase_vae(pipe, rows, model)
+    del pipe
+    torch.cuda.empty_cache()
+    cases = [[0, "a painting by kelly mckernan", 1]]
+    with timed(f"{model.name} generate", seconds):
+        phase_generate(snap, edit_path, "library", rows, model, cases)
+        add_launches(rows, phase_generate(snap, edit_path, "kernels", rows, model,
+                                          cases))
+        if lms_steps:
+            add_launches(rows, phase_generate(snap, edit_path, "kernels", rows, model,
+                                              cases, "lms", lms_steps))
+    shutil.rmtree(snap)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -1215,37 +1506,21 @@ def main() -> int:
                 ("group_norm_act", "group_norm.cu", "uce_tpu/ops/pallas/group_norm.py:112"),
                 ("conv3x3", "conv3x3.cu", "uce_tpu/ops/pallas/conv3x3.py:91"),
                 ("uce_solve", "uce_solve.cu", "uce_tpu/ops/pallas/uce_solve.py:151"))}
-    phase_build()
-    phase_kernels(rows)
+    seconds = {}
+    start = time.perf_counter()
+    with timed("build", seconds):
+        phase_build()
+    with timed("kernels", seconds):
+        phase_kernels(rows)
 
     shutil.rmtree(WORK, ignore_errors=True)
-    snap = os.path.join(WORK, "sd14_random")
     try:
-        start = time.perf_counter()
-        write_snapshot(snap)
-        print(f"[snapshot] SD 1.4 random weights written in "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-        edit_path, rows["uce_solve"]["launches"] = phase_edit(snap)
-        pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
-        phase_unet(pipe, rows)
-        phase_vae(pipe, rows)
-        phase_generate(snap, edit_path, "library", rows)
-        launches = phase_generate(snap, edit_path, "kernels", rows)
-        for k in ("conv3x3", "group_norm_act", "sd_attention_d512"):
-            rows[k]["launches"] = launches[k]
-        rows["sd_attention"]["launches"] = (launches["sd_attention"]
-                                            - launches["sd_attention_d512"])
-        phase_quant_unet(pipe)
-        phase_quant_vae(pipe)
-        rows["sd_attention_qk8"]["launches"] = phase_serve(
-            snap, edit_path)["sd_attention_qk8"]
-        phase_socket(snap, edit_path)
-        int8_pipe = copy.copy(pipe)
-        int8_pipe.quantize_weights("int8")
-        for path, p in (("library", pipe), ("kernels", pipe), ("int8", int8_pipe)):
-            phase_throughput(p, path)
+        run_sd14(rows, seconds)
+        run_model(SD21, rows, seconds, lms_steps=LMS_STEPS)
+        run_model(SDXL, rows, seconds)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    print(f"[time] total {time.perf_counter() - start:.1f} s", flush=True)
 
     missing = [r for r in rows.values() if "ms" not in r or r["launches"] == 0]
     if missing:

@@ -22,7 +22,7 @@ def test_pipeline_device_defaults_to_cuda():
 @pytest.mark.parametrize("fn", [embeddings.encode_concepts_sd,
                                 embeddings.stack_embeds, sd.load_text_encoder,
                                 sd.load_resources, sd.erase_from_embeddings,
-                                unet.load_params])
+                                unet.load_params, embeddings.encode_concepts_sdxl])
 def test_edit_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -38,3 +38,33 @@ def test_stack_embeds_on_the_cpu_when_asked():
     assert got.device.type == "cpu" and got.tolist() == [[0.0] * 4, [1.0] * 4]
     empty = embeddings.stack_embeds(embeds, [], device="cpu")
     assert tuple(empty.shape) == (0, 4) and empty.device.type == "cpu"
+
+
+def test_load_resources_family_defaults_to_sd():
+    assert inspect.signature(sd.load_resources).parameters["family"].default == "sd"
+    with pytest.raises(ValueError, match="unknown family"):
+        sd.load_resources("unused", family="flux", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sdxl_snap(tmp_path_factory):
+    from tests.test_sdxl_pipeline import make_sdxl_snapshot
+
+    return make_sdxl_snapshot(tmp_path_factory.mktemp("defaults_sdxl"))
+
+
+def test_second_encoder_loads_on_the_device_asked(sdxl_snap):
+    res = sd.load_resources(sdxl_snap, family="sdxl", device="cpu")
+    pipe = SDPipeline.from_pretrained(sdxl_snap, dtype=torch.float32, device="cpu")
+    for params in (res.text_params_2, pipe.text_params_2):
+        assert params["text_projection"].device.type == "cpu"
+        assert all(t.device.type == "cpu" for t in params["layers"][0].values())
+    assert res.tokenizer_2 is not None
+
+
+def test_second_encoder_does_not_fall_back_to_the_cpu(sdxl_snap, monkeypatch):
+    """The default device is cuda: without a card the load fails rather than
+    run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sd.load_resources(sdxl_snap, family="sdxl")

@@ -103,3 +103,56 @@ def test_cuda_device_without_cuda_fails(sd_snap, tmp_path, monkeypatch):
         main(["edit-sd", "--model_id", sd_snap, "--edit_concepts", "cat",
               "--concept_type", "object", "--save_dir", str(tmp_path)])
     assert not list(tmp_path.glob("*.safetensors"))
+
+
+def _random_embeds(d: int):
+    rng = np.random.default_rng(d)
+    names = ["e0", "e1", "g0", "p0", "p1"]
+    embeds = {n: torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+              for n in names}
+    targets = {f"l{i}.to_k.weight": torch.from_numpy(
+        rng.standard_normal((16, d)).astype(np.float32) * 0.02) for i in range(2)}
+    return targets, embeds, (["e0", "e1"], ["g0", "g0"], ["p0", "p1"])
+
+
+def test_pallas_above_max_dim_takes_the_collapsed_solve(caplog, monkeypatch):
+    """uce_tpu's rule, by shape: past MAX_PALLAS_DIM (SDXL's d=2048) the
+    pallas method returns the collapsed solve and logs why; the kernel's
+    wrapper is never called."""
+    from uce_tpu_torch.edit import sd as edit_sd
+
+    monkeypatch.setattr(edit_sd, "uce_edit_matrix_pallas", None)  # a call fails
+    targets, embeds, concepts = _random_embeds(edit_sd.MAX_PALLAS_DIM + 8)
+    with caplog.at_level("WARNING", logger="uce_tpu_torch.edit.sd"):
+        got = edit_sd.erase_from_embeddings(targets, embeds, *concepts,
+                                            device="cpu", method="pallas")
+    assert "pallas edit kernel needs d <= 1024 (got d=1032)" in caplog.text
+    want = edit_sd.erase_from_embeddings(targets, embeds, *concepts, device="cpu")
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k])
+
+
+def test_pallas_at_max_dim_takes_the_kernel_path(caplog, monkeypatch):
+    """At d = MAX_PALLAS_DIM (SD 2.x's 1024) the pallas method runs the
+    Newton-Schulz wrapper (its plain version on a CPU tensor), with no
+    warning, within the edit bar of collapsed."""
+    from uce_tpu_torch.edit import sd as edit_sd
+    from uce_tpu_torch.ops.kernels import uce_solve
+
+    calls = []
+
+    def spy(c_edit, *args):
+        calls.append(c_edit.shape)
+        return uce_solve.uce_edit_matrix_pallas(c_edit, *args)
+
+    monkeypatch.setattr(edit_sd, "uce_edit_matrix_pallas", spy)
+    targets, embeds, concepts = _random_embeds(edit_sd.MAX_PALLAS_DIM)
+    with caplog.at_level("WARNING", logger="uce_tpu_torch.edit.sd"):
+        got = edit_sd.erase_from_embeddings(targets, embeds, *concepts,
+                                            device="cpu", method="pallas")
+    assert calls == [(2, 1024)] and "pallas edit kernel" not in caplog.text
+    want = edit_sd.erase_from_embeddings(targets, embeds, *concepts, device="cpu")
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=1e-3,
+                                   atol=1e-5)

@@ -30,8 +30,8 @@ names = [m.name for m in pkgutil.walk_packages(uce_tpu_torch.__path__, "uce_tpu_
 for name in names:
     importlib.import_module(name)
 from uce_tpu_torch.cli.main import main
-for argv in (["--help"], ["edit-sd", "--help"], ["generate", "--help"],
-             ["serve", "--help"]):
+for argv in (["--help"], ["edit-sd", "--help"], ["edit-sdxl", "--help"],
+             ["generate", "--help"], ["serve", "--help"]):
     try:
         main(argv)
     except SystemExit as e:

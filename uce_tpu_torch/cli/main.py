@@ -1,5 +1,5 @@
-"""CLI of the port: ``python -m uce_tpu_torch <edit-sd|generate|serve> ...``
-with the flag names of the uce_tpu CLI (and of the reference scripts).
+"""CLI of the port: ``python -m uce_tpu_torch <edit-sd|edit-sdxl|generate|serve>
+...`` with the flag names of the uce_tpu CLI (and of the reference scripts).
 
 ``--device`` defaults to ``cuda``; ``cpu`` runs only when asked for. A run
 that asks for cuda where there is none fails rather than use the CPU.
@@ -68,7 +68,7 @@ def cmd_edit_sd(args) -> int:
     print(f"\n\nErasing: {edits}\n")
     print(f"Guiding: {guides}\n")
     print(f"Preserving: {preserves}\n")
-    res = edit_sd.load_resources(args.model_id, device=device)
+    res = edit_sd.load_resources(args.model_id, family=args.family, device=device)
     edit_sd.run_erase(res, edits, guides, preserves,
                       erase_scale=args.erase_scale, preserve_scale=args.preserve_scale,
                       lamb=args.lamb, save_dir=args.save_dir, exp_name=args.exp_name,
@@ -82,11 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
 
     parser = argparse.ArgumentParser(
         prog="python -m uce_tpu_torch",
-        description="Unified Concept Editing on PyTorch/CUDA (SD v1.x)")
+        description="Unified Concept Editing on PyTorch/CUDA (SD v1.x/v2.x, SDXL)")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("edit-sd", help="closed-form erase for SD v1.x")
+    p = sub.add_parser("edit-sd", help="closed-form erase for SD v1.x/v2.x")
     _add_edit_flags(p, "CompVis/stable-diffusion-v1-4")
-    p.set_defaults(func=cmd_edit_sd)
+    p.set_defaults(func=cmd_edit_sd, family="sd")
+    p = sub.add_parser("edit-sdxl", help="closed-form erase for SDXL")
+    _add_edit_flags(p, "stabilityai/stable-diffusion-xl-base-1.0")
+    p.set_defaults(func=cmd_edit_sd, family="sdxl")
     generate.register_cli(sub, _add_device_flag)
     serve_cmd.register_cli(sub, _add_device_flag)
     return parser

@@ -1,5 +1,6 @@
-"""Text-to-image pipeline for SD v1.x: tokenize -> CLIP encode -> CFG +
-PNDM loop over the UNet -> VAE decode -> uint8 images."""
+"""Text-to-image pipeline for SD v1.x / v2.x and SDXL (two text encoders):
+tokenize -> CLIP encode -> CFG + scheduler loop over the UNet -> VAE decode
+-> uint8 images."""
 
 from __future__ import annotations
 
@@ -30,10 +31,20 @@ class SDPipeline:
     scheduler_config: dict
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cuda")
+    # SDXL's second encoder (None for SD v1/v2)
+    text_params_2: dict | None = None
+    text_config_2: clip_text.CLIPTextConfig | None = None
+    tokenizer_2: object | None = None
+
+    @property
+    def is_sdxl(self) -> bool:
+        return self.text_params_2 is not None
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,
                         device="cuda") -> "SDPipeline":
+        """Load a diffusers snapshot (with ``text_encoder_2`` where it has
+        one: SDXL)."""
         device = torch.device(device)
         ucfg = unet_mod.UNetConfig.from_hf(
             load_json(os.path.join(model_dir, "unet", "config.json")))
@@ -47,10 +58,15 @@ class SDPipeline:
         sched_path = os.path.join(model_dir, "scheduler", "scheduler_config.json")
         scfg = (load_json(sched_path) if os.path.exists(sched_path)
                 else {"_class_name": "PNDMScheduler"})
-        return cls(unet_params=unet_params, unet_config=ucfg, text_params=tparams,
+        pipe = cls(unet_params=unet_params, unet_config=ucfg, text_params=tparams,
                    text_config=tcfg, tokenizer=load_tokenizer(model_dir),
                    vae_params=vae_params, vae_config=vcfg, scheduler_config=scfg,
                    dtype=dtype, device=device)
+        if os.path.isdir(os.path.join(model_dir, "text_encoder_2")):
+            pipe.text_params_2, pipe.text_config_2 = load_text_encoder(
+                model_dir, "text_encoder_2", device=device)
+            pipe.tokenizer_2 = load_tokenizer(model_dir, "tokenizer_2")
+        return pipe
 
     def load_uce_edits(self, safetensors_path: str) -> None:
         """Overlay UCE-edited weights (load_state_dict(strict=False)); an
@@ -70,12 +86,41 @@ class SDPipeline:
                                                    quantize.VAE_SKIP, mode)
 
     def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
+        if self.is_sdxl:
+            return self.encode_prompts_sdxl(prompts)[0]
         ids, _ = emb.tokenize_batch(self.tokenizer, list(prompts),
                                     self.text_config.max_position_embeddings)
         last_hidden, _, _ = clip_text.encode_tokens(
             self.text_params, torch.as_tensor(ids, device=self.device),
             self.text_config)
         return last_hidden.to(self.dtype)
+
+    def encode_prompts_sdxl(self, prompts: Sequence[str]):
+        """diffusers' SDXL encode_prompt: both encoders' penultimate hidden
+        states concatenated [B, T, d1 + d2], and encoder 2's projected
+        pooled vector [B, P]."""
+        parts, pooled = [], None
+        for params, config, tokenizer in (
+                (self.text_params, self.text_config, self.tokenizer),
+                (self.text_params_2, self.text_config_2, self.tokenizer_2)):
+            ids, _ = emb.tokenize_batch(tokenizer, list(prompts),
+                                        config.max_position_embeddings)
+            _, pooled, hiddens = clip_text.encode_tokens(
+                params, torch.as_tensor(ids, device=self.device), config,
+                output_hidden_states=True)
+            parts.append(hiddens[-2])
+        return torch.cat(parts, dim=-1).to(self.dtype), pooled.to(self.dtype)
+
+    def _sdxl_added_cond(self, pooled_cond, pooled_uncond, height: int,
+                         width: int) -> dict[str, torch.Tensor]:
+        """text_embeds (the negative prompt's pooled vector for the uncond
+        branch, first) and time_ids [h, w, 0, 0, h, w] (original size, crop
+        top-left, target size) for both CFG branches."""
+        text_embeds = torch.cat([pooled_uncond, pooled_cond])
+        time_ids = torch.tensor([height, width, 0, 0, height, width],
+                                dtype=torch.float32, device=self.device)
+        return {"text_embeds": text_embeds,
+                "time_ids": time_ids.expand(text_embeds.shape[0], 6)}
 
     @torch.inference_mode()
     def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
@@ -101,8 +146,15 @@ class SDPipeline:
                          for _ in range(num_images_per_prompt)]
             if len(negatives) != bsz:
                 raise ValueError("len(negative_prompt) must match len(prompt)")
-        context = torch.cat([self.encode_prompts(negatives),
-                             self.encode_prompts(prompts)])
+        added_cond = None
+        if self.is_sdxl:  # encode once: the pooled vectors feed added_cond
+            cond, pooled_cond = self.encode_prompts_sdxl(prompts)
+            uncond, pooled_uncond = self.encode_prompts_sdxl(negatives)
+            added_cond = self._sdxl_added_cond(pooled_cond, pooled_uncond,
+                                               height, width)
+        else:
+            cond, uncond = self.encode_prompts(prompts), self.encode_prompts(negatives)
+        context = torch.cat([uncond, cond])
 
         vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
         if height % vae_scale or width % vae_scale:
@@ -111,6 +163,8 @@ class SDPipeline:
         latents = torch_rng.draw_prompt_latents(
             (height // vae_scale, width // vae_scale, self.unet_config.in_channels),
             seed, n_prompts, num_images_per_prompt).to(self.device, self.dtype)
+        # a per-call scheduler changes the type only; the model's scheduler
+        # hyperparameters (prediction_type, betas, ...) carry over
         plan = (schedulers.plan_from_hf_as(scheduler, self.scheduler_config,
                                            num_inference_steps)
                 if scheduler else
@@ -118,7 +172,7 @@ class SDPipeline:
 
         def model_fn(lat_in, t):
             return unet_mod.apply(self.unet_params, lat_in, t, context,
-                                  self.unet_config)
+                                  self.unet_config, added_cond=added_cond)
 
         final = sampler.denoise(
             model_fn, plan, latents,

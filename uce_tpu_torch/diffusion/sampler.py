@@ -25,15 +25,17 @@ def denoise(
 ) -> torch.Tensor:
     """Run every call of ``plan`` with two guidance branches.
 
-    model_fn(latents_in [2B, C, H, W], t) -> eps for [uncond; cond].
-    ``latents`` are the raw unit gaussians (init_noise_sigma applied here).
-    The scheduler arithmetic and its history run in fp32 whatever the
-    latents' dtype.
+    model_fn(latents_in [2B, C, H, W], t) -> eps for [uncond; cond] (the
+    closure carries the text context and any added conditioning).
+    ``latents`` are the raw unit gaussians (init_noise_sigma applied here);
+    each call's UNet input is scaled by ``plan.scale_model_input``. The
+    scheduler arithmetic and its history run in fp32 whatever the latents'
+    dtype.
     """
     lat = latents * plan.init_noise_sigma
     hist = plan.init_carry(lat)
     for i in range(plan.num_calls):
-        lat_in = torch.cat([lat, lat])
+        lat_in = plan.scale_model_input(torch.cat([lat, lat]), i)
         eps = guidance_fn(model_fn(lat_in, float(plan.timesteps[i])))
         eps = eps.to(lat.dtype)
         new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)

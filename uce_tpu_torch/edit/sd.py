@@ -1,13 +1,16 @@
-"""SD closed-form concept erasure (reference: trainscripts/uce_sd_erase.py).
+"""SD / SDXL closed-form concept erasure (reference: trainscripts/uce_sd_erase.py).
 
   1. select the UNet cross-attention to_k/to_v weights straight from the
      safetensors state dict,
-  2. encode every unique concept in one batched CLIP forward,
+  2. encode every unique concept in one batched CLIP forward (SDXL: both
+     encoders, their penultimate states concatenated),
   3. collapse the multi-layer Eq.-7 solve into one d x d edit matrix and
      apply it to all layers with one stacked matmul (``method="collapsed"``
      by Cholesky, ``"pallas"`` by the Newton-Schulz kernel of
-     ``ops/kernels/uce_solve.py``), or solve per layer with batched
-     right-hand sides (``"general"``); the results agree to fp32 round-off,
+     ``ops/kernels/uce_solve.py``, which takes d <= MAX_PALLAS_DIM: above
+     it, SDXL's d=2048, the collapsed solve runs with a warning, as in
+     uce_tpu), or solve per layer with batched right-hand sides
+     (``"general"``); the results agree to fp32 round-off,
   4. export safetensors with '<module>.weight' keys, loadable by diffusers
      with load_state_dict(strict=False).
 """
@@ -15,6 +18,7 @@
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Mapping, Sequence
@@ -25,7 +29,7 @@ from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.models import clip_text, sd_targets
 from uce_tpu_torch.models.clip_tokenizer import CLIPTokenizer
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, save_safetensors
-from uce_tpu_torch.ops.kernels.uce_solve import uce_edit_matrix_pallas
+from uce_tpu_torch.ops.kernels.uce_solve import MAX_PALLAS_DIM, uce_edit_matrix_pallas
 from uce_tpu_torch.ops.solver import (
     apply_edit_matrix,
     full_fp32,
@@ -33,21 +37,33 @@ from uce_tpu_torch.ops.solver import (
     uce_solve_stacked,
 )
 
+logger = logging.getLogger(__name__)
+
 METHODS = ("collapsed", "general", "pallas")
 APPLY_ON = ("device", "host")
+FAMILIES = ("sd", "sdxl")
 
 
 @dataclasses.dataclass
 class SDEditResources:
-    """Everything a text-space edit of an SD v1.x UNet needs."""
+    """Everything a text-space edit of an SD v1.x/v2.x or SDXL UNet needs."""
 
     targets: dict[str, torch.Tensor]  # {module.weight: [out, d]} fp32
     text_params: dict
     text_config: clip_text.CLIPTextConfig
     tokenizer: CLIPTokenizer
     device: torch.device
+    # SDXL's second encoder (None for SD v1/v2)
+    text_params_2: dict | None = None
+    text_config_2: clip_text.CLIPTextConfig | None = None
+    tokenizer_2: CLIPTokenizer | None = None
 
     def encode_concepts(self, concepts: Sequence[str]) -> dict[str, torch.Tensor]:
+        if self.text_params_2 is not None:
+            return emb.encode_concepts_sdxl(
+                self.text_params, self.text_config, self.tokenizer,
+                self.text_params_2, self.text_config_2, self.tokenizer_2,
+                concepts, self.device)
         return emb.encode_concepts_sd(self.text_params, self.text_config,
                                       self.tokenizer, concepts, self.device)
 
@@ -65,15 +81,24 @@ def load_text_encoder(model_dir: str, subfolder: str = "text_encoder",
     return clip_text.convert_hf_state_dict(sd, config), config
 
 
-def load_resources(model_dir: str, device="cuda") -> SDEditResources:
-    """Edit targets + text encoder from an HF snapshot directory."""
+def load_resources(model_dir: str, family: str = "sd",
+                   device="cuda") -> SDEditResources:
+    """Edit targets + text encoder(s) from an HF snapshot directory; SDXL
+    (``family="sdxl"``) also loads ``text_encoder_2`` and ``tokenizer_2``."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family: {family!r} (one of {FAMILIES})")
     device = torch.device(device)
     unet_sd = load_state_dict(model_dir, "unet", keys=sd_targets.is_sd_cross_attn_kv,
                               dtype=torch.float32)
-    targets = sd_targets.select_targets(unet_sd, "sd")
+    targets = sd_targets.select_targets(unet_sd, family)
     params, config = load_text_encoder(model_dir, device=device)
-    return SDEditResources(targets=targets, text_params=params, text_config=config,
-                           tokenizer=load_tokenizer(model_dir), device=device)
+    res = SDEditResources(targets=targets, text_params=params, text_config=config,
+                          tokenizer=load_tokenizer(model_dir), device=device)
+    if family == "sdxl":
+        res.text_params_2, res.text_config_2 = load_text_encoder(
+            model_dir, "text_encoder_2", device=device)
+        res.tokenizer_2 = load_tokenizer(model_dir, "tokenizer_2")
+    return res
 
 
 def erase_from_embeddings(
@@ -120,6 +145,12 @@ def erase_from_embeddings(
         return {n: out[n] for n in targets}
 
     solve = uce_edit_matrix_pallas if method == "pallas" else uce_edit_matrix
+    if method == "pallas" and c_edit.shape[1] > MAX_PALLAS_DIM:
+        # uce_tpu's documented rule (uce_tpu/edit/sd.py): the kernel takes
+        # d <= MAX_PALLAS_DIM; SDXL's d=2048 takes the collapsed solve
+        logger.warning("pallas edit kernel needs d <= %d (got d=%d); using the "
+                       "collapsed solve", MAX_PALLAS_DIM, c_edit.shape[1])
+        solve = uce_edit_matrix
     e_mat = solve(c_edit, c_guide, c_pres, erase_scale, preserve_scale, lamb)
     names = list(targets)
     w_cat = torch.cat([targets[n].float() for n in names])

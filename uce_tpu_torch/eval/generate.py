@@ -99,7 +99,8 @@ def register_cli(sub, add_device_flag) -> None:
     p.add_argument("--till_case", type=int, default=1_000_000)
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     p.add_argument("--scheduler", choices=["ddim", "pndm", "lms", "euler"],
-                   default=None, help="only pndm is ported")
+                   default=None, help="override the model's scheduler type "
+                   "(its hyperparameters, e.g. v-prediction, carry over)")
     p.add_argument("--batch_rows", type=int, default=1,
                    help="fuse N CSV rows into one batched denoise")
     p.set_defaults(func=_cmd)

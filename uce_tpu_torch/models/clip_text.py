@@ -1,4 +1,7 @@
-"""CLIP text encoder (SD v1.x prompt encoder): causal, pre-LN, quick_gelu.
+"""CLIP text encoder (the SD v1.x, v2.x and SDXL prompt encoders): causal,
+pre-LN, OpenAI CLIP's quick_gelu (SD v1.x, SDXL's first encoder) or
+OpenCLIP's exact-erf gelu (SD v2.x, SDXL's second encoder), eos pooling and
+an optional text projection of the pooled vector (SDXL's second encoder).
 
 Params are a dict of tensors with the per-layer weights in a list, linear
 weights in HF's [out, in] layout.
@@ -11,6 +14,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from uce_tpu_torch.models.layers import layer_norm, linear
 from uce_tpu_torch.ops.attention import dot_product_attention
@@ -36,6 +40,7 @@ class CLIPTextConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 77
     hidden_act: str = "quick_gelu"
+    projection_dim: int | None = None
     layer_norm_eps: float = 1e-5
     eos_token_id: int | None = 49407
 
@@ -50,19 +55,35 @@ class CLIPTextConfig:
             eos_token_id=cfg.get("eos_token_id", 49407),
             max_position_embeddings=cfg.get("max_position_embeddings", 77),
             hidden_act=cfg.get("hidden_act", "quick_gelu"),
+            projection_dim=cfg.get("projection_dim"),
             layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
         )
 
     def to_hf(self) -> dict:
-        return {"architectures": ["CLIPTextModel"], **dataclasses.asdict(self)}
+        arch = "CLIPTextModelWithProjection" if self.projection_dim else "CLIPTextModel"
+        return {"architectures": [arch], **dataclasses.asdict(self)}
 
 
 # SD v1.x (CompVis/stable-diffusion-v1-4 text_encoder/config.json)
 SD14_TEXT_CONFIG = CLIPTextConfig()
+# SD v2.x (OpenCLIP ViT-H text tower)
+SD2_TEXT_CONFIG = CLIPTextConfig(
+    hidden_size=1024, num_hidden_layers=23, num_attention_heads=16,
+    intermediate_size=4096, hidden_act="gelu")
+# SDXL's second encoder (OpenCLIP ViT-bigG, with projection)
+SDXL_TEXT2_CONFIG = CLIPTextConfig(
+    hidden_size=1280, num_hidden_layers=32, num_attention_heads=20,
+    intermediate_size=5120, hidden_act="gelu", projection_dim=1280)
 
 
-def _quick_gelu(x):
-    return x * torch.sigmoid(1.702 * x)
+def _act(name: str):
+    """uce_tpu's activations: quick_gelu, exact-erf gelu, tanh gelu."""
+    if name == "quick_gelu":
+        return lambda x: x * torch.sigmoid(1.702 * x)
+    if name in ("gelu", "gelu_new", "gelu_pytorch_tanh"):
+        approximate = "none" if name == "gelu" else "tanh"
+        return lambda x: F.gelu(x, approximate=approximate)
+    raise ValueError(f"unsupported activation: {name}")
 
 
 def convert_hf_state_dict(state_dict: Mapping[str, torch.Tensor],
@@ -82,6 +103,8 @@ def convert_hf_state_dict(state_dict: Mapping[str, torch.Tensor],
         "final_ln_scale": g("final_layer_norm.weight"),
         "final_ln_bias": g("final_layer_norm.bias"),
     }
+    if "text_projection.weight" in state_dict:
+        params["text_projection"] = state_dict["text_projection.weight"]
     return params
 
 
@@ -111,6 +134,8 @@ def init_state_dict(config: CLIPTextConfig, rng: np.random.Generator,
         sd[pre + "mlp.fc1.bias"] = zeros(I)
         sd[pre + "mlp.fc2.weight"] = n(D, I)
         sd[pre + "mlp.fc2.bias"] = zeros(D)
+    if config.projection_dim:
+        sd["text_projection.weight"] = n(config.projection_dim, D)
     return sd
 
 
@@ -121,14 +146,17 @@ def init_params(rng: np.random.Generator, config: CLIPTextConfig) -> dict:
 
 def encode_tokens(params: dict, input_ids: torch.Tensor, config: CLIPTextConfig,
                   *, output_hidden_states: bool = False):
-    """input_ids [B, T] -> (last_hidden [B, T, D], pooled [B, D], hiddens).
+    """input_ids [B, T] -> (last_hidden [B, T, D], pooled [B, D or
+    projection_dim], hiddens).
 
     ``hiddens`` is the list of per-layer outputs when asked for, else None.
-    Pooling is at the eos position (argmax of ids for the legacy eos id 2).
+    Pooling is at the eos position; real SD/SDXL text configs carry the
+    legacy ``eos_token_id == 2`` while the tokenizer's eos is the largest
+    id, so that sentinel (and None) pools at the argmax of the ids, as
+    transformers does. With a text projection the pooled vector is
+    projected (SDXL's second encoder).
     """
-    if config.hidden_act != "quick_gelu":
-        raise NotImplementedError(f"CLIP activation {config.hidden_act!r} is "
-                                  "not ported yet (SD v1.x uses quick_gelu)")
+    act = _act(config.hidden_act)
     eps = config.layer_norm_eps
     H = config.num_attention_heads
     B, T = input_ids.shape
@@ -148,7 +176,7 @@ def encode_tokens(params: dict, input_ids: torch.Tensor, config: CLIPTextConfig,
         attn = dot_product_attention(q, k, v, causal=True)
         x = x + linear(attn.transpose(1, 2).reshape(B, T, D), p["o_w"], p["o_b"])
         h = layer_norm(x, p["ln2_scale"], p["ln2_bias"], eps)
-        x = x + linear(_quick_gelu(linear(h, p["fc1_w"], p["fc1_b"])),
+        x = x + linear(act(linear(h, p["fc1_w"], p["fc1_b"])),
                        p["fc2_w"], p["fc2_b"])
         if hiddens is not None:
             hiddens.append(x)
@@ -158,4 +186,6 @@ def encode_tokens(params: dict, input_ids: torch.Tensor, config: CLIPTextConfig,
     else:
         eos_idx = (input_ids == config.eos_token_id).int().argmax(-1)
     pooled = last[torch.arange(B, device=last.device), eos_idx]
+    if "text_projection" in params:
+        pooled = linear(pooled, params["text_projection"])
     return last, pooled, hiddens

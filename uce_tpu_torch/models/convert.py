@@ -61,7 +61,8 @@ def nested_to_state_dict(params: Mapping) -> dict:
 
 
 def clip_text_params(params: Mapping, config: CLIPTextConfig) -> dict:
-    """uce_tpu layer-stacked CLIP text params -> the port's params."""
+    """uce_tpu layer-stacked CLIP text params -> the port's params (with the
+    text projection, [in, out] -> [out, in], where there is one)."""
     t = lambda a: torch.tensor(np.asarray(a, np.float32))
     layers = params["layers"]
     out = {
@@ -77,4 +78,6 @@ def clip_text_params(params: Mapping, config: CLIPTextConfig) -> dict:
             v = np.asarray(layers[name][i], np.float32)
             layer[name] = t(v.T if name.endswith("_w") else v)
         out["layers"].append(layer)
+    if "text_projection" in params:
+        out["text_projection"] = t(np.asarray(params["text_projection"], np.float32).T)
     return out

@@ -1,4 +1,5 @@
-"""SD UNet2DConditionModel, NCHW, over a flat diffusers state dict.
+"""SD UNet2DConditionModel (SD v1.x, v2.x and SDXL's ``text_time`` variant),
+NCHW, over a flat diffusers state dict.
 
 Params are the diffusers checkpoint's own tensors (conv OIHW, linear
 [out, in]) keyed by their module paths, so HF checkpoints and UCE
@@ -56,12 +57,16 @@ class UNetConfig:
     norm_num_groups: int = 32
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    addition_embed_type: str | None = None  # SDXL: "text_time"
+    addition_time_embed_dim: int | None = None  # SDXL: 256
+    projection_class_embeddings_input_dim: int | None = None  # SDXL: 2816
 
     @classmethod
     def from_hf(cls, cfg: Mapping) -> "UNetConfig":
-        if cfg.get("addition_embed_type") is not None:
+        if cfg.get("addition_embed_type") not in (None, "text_time"):
             raise NotImplementedError(
-                "UNet addition_embed_type (SDXL text_time) is not ported yet")
+                f"UNet addition_embed_type {cfg['addition_embed_type']!r} is not "
+                "ported (text_time only)")
 
         def tup(x):
             return tuple(x) if isinstance(x, (list, tuple)) else x
@@ -81,6 +86,10 @@ class UNetConfig:
             norm_num_groups=cfg.get("norm_num_groups", 32),
             flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
             freq_shift=cfg.get("freq_shift", 0.0),
+            addition_embed_type=cfg.get("addition_embed_type"),
+            addition_time_embed_dim=cfg.get("addition_time_embed_dim"),
+            projection_class_embeddings_input_dim=cfg.get(
+                "projection_class_embeddings_input_dim"),
         )
 
     def to_hf(self) -> dict:
@@ -103,6 +112,25 @@ class UNetConfig:
 
 
 SD14_UNET_CONFIG = UNetConfig()
+# stabilityai/stable-diffusion-2-1 unet/config.json
+SD21_UNET_CONFIG = UNetConfig(
+    cross_attention_dim=1024,
+    attention_head_dim=(5, 10, 20, 20),
+    use_linear_projection=True,
+)
+# stabilityai/stable-diffusion-xl-base-1.0 unet/config.json
+SDXL_UNET_CONFIG = UNetConfig(
+    block_out_channels=(320, 640, 1280),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    cross_attention_dim=2048,
+    attention_head_dim=(5, 10, 20),
+    transformer_layers_per_block=(1, 2, 10),
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +221,14 @@ def _spatial_transformer(p, pre, x, context, heads: int, depth: int,
 
 
 def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
-          encoder_hidden_states, config: UNetConfig, *, attn_impl: str = "auto"):
+          encoder_hidden_states, config: UNetConfig, *, attn_impl: str = "auto",
+          added_cond: Mapping[str, torch.Tensor] | None = None):
     """UNet forward. sample [B, C_in, H, W], timesteps [B] or scalar,
     encoder_hidden_states [B, T, D_text] -> noise prediction [B, C_out, H, W].
-    ``attn_impl`` is passed to every attention call ("auto" or "plain")."""
+    ``attn_impl`` is passed to every attention call ("auto" or "plain").
+    A ``text_time`` UNet (SDXL) takes ``added_cond`` = {"text_embeds": [B,
+    P] pooled text, "time_ids": [B, 6]}: their embedding joins the time
+    embedding."""
     cfg, p = config, params
     groups = cfg.norm_num_groups
     timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -208,6 +240,20 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
         downscale_freq_shift=cfg.freq_shift).to(sample.dtype)
     emb = linear(t_emb, *_w(p, "time_embedding.linear_1"))
     emb = linear(silu(emb), *_w(p, "time_embedding.linear_2"))
+    if cfg.addition_embed_type == "text_time":
+        if added_cond is None:
+            raise ValueError("a text_time UNet needs added_cond "
+                             "{'text_embeds', 'time_ids'}")
+        time_ids = added_cond["time_ids"]
+        tid = timestep_embedding(
+            time_ids.reshape(-1), cfg.addition_time_embed_dim,
+            flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift).reshape(time_ids.shape[0], -1)
+        text_embeds = added_cond["text_embeds"]
+        add = torch.cat([text_embeds, tid.to(text_embeds.dtype)], dim=-1)
+        add = linear(add, *_w(p, "add_embedding.linear_1"))
+        add = linear(silu(add), *_w(p, "add_embedding.linear_2"))
+        emb = emb + add.to(emb.dtype)
     ehs = encoder_hidden_states
     kernels = kernel_path()
     if kernels:
@@ -354,6 +400,9 @@ def init_state_dict(config: UNetConfig, rng: np.random.Generator,
     conv("conv_in", cfg.in_channels, cfg.block_out_channels[0])
     lin("time_embedding.linear_1", cfg.block_out_channels[0], ted)
     lin("time_embedding.linear_2", ted, ted)
+    if cfg.addition_embed_type == "text_time":
+        lin("add_embedding.linear_1", cfg.projection_class_embeddings_input_dim, ted)
+        lin("add_embedding.linear_2", ted, ted)
 
     cout_prev = cfg.block_out_channels[0]
     for bi, btype in enumerate(cfg.down_block_types):

@@ -1,12 +1,15 @@
-"""Device-time profile of the port's SD 1.4 UNet forward and VAE decode on
-one CUDA card, on the library path, on the kernel path
+"""Device-time profile of the port's UNet forward and VAE decode on one CUDA
+card, on the library path, on the kernel path
 (UCE_CONV_IMPL=UCE_GN_IMPL=pallas) and W8A8-quantized (``serve --quantize
 int8``: the library path on int8 weights), via torch.profiler.
 
-    python -m uce_tpu_torch.tools.trace_prof [--batch 4] [--runs 5]
+    python -m uce_tpu_torch.tools.trace_prof [--model sd14|sd21|sdxl]
+        [--batch 4] [--runs 5]
 
-SD 1.4 at full width with seeded random weights in bf16, 64x64 latents and
-a random 77-token context. For each path and model: 3 warm-up calls, the
+The model at full width with seeded random weights in bf16 (drawn on the
+card), at its image size: SD 1.4 (the default) 64x64 latents, SD 2.1
+96x96, SDXL 128x128 with random pooled text and 1024x1024 time ids, and a
+random 77-token context; the W8A8 path for SD 1.4 only. For each path and model: 3 warm-up calls, the
 median host wall time of 5 unprofiled calls (each ended by a synchronize),
 then ``--runs`` profiled calls: device time per call (the sum of the CUDA
 kernel, memcpy and memset events), the idle share 1 - device / wall, the
@@ -47,6 +50,12 @@ import torch
 from uce_tpu_torch.models import quantize, unet, vae
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.ops.kernels import conv3x3, group_norm, uce_solve
+from uce_tpu_torch.utils.torch_rng import DeviceNormalRng
+
+# --model: (UNet config, latent size, context width, pooled text width)
+MODELS = {"sd14": (unet.SD14_UNET_CONFIG, 64, 768, None),
+          "sd21": (unet.SD21_UNET_CONFIG, 96, 1024, None),
+          "sdxl": (unet.SDXL_UNET_CONFIG, 128, 2048, 1280)}
 
 # First matching pattern names a kernel's category.
 CATEGORIES = [
@@ -58,7 +67,7 @@ CATEGORIES = [
     ("cuDNN layout transposes", r"nchwToNhwc|nhwcToNchw"),
     ("convolutions (library)", r"conv|xmma|implicit|fprop|dgrad|winograd"),
     ("GroupNorm (library)", r"GroupNorm|group_norm|RowwiseMoments|ComputeFused"),
-    ("GEMMs", r"gemm|cutlass|sm90_|ampere|cublas"),
+    ("GEMMs", r"gemm|cutlass|sm90_|ampere|cublas|nvjet"),
     ("softmax / LayerNorm", r"softmax|LayerNorm|layer_norm"),
     ("copies and casts", r"copy|Copy|cat|Cat|memcpy|Memcpy|memset|Memset"),
     ("elementwise", r"elementwise|vectorized|Elementwise|unrolled"),
@@ -311,6 +320,7 @@ def solve_chain(ke: int, kp: int, d: int, runs: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="sd14")
     ap.add_argument("--batch", type=int, default=4, help="UNet batch (2 x prompts)")
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per model")
     ap.add_argument("--solve", action="store_true",
@@ -333,36 +343,45 @@ def main(argv=None) -> int:
             solve_chain(ke, kp, 768, args.runs)
         print(f"[card] {card}")
         return 0
-    rng = np.random.default_rng(0)
-    uparams = unet.load_params(unet.init_state_dict(unet.SD14_UNET_CONFIG, rng),
-                               torch.bfloat16, "cuda")
+    ucfg, n, width, pooled = MODELS[args.model]
+    rng = DeviceNormalRng(0, "cuda", torch.bfloat16)
+    uparams = unet.load_params(unet.init_state_dict(ucfg, rng), torch.bfloat16, "cuda")
     vparams = unet.load_params(vae.init_state_dict(vae.SD_VAE_CONFIG, rng),
                                torch.bfloat16, "cuda")
     gen = torch.Generator("cuda").manual_seed(0)
-    x = torch.randn(args.batch, 4, 64, 64, device="cuda", generator=gen).bfloat16()
-    ctx = torch.randn(args.batch, 77, 768, device="cuda", generator=gen).bfloat16()
-    lat = torch.randn(1, 4, 64, 64, device="cuda", generator=gen).bfloat16()
-    params = {"library": (uparams, vparams), "kernels": (uparams, vparams),
-              "int8": (quantize.quantize_params(uparams, quantize.UNET_SKIP, "int8"),
-                       quantize.quantize_params(vparams, quantize.VAE_SKIP, "int8"))}
+    x = torch.randn(args.batch, 4, n, n, device="cuda", generator=gen).bfloat16()
+    ctx = torch.randn(args.batch, 77, width, device="cuda", generator=gen).bfloat16()
+    lat = torch.randn(1, 4, n, n, device="cuda", generator=gen).bfloat16()
+    added = None if pooled is None else {
+        "text_embeds": torch.randn(args.batch, pooled, device="cuda",
+                                   generator=gen).bfloat16(),
+        "time_ids": torch.tensor([8.0 * n, 8.0 * n, 0, 0, 8.0 * n, 8.0 * n],
+                                 device="cuda").expand(args.batch, 6)}
+
+    def unet_call(params):
+        return lambda: unet.apply(params, x, 981.0, ctx, ucfg, added_cond=added)
+
+    params = {"library": (uparams, vparams), "kernels": (uparams, vparams)}
+    if args.model == "sd14":  # W8A8 is ported for SD 1.4 only
+        params["int8"] = (quantize.quantize_params(uparams, quantize.UNET_SKIP, "int8"),
+                          quantize.quantize_params(vparams, quantize.VAE_SKIP, "int8"))
     with torch.inference_mode():
         if args.gn:
             gn_table(f"unet batch {args.batch}", gn_shapes(
-                lambda: unet.apply(uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)))
+                unet_call(uparams)))
             gn_table("vae batch 1", gn_shapes(
                 lambda: vae.decode(vparams, lat, vae.SD_VAE_CONFIG)))
             print(f"[card] {card}")
             return 0
         for path, (up, vp) in params.items():
             select_path(path == "kernels")
-            report(f"unet {path} batch {args.batch}", profile(
-                lambda: unet.apply(up, x, 981.0, ctx, unet.SD14_UNET_CONFIG),
+            report(f"{args.model} unet {path} batch {args.batch}", profile(
+                unet_call(up),
                 args.runs))
-            report(f"vae {path} batch 1", profile(
+            report(f"{args.model} vae {path} batch 1", profile(
                 lambda: vae.decode(vp, lat, vae.SD_VAE_CONFIG), args.runs))
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        for what, fn in ((f"unet kernels batch {args.batch}", lambda: unet.apply(
-                uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)),
+        for what, fn in ((f"unet kernels batch {args.batch}", unet_call(uparams)),
                          ("vae kernels batch 1", lambda: vae.decode(
                              vparams, lat, vae.SD_VAE_CONFIG))):
             calls = collections.Counter()
@@ -372,7 +391,7 @@ def main(argv=None) -> int:
                   f"resident (one launch each), {calls['stream']} streaming (three "
                   "launches each)")
         conv_table(f"unet batch {args.batch}", conv_shapes(
-            lambda: unet.apply(uparams, x, 981.0, ctx, unet.SD14_UNET_CONFIG)))
+            unet_call(uparams)))
         conv_table("vae batch 1", conv_shapes(
             lambda: vae.decode(vparams, lat, vae.SD_VAE_CONFIG)))
     print(f"[card] {card}")
