@@ -63,7 +63,23 @@ each phase's seconds and the total are printed):
      or 1024^2 on both, with launches;
  14. ``generate`` at 768^2 (DDIM, v-prediction) or 1024^2 (Euler), 50 steps,
      CFG 7.5, with the edit overlay, on both paths (and on SD 2.1 a short
-     ``--scheduler lms`` run on the kernel path): PNGs and launches.
+     ``--scheduler lms`` run on the kernel path): PNGs and launches;
+ 15. fast mode (CFG window + DeepCache): SD 1.4 ``generate --fast`` on both
+     paths, a no-op spec and a CFG window over every call (cache 1) equal to
+     the exact images bit for bit, bench.py's ``cfg_interval=3:25,cache=2``
+     with finite decodes, its distance from the exact images, and launches
+     from the segments (full and shallow forwards); img/s fast against exact
+     on both paths; SDXL at 1024^2 with ``cfg_interval=1:40,cache=2``
+     (the cond-only calls slice SDXL's added conditioning);
+ 16. ``serve --quantize int8 --fast`` with the edit overlay, as in 9;
+ 17. ``debias-sd`` on SD 1.4 at 512^2 with CLIP ViT-B/32 at its published
+     widths (random weights), 2 edit and 2 debias concepts, 4 images each, 20
+     steps, 2 iterations, on the kernel path, once with the re-solve on the
+     card and once on the host: the same safetensors bit for bit (diffusers
+     keys), a telemetry row per iteration and concept, launches, and each
+     iteration's seconds of generation, classification and re-solve;
+ 18. ``eval-clip-classify`` over the PNGs of 7: one row per case, ratios
+     summing to 1.
 The last two lines are the kernels' JSON record (launches summed over the
 main paths' runs) and the device record.
 """
@@ -94,9 +110,10 @@ import torch.nn.functional as F
 
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
+from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
-from uce_tpu_torch.edit import sd as edit_sd
-from uce_tpu_torch.models import clip_text, quantize, unet, vae
+from uce_tpu_torch.edit import debias as debias_mod, sd as edit_sd
+from uce_tpu_torch.models import clip as clip_mod, clip_text, quantize, unet, vae
 from uce_tpu_torch.models.hf_loader import read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_sd_cross_attn_kv
@@ -168,6 +185,19 @@ VAE_LAUNCHES_LIBRARY = {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
 # d=512 bf16 launch.
 UNET_LAUNCHES_INT8 = {"sd_attention_qk8": 10, "sd_attention": 0}
 VAE_LAUNCHES_INT8 = {"sd_attention_qk8": 0, "sd_attention": 1, "sd_attention_d512": 1}
+# A shallow (DeepCache, cache level 1) UNet forward runs the full-resolution
+# level only: conv_in, down block 0, up block 3 (SDXL: 2), conv_out
+# (counted on meta tensors in tests/test_torch_fast_mode.py); SDXL's first
+# level has no attention. A W8A8 shallow forward sends its 5 to int8-QK^T.
+UNET_SHALLOW_LAUNCHES = {"conv3x3": 12, "conv3x3_wgmma": 11, "conv3x3_mma": 1,
+                         "group_norm_act": 16, "sd_attention": 5}
+SDXL_SHALLOW_LAUNCHES = {"conv3x3": 12, "conv3x3_wgmma": 11, "conv3x3_mma": 1,
+                         "group_norm_act": 11, "sd_attention": 0}
+UNET_SHALLOW_LAUNCHES_INT8 = {"sd_attention_qk8": 5, "sd_attention": 0}
+# Fast mode: bench.py's DEFAULT_FAST_SPEC at SD 1.4's 50 PNDM steps (51
+# scheduler calls) and SDXL's at 40 of its 50 Euler calls.
+FAST_SPEC = "cfg_interval=3:25,cache=2"
+SDXL_FAST_SPEC = "cfg_interval=1:40,cache=2"
 # Whole W8A8 networks, against bf16 or against the same network on the qk8
 # plain version: a gross-fault bound only. Int8 activations and weights move
 # a random-weight UNet by several percent, and a one-count change of an int8
@@ -266,6 +296,7 @@ class Model:
     size: int
     targets: int
     unet_launches: dict
+    shallow_launches: dict | None = None  # per DeepCache shallow forward
 
     @property
     def latent(self) -> int:
@@ -279,7 +310,7 @@ class Model:
 SD14 = Model("SD 1.4", "sd", unet.SD14_UNET_CONFIG,
              (("text_encoder", clip_text.SD14_TEXT_CONFIG, "<|endoftext|>"),),
              vae.SD_VAE_CONFIG, {"_class_name": "PNDMScheduler", **_SCHEDULER_COMMON},
-             512, 32, UNET_LAUNCHES)
+             512, 32, UNET_LAUNCHES, UNET_SHALLOW_LAUNCHES)
 # SD 2.1 (768-v) and SDXL base 1.0: stabilityai/stable-diffusion-2-1 and
 # stabilityai/stable-diffusion-xl-base-1.0 (their text configs carry the
 # legacy eos_token_id 2, SDXL's tokenizer_2 pads with "!"). Per UNet forward
@@ -304,7 +335,21 @@ SDXL = Model("SDXL", "sdxl", unet.SDXL_UNET_CONFIG,
               "timestep_spacing": "leading", "interpolation_type": "linear",
               **_SCHEDULER_COMMON},
              1024, 140, {"conv3x3": 38, "conv3x3_wgmma": 37, "conv3x3_mma": 1,
-                         "group_norm_act": 46, "sd_attention": 70})
+                         "group_norm_act": 46, "sd_attention": 70},
+             SDXL_SHALLOW_LAUNCHES)
+# openai/clip-vit-base-patch32, the classifier of debias-sd and
+# eval-clip-classify: vision 768 wide, 12 layers, patch 32 at 224^2; text
+# 512 wide, 12 layers (its config's legacy eos_token_id 2); projection 512.
+CLIP_VISION = clip_mod.CLIPVisionConfig()
+CLIP_TEXT = clip_text.CLIPTextConfig(hidden_size=512, num_attention_heads=8,
+                                     intermediate_size=2048, projection_dim=512,
+                                     eos_token_id=2)
+# debias-sd: desired ratios that 4 images per concept (ratios in quarters)
+# can never meet within the 0.05 deadband, so the loop runs its 2 iterations
+DEBIAS_ARGS = ["--edit_concepts", "doctor; nurse", "--debias_concepts",
+               "a man; a woman", "--desired_ratios", "0.3", "0.7",
+               "--num_images_per_prompt", "4", "--num_inference_steps", "20",
+               "--max_iterations", "2"]
 
 
 def library_launches(per_call: dict) -> dict:
@@ -1101,59 +1146,155 @@ def phase_vae(pipe, rows: dict, model: Model) -> None:
           "d=512 (median of 3)", flush=True)
 
 
+def generate_dir(model: Model, path: str, scheduler: str | None = None,
+                 fast: str | None = None) -> str:
+    """Where ``phase_generate`` writes a run's PNGs ({case}_0.png)."""
+    tag = "exact" if fast is None else re.sub(r"[^0-9a-z]+", "_", fast)
+    return os.path.join(WORK, f"images_{model.tag}_{path}_{scheduler or 'default'}_"
+                        f"{tag}", "erase_art")
+
+
+def read_case_images(folder: str, cases: list) -> dict:
+    out = {}
+    for case, _, _ in cases:
+        with open(os.path.join(folder, f"{case}_0.png"), "rb") as f:
+            out[case] = decode_png(f.read())
+    return out
+
+
+def fast_schedule(spec: str | None, calls: int) -> collections.Counter:
+    """UNet forwards of one run of ``calls`` scheduler calls by (cond_only,
+    full): within each segment of the CFG window a call runs the shallow
+    path unless it is a multiple of the cache interval or the cache is
+    invalid (the first segment, and a guided one: the deep feature's cond
+    half carries over only from a guided segment into a cond-only one)."""
+    if spec is None:
+        return collections.Counter({(False, True): calls})
+    fast = FastConfig.from_spec(spec)
+    n, valid, prev_guided = fast.cache_interval, False, False
+    out = collections.Counter()
+    for start, end, cond_only in fast.segments(calls):
+        valid = valid and prev_guided and cond_only
+        for i in range(start, end):
+            out[cond_only, n == 1 or not valid or i % n == 0] += 1
+            valid = True
+        prev_guided = not cond_only
+    return out
+
+
+def fast_forwards(spec: str | None, calls: int) -> tuple[int, int]:
+    """(full, shallow) UNet forwards of one run (``fast_schedule``)."""
+    sched = fast_schedule(spec, calls)
+    full = sum(n for (_, is_full), n in sched.items() if is_full)
+    return full, sum(sched.values()) - full
+
+
+@contextlib.contextmanager
+def finite_decodes():
+    """Raise if a VAE decode of the enclosed calls gives a non-finite value
+    (a non-finite latent propagates there; uint8 images would hide it)."""
+    decode = vae.decode
+
+    def checked(params, z, config):
+        out = decode(params, z, config)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite VAE decode output {tuple(out.shape)}")
+        return out
+
+    vae.decode = checked
+    try:
+        yield
+    finally:
+        vae.decode = decode
+
+
 def phase_generate(snap: str, edit_path: str, path: str, rows: dict, model: Model,
-                   cases: list, scheduler: str | None = None, steps: int = 50) -> dict:
+                   cases: list, scheduler: str | None = None, steps: int = 50,
+                   fast: str | None = None) -> dict:
     """``generate`` through the CLI with the edit overlay, one image per CSV
-    row of ``cases`` ([case, prompt, seed]): PNG checks and every kernel's
-    launches (per row: ``steps`` scheduler calls of the UNet, one decode)."""
+    row of ``cases`` ([case, prompt, seed]), with ``--fast`` given a spec:
+    PNG checks, finite decodes and every kernel's launches (per row: the
+    scheduler's calls of the UNet, full or shallow, and one decode)."""
     csv_path = os.path.join(WORK, f"prompts_{model.tag}.csv")
     with open(csv_path, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["case_number", "prompt", "evaluation_seed"])
         w.writerows(cases)
-    out = os.path.join(WORK, f"images_{model.tag}_{path}_{scheduler or 'default'}")
+    out = generate_dir(model, path, scheduler, fast)
     plan = (plan_from_hf(model.scheduler, steps) if scheduler is None
             else plan_from_hf_as(scheduler, model.scheduler, steps))
     calls = plan.num_calls
-    per_call = (model.unet_launches if path == "kernels"
-                else library_launches(model.unet_launches))
+    full, shallow = fast_forwards(fast, calls)
+    per_call, per_shallow = model.unet_launches, model.shallow_launches or {}
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
+    if path != "kernels":
+        per_call = library_launches(per_call)
+        per_shallow = library_launches(per_shallow) if shallow else {}
     rows_n = len(cases)
-    want = {k: rows_n * (calls * per_call[k] + per_decode[k]) for k in per_call}
+    want = {k: rows_n * (full * per_call[k] + shallow * per_shallow.get(k, 0)
+                         + per_decode[k]) for k in per_call}
     seen = collections.Counter()  # generate runs each row alone: UNet batch 2
     gn_seen = collections.Counter()
     extra = ["--scheduler", scheduler] if scheduler else []
+    extra += ["--fast", fast] if fast else []
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
-        with conv_shapes(seen, rows["conv3x3"]), gn_shapes(gn_seen,
-                                                           rows["group_norm_act"]):
+        with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                gn_seen, rows["group_norm_act"]), finite_decodes():
             rc = cli_main(["generate", "--model_id", snap, "--prompts_path", csv_path,
-                           "--save_path", out, "--uce_model_path", edit_path,
-                           "--image_size", str(model.size), "--num_inference_steps",
-                           str(steps), "--device", "cuda", *extra])
+                           "--save_path", os.path.dirname(out), "--uce_model_path",
+                           edit_path, "--image_size", str(model.size),
+                           "--num_inference_steps", str(steps), "--device", "cuda",
+                           *extra])
         launches = read_launches()
         seconds = time.perf_counter() - start
     want["conv3x3_reduce"] = conv_split_sums(seen)
     if rc != 0:
         raise AssertionError(f"{model.name} generate ({path}): rc {rc}")
-    what = (f"{model.name} generate ({path}, {plan.kind}), {rows_n} "
-            f"rows x ({calls} UNet calls + 1 decode)")
+    forwards = (f"{calls} UNet calls" if fast is None else
+                f"{full} full + {shallow} shallow UNet calls, --fast {fast}")
+    what = (f"{model.name} generate ({path}, {plan.kind}), {rows_n} rows x "
+            f"({forwards} + 1 decode)")
     expect_launches(what, launches, want)
     size = model.size
-    for case, _, _ in cases:
-        with open(os.path.join(out, "erase_art", f"{case}_0.png"), "rb") as f:
-            img = decode_png(f.read())
+    for case, img in read_case_images(out, cases).items():
         if img.shape != (size, size, 3) or img.dtype != np.uint8 or img.std() == 0:
             raise AssertionError(f"{what}: image {case} is {img.shape} {img.dtype}, "
                                  f"std {img.std()}")
+    per = (f"{per_call}" if fast is None else
+           f"{full} x {per_call} + {shallow} x {per_shallow}")
     print(f"[generate] {what}: {rows_n} PNGs {size}x{size}x3 uint8 in {seconds:.2f} s "
           f"(CLI wall, load included); launches {launches} = {rows_n} rows x "
-          f"({calls} UNet calls x {per_call} + {per_decode}) and "
-          f"{want['conv3x3_reduce']} conv split-K sums; {len(seen)} conv and "
-          f"{len(gn_seen)} group_norm_act shapes held to the plain version on the "
-          "run's own inputs", flush=True)
+          f"({per} + {per_decode}) and {want['conv3x3_reduce']} conv split-K sums; "
+          f"{len(seen)} conv and {len(gn_seen)} group_norm_act shapes held to the "
+          "plain version on the run's own inputs", flush=True)
     return launches
+
+
+def phase_fast(snap: str, edit_path: str, path: str, rows: dict, model: Model,
+               cases: list, specs: tuple) -> None:
+    """``generate --fast`` on ``path`` against the exact run's PNGs: a no-op
+    spec and a CFG window over every call (cache 1) bit for bit; other specs
+    their mean and max distance. Adds every run's launches to ``rows``."""
+    calls = plan_from_hf(model.scheduler, 50).num_calls
+    exact = read_case_images(generate_dir(model, path), cases)
+    for spec in specs:
+        add_launches(rows, phase_generate(snap, edit_path, path, rows, model, cases,
+                                          fast=spec))
+        got = read_case_images(generate_dir(model, path, fast=spec), cases)
+        fc = FastConfig.from_spec(spec)
+        bitwise = fc.is_noop or (fc.cache_interval == 1 and fc.segments(calls) == [
+            (0, calls, False)])
+        diffs = [np.abs(got[c].astype(int) - exact[c].astype(int)) for c in exact]
+        if bitwise and any(d.any() for d in diffs):
+            raise AssertionError(f"{model.name} generate --fast {spec} ({path}): not "
+                                 f"equal to the exact images (max diff "
+                                 f"{max(int(d.max()) for d in diffs)})")
+        print(f"[fast] {model.name} --fast {spec} ({path}): "
+              + ("equal to the exact images bit for bit" if bitwise else
+                 f"mean |fast - exact| {np.mean([d.mean() for d in diffs]):.3f} uint8 "
+                 f"levels, max {max(int(d.max()) for d in diffs)}"), flush=True)
 
 
 @contextlib.contextmanager
@@ -1289,12 +1430,13 @@ def phase_quant_vae(pipe) -> None:
           f"{int8_ms:.2f} ms (median of 3)", flush=True)
 
 
-def phase_serve(snap: str, edit_path: str) -> dict:
-    """``serve --quantize int8`` with the edit overlay, in process through the
-    CLI: warm-up of the ladder 1,2,4, then 8 Poisson requests at 4/s."""
+def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
+    """``serve --quantize int8`` (``--fast`` given a spec) with the edit
+    overlay, in process through the CLI: warm-up of the ladder 1,2,4, then 8
+    Poisson requests at 4/s."""
     argv = ["serve", "--model_id", snap, "--quantize", "int8", "--uce_model_path",
             edit_path, "--batch_sizes", "1,2,4", "--bench", "4", "--bench_requests",
-            "8", "--device", "cuda"]
+            "8", "--device", "cuda"] + (["--fast", fast] if fast else [])
     out = io.StringIO()
     reset_launches()
     start = time.perf_counter()
@@ -1311,13 +1453,16 @@ def phase_serve(snap: str, edit_path: str) -> dict:
             and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
         raise AssertionError(f"serve --bench report: {rep}")
     batches = 3 + rep["batches"]  # one warm-up batch per rung
-    calls = pndm_plan(50).num_calls
-    want = {"sd_attention_qk8": UNET_LAUNCHES_INT8["sd_attention_qk8"] * calls * batches,
-            "sd_attention": batches, "sd_attention_d512": batches}
-    expect_launches(f"serve --quantize int8, {batches} batches x ({calls} UNet "
-                    "calls + 1 decode)", launches, want)
+    full, shallow = fast_forwards(fast, pndm_plan(50).num_calls)
+    want = {"sd_attention_qk8": batches * (
+        full * UNET_LAUNCHES_INT8["sd_attention_qk8"]
+        + shallow * UNET_SHALLOW_LAUNCHES_INT8["sd_attention_qk8"]),
+        "sd_attention": batches, "sd_attention_d512": batches}
+    mode = f" --fast {fast}" if fast else ""
+    expect_launches(f"serve --quantize int8{mode}, {batches} batches x ({full} full "
+                    f"+ {shallow} shallow UNet calls + 1 decode)", launches, want)
     print(f"[serve] {json.dumps(rep)}")
-    print(f"[serve] --quantize int8 --batch_sizes 1,2,4 --bench 4: 8 requests in "
+    print(f"[serve] --quantize int8{mode} --batch_sizes 1,2,4 --bench 4: 8 requests in "
           f"{rep['batches']} batches (+3 warm-up), throughput {rep['throughput_rps']} "
           f"req/s, latency p50 {rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; "
           f"{seconds:.1f} s CLI wall (load, warm-up and load run); launches "
@@ -1387,20 +1532,171 @@ def phase_socket(snap: str, edit_path: str) -> None:
           f"{time.perf_counter() - start:.1f} s wall with start-up", flush=True)
 
 
-def phase_throughput(pipe, path: str) -> float:
+def phase_throughput(pipe, path: str, fast: str | None = None) -> float:
     prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
     with kernel_env(path == "kernels"):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        imgs = pipe(prompts, num_inference_steps=50, guidance_scale=7.5, seed=[1, 2])
+        imgs = pipe(prompts, num_inference_steps=50, guidance_scale=7.5, seed=[1, 2],
+                    fast=FastConfig.from_spec(fast) if fast else None)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
     if imgs.shape != (2, 512, 512, 3):
         raise AssertionError(f"pipeline returned {imgs.shape}")
     rate = 2 / seconds
-    print(f"[generate] {path} path, 2 prompts in one batch (UNet batch 4), 50 PNDM "
-          f"steps: {seconds:.3f} s, {rate:.4f} img/s", flush=True)
+    mode = f", --fast {fast}" if fast else ""
+    print(f"[generate] {path} path{mode}, 2 prompts in one batch (UNet batch 4), 50 "
+          f"PNDM steps: {seconds:.3f} s, {rate:.4f} img/s", flush=True)
     return rate
+
+
+def phase_fast_rate(pipe, path: str) -> None:
+    """img/s of ``FAST_SPEC`` against exact on one path, in turns (exact,
+    fast, fast, exact), and the UNet forwards that set the ratio: full and
+    shallow at UNet batch 4 (2 prompts under CFG) and 2 (cond-only), CUDA
+    events, median of 5, and the UNet time of each run that they give."""
+    rates = collections.defaultdict(list)
+    for mode in ("exact", "fast", "fast", "exact"):
+        rates[mode].append(phase_throughput(pipe, path, FAST_SPEC if mode == "fast"
+                                            else None))
+    prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
+    ms = {}
+    with torch.inference_mode(), kernel_env(path == "kernels"):
+        x, context, _ = unet_inputs(pipe, SD14, prompts)
+        for cond_only, (xb, cb) in ((False, (x, context)), (True, (x[2:], context[2:]))):
+            fwd = lambda **kw: unet.apply(pipe.unet_params, xb, 981.0, cb,
+                                          pipe.unet_config, **kw)
+            deep = fwd(return_deep=True)[1]
+            ms[cond_only, True] = median_ms(fwd, reps=5)
+            ms[cond_only, False] = median_ms(lambda: fwd(deep_feature=deep), reps=5)
+    calls = pndm_plan(50).num_calls
+    unet_ms = {mode: sum(n * ms[k] for k, n in fast_schedule(spec, calls).items())
+               for mode, spec in (("exact", None), ("fast", FAST_SPEC))}
+    exact, fast = (float(np.median(rates[m])) for m in ("exact", "fast"))
+    print(f"[fast] {path} path, --fast {FAST_SPEC}: {rates['fast']} img/s against "
+          f"exact {rates['exact']} (medians {fast:.4f} / {exact:.4f}, "
+          f"{fast / exact:.3f}x); UNet forward ms (median of 5): full {ms[False, True]:.2f}"
+          f" / shallow {ms[False, False]:.2f} at UNet batch 4, full {ms[True, True]:.2f}"
+          f" / shallow {ms[True, False]:.2f} at batch 2; UNet ms per run from these: "
+          f"exact {unet_ms['exact']:.1f}, fast {unet_ms['fast']:.1f} "
+          f"({unet_ms['exact'] / unet_ms['fast']:.3f}x)", flush=True)
+
+
+def write_clip_snapshot(root: str) -> None:
+    """CLIP ViT-B/32 at its published widths with seeded random weights
+    (fp16 on disk), as a composite HF snapshot: config.json, safetensors and
+    a character-vocabulary tokenizer at the root."""
+    rng = DeviceNormalRng(SEED + 7, "cuda")
+    os.makedirs(root, exist_ok=True)
+    text = {k: v for k, v in CLIP_TEXT.to_hf().items() if k != "architectures"}
+    vision = CLIP_VISION.to_hf()
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"architectures": ["CLIPModel"], "model_type": "clip",
+                   "projection_dim": 512, "logit_scale_init_value": 2.6592,
+                   "text_config": text, "vision_config": vision}, f)
+    sd = {**clip_text.init_state_dict(CLIP_TEXT, rng),
+          **clip_mod.init_state_dict(CLIP_VISION, rng)}
+    sd = {k: torch.as_tensor(v).to(torch.float16) for k, v in sd.items()}
+    sd["logit_scale"] = torch.tensor(float(np.log(100.0)), dtype=torch.float16)
+    save_safetensors(sd, os.path.join(root, "model.safetensors"))
+    write_tokenizer(root, "<|endoftext|>")
+
+
+@contextlib.contextmanager
+def captured(module, name: str, results: list):
+    """Keep the return value of every ``module.name`` call of the enclosed
+    calls in ``results``."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        results.append(fn(*args, **kwargs))
+        return results[-1]
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_debias(snap: str, clip_snap: str, rows: dict) -> None:
+    """``debias-sd`` through the CLI on the kernel path, with the re-solve on
+    the card and then on the host: equal safetensors with diffusers keys,
+    telemetry, launches (per iteration: the scheduler's calls of the UNet at
+    batch 2 x 2 concepts x 4 images, one VAE decode at batch 8), and each
+    iteration's seconds of generation, classification and re-solve."""
+    calls = plan_from_hf(SD14.scheduler, 20).num_calls
+    out, saved = os.path.join(WORK, "debias"), {}
+    for resident in ("true", "false"):
+        seen, gn_seen, results = (collections.Counter(), collections.Counter(), [])
+        telemetry = os.path.join(out, f"telemetry_{resident}.csv")
+        with kernel_env(True):
+            reset_launches()
+            start = time.perf_counter()
+            with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                    gn_seen, rows["group_norm_act"]), finite_decodes(), captured(
+                    debias_mod, "run_debias", results):
+                rc = cli_main(["debias-sd", "--model_id", snap, "--clip_model_id",
+                               clip_snap, *DEBIAS_ARGS, "--save_dir", out,
+                               "--exp_name", f"debias_{resident}", "--telemetry_path",
+                               telemetry, "--device_resident", resident,
+                               "--device", "cuda"])
+            launches = read_launches()
+            seconds = time.perf_counter() - start
+        _, _, history = results[0]
+        iterations = len(history)
+        want = {k: iterations * (calls * SD14.unet_launches[k] + VAE_LAUNCHES[k])
+                for k in SD14.unet_launches}
+        want["conv3x3_reduce"] = conv_split_sums(seen)
+        what = (f"debias-sd --device_resident {resident}, {iterations} iterations x "
+                f"({calls} UNet calls at batch 16 + 1 decode at batch 8)")
+        if rc != 0 or iterations != 2:
+            raise AssertionError(f"{what}: rc {rc}")
+        expect_launches(what, launches, want)
+        add_launches(rows, launches)
+        with open(telemetry) as f:
+            tel = list(csv.reader(f))
+        if len(tel) != 1 + 2 * iterations:
+            raise AssertionError(f"{what}: telemetry has {len(tel)} lines")
+        saved[resident] = read_safetensors(os.path.join(out, f"debias_{resident}"
+                                                             ".safetensors"))
+        if len(saved[resident]) != SD14.targets or not all(
+                is_sd_cross_attn_kv(k) and k.endswith(".weight")
+                and bool(torch.isfinite(v).all()) for k, v in saved[resident].items()):
+            raise AssertionError(f"{what}: saved {sorted(saved[resident])[:3]}...")
+        for h in history:
+            sec = h["seconds"]
+            print(f"[debias] --device_resident {resident} iteration {h['iteration']}: "
+                  f"observed {h['observed'].tolist()}; seconds: re-solve "
+                  f"{sec['solve']:.4f}, generate {sec['generate']:.4f}, classify "
+                  f"{sec['classify']:.4f}, total {sum(sec.values()):.4f}")
+        print(f"[debias] {what}: {seconds:.2f} s CLI wall (loads included); "
+              f"telemetry {len(tel) - 1} rows; launches {want}; {len(seen)} conv and "
+              f"{len(gn_seen)} group_norm_act shapes held to the plain version on the "
+              "run's own inputs", flush=True)
+    differ = [k for k in saved["true"] if not torch.equal(saved["true"][k],
+                                                          saved["false"][k])]
+    if saved["true"].keys() != saved["false"].keys() or differ:
+        raise AssertionError(f"debias-sd: the device and host paths differ at {differ}")
+    print(f"[debias] the device-resident and host paths saved the same "
+          f"{SD14.targets} tensors bit for bit", flush=True)
+
+
+def phase_clip_classify(clip_snap: str, folder: str, cases: list) -> None:
+    """``eval-clip-classify`` over a folder of generate's PNGs."""
+    out = os.path.join(WORK, "classify.csv")
+    start = time.perf_counter()
+    rc = cli_main(["eval-clip-classify", "--image_folder", folder, "--attributes",
+                   "a man, a woman", "--clip_model_id", clip_snap, "--save_path", out,
+                   "--device", "cuda"])
+    with open(out) as f:
+        table = list(csv.reader(f))
+    if rc != 0 or table[0] != ["case_number", "a_man_bias", "a_woman_bias"] or [
+            int(r[0]) for r in table[1:]] != sorted(c for c, _, _ in cases) or not all(
+            float(r[1]) + float(r[2]) == 1.0 for r in table[1:]):
+        raise AssertionError(f"eval-clip-classify: rc {rc}, {table}")
+    print(f"[classify] eval-clip-classify over {len(cases)} PNGs: {table} in "
+          f"{time.perf_counter() - start:.2f} s (CLI wall, load included)", flush=True)
 
 
 @contextlib.contextmanager
@@ -1423,8 +1719,8 @@ def add_launches(rows: dict, launches: dict) -> None:
 
 
 def run_sd14(rows: dict, seconds: dict) -> None:
-    """SD 1.4: edit, UNet, VAE, generate on both paths, W8A8, serving and
-    img/s."""
+    """SD 1.4: edit, UNet, VAE, generate on both paths (exact and fast), W8A8,
+    serving (exact and fast), img/s, debias-sd and eval-clip-classify."""
     snap = os.path.join(WORK, "sd14_random")
     with timed("SD 1.4 snapshot", seconds):
         write_snapshot(snap, SD14)
@@ -1440,26 +1736,45 @@ def run_sd14(rows: dict, seconds: dict) -> None:
     with timed("SD 1.4 generate", seconds):
         phase_generate(snap, edit_path, "library", rows, SD14, cases)
         add_launches(rows, phase_generate(snap, edit_path, "kernels", rows, SD14, cases))
+    calls = plan_from_hf(SD14.scheduler, 50).num_calls
+    with timed("SD 1.4 generate --fast", seconds):
+        for path in ("library", "kernels"):
+            phase_fast(snap, edit_path, path, rows, SD14, cases,
+                       ("cache=1", f"cfg_interval=0:{calls},cache=1", FAST_SPEC))
     with timed("SD 1.4 W8A8", seconds):
         phase_quant_unet(pipe)
         phase_quant_vae(pipe)
     with timed("SD 1.4 serve", seconds):
         add_launches(rows, phase_serve(snap, edit_path))
         phase_socket(snap, edit_path)
+    with timed("SD 1.4 serve --fast", seconds):
+        add_launches(rows, phase_serve(snap, edit_path, FAST_SPEC))
     with timed("SD 1.4 img/s", seconds):
         int8_pipe = copy.copy(pipe)
         int8_pipe.quantize_weights("int8")
         for path, p in (("library", pipe), ("kernels", pipe), ("int8", int8_pipe)):
             phase_throughput(p, path)
+        del int8_pipe
+    with timed("SD 1.4 img/s fast", seconds):
+        for path in ("library", "kernels"):
+            phase_fast_rate(pipe, path)
+    del pipe
+    torch.cuda.empty_cache()
+    clip_snap = os.path.join(WORK, "clip_random")
+    with timed("SD 1.4 debias-sd", seconds):
+        write_clip_snapshot(clip_snap)
+        phase_debias(snap, clip_snap, rows)
+    with timed("eval-clip-classify", seconds):
+        phase_clip_classify(clip_snap, generate_dir(SD14, "kernels"), cases)
     shutil.rmtree(snap)
 
 
 def run_model(model: Model, rows: dict, seconds: dict,
-              lms_steps: int | None = None) -> None:
+              lms_steps: int | None = None, fast: str | None = None) -> None:
     """SD 2.1 or SDXL at full width: edit with every method, a UNet forward
     at UNet batch 2, a VAE decode, and ``generate`` on both paths at 50
     steps of the model's scheduler (and, given ``lms_steps``, an LMS run on
-    the kernel path)."""
+    the kernel path; given ``fast``, a ``--fast`` run on the kernel path)."""
     snap = os.path.join(WORK, f"{model.tag}_random")
     with timed(f"{model.name} snapshot", seconds):
         write_snapshot(snap, model)
@@ -1480,6 +1795,9 @@ def run_model(model: Model, rows: dict, seconds: dict,
         if lms_steps:
             add_launches(rows, phase_generate(snap, edit_path, "kernels", rows, model,
                                               cases, "lms", lms_steps))
+    if fast:
+        with timed(f"{model.name} generate --fast", seconds):
+            phase_fast(snap, edit_path, "kernels", rows, model, cases, (fast,))
     shutil.rmtree(snap)
     torch.cuda.empty_cache()
 
@@ -1517,7 +1835,7 @@ def main() -> int:
     try:
         run_sd14(rows, seconds)
         run_model(SD21, rows, seconds, lms_steps=LMS_STEPS)
-        run_model(SDXL, rows, seconds)
+        run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"[time] total {time.perf_counter() - start:.1f} s", flush=True)

@@ -68,3 +68,41 @@ def test_second_encoder_does_not_fall_back_to_the_cpu(sdxl_snap, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises((RuntimeError, AssertionError)):
         sd.load_resources(sdxl_snap, family="sdxl")
+
+
+def test_clip_model_device_defaults_to_cuda():
+    from uce_tpu_torch.models.clip import CLIPModel, preprocess_images
+
+    field = {f.name: f for f in dataclasses.fields(CLIPModel)}["device"]
+    assert field.default == torch.device("cuda")
+    for fn in (CLIPModel.from_pretrained, preprocess_images):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("command", ["debias-sd", "eval-clip-classify"])
+def test_new_clis_default_to_cuda_and_do_not_fall_back(command, monkeypatch, tmp_path):
+    from uce_tpu_torch.cli.main import build_parser, main
+
+    argv = {"debias-sd": ["--edit_concepts", "doctor", "--debias_concepts", "male; female",
+                          "--model_id", str(tmp_path)],
+            "eval-clip-classify": ["--image_folder", str(tmp_path)]}[command]
+    assert build_parser().parse_args([command, *argv]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, *argv, "--clip_model_id", str(tmp_path)])
+
+
+def test_debias_runs_on_the_embeddings_device():
+    """The debias solvers put their stacks where the concept embeddings
+    are (the pipeline's device, cuda by default); CPU embeddings keep them
+    on the CPU."""
+    from uce_tpu_torch.edit.debias import (DebiasSettings, DeviceDebiasApplier,
+                                           make_collapsed_solver)
+
+    targets = {"a.attn2.to_k.weight": torch.ones(3, 4)}
+    embeds = {c: torch.arange(4.0) + i for i, c in enumerate(("doctor", "male", "female"))}
+    args = (targets, embeds, ["doctor"], ["male", "female"], [], DebiasSettings())
+    applier = DeviceDebiasApplier(*args, {"a.attn2.to_k.weight": torch.ones(3, 4)})
+    assert applier.w_cat.device.type == "cpu"
+    assert applier.solve([[0.5, -0.5]]).device.type == "cpu"
+    assert make_collapsed_solver(*args)([[0.5, -0.5]])["a.attn2.to_k.weight"].device.type == "cpu"

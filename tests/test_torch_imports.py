@@ -31,7 +31,8 @@ for name in names:
     importlib.import_module(name)
 from uce_tpu_torch.cli.main import main
 for argv in (["--help"], ["edit-sd", "--help"], ["edit-sdxl", "--help"],
-             ["generate", "--help"], ["serve", "--help"]):
+             ["generate", "--help"], ["serve", "--help"], ["debias-sd", "--help"],
+             ["eval-clip-classify", "--help"]):
     try:
         main(argv)
     except SystemExit as e:
@@ -46,7 +47,7 @@ def test_port_imports_without_reference_packages():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("imported")[-1]) >= 40
+    assert int(proc.stdout.split("imported")[-1]) >= 45
 
 
 def test_module_entry_point_help():

@@ -1,7 +1,7 @@
 """The port's serving layer (uce_tpu_torch/serving, ``serve`` CLI): the cases
-of tests/test_serving.py that need no FLUX, --fast or mesh, on the port's
-SD pipeline (fp32, 2 steps, 32x32), and a W8A8 (``--quantize int8``)
-server's image against uce_tpu's."""
+of tests/test_serving.py that need no FLUX or mesh, on the port's SD
+pipeline (fp32, 2 steps, 32x32), and a W8A8 (``--quantize int8``) server's
+image against uce_tpu's; fast specs served, int8 among them."""
 
 import base64
 import json
@@ -186,9 +186,57 @@ def test_family_without_scheduler_or_negatives():
             srv.submit("a cat", seed=1, negative_prompt="blurry")
 
 
-def test_fast_is_not_ported(pipe):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GenerationServer(pipe, ServerConfig(fast="cache=2", **CFG))
+def test_fast_spec_served(pipe):
+    """A fast spec reaches the pipeline: the served image is a direct
+    pipe(..., fast=FastConfig) call's and differs from the exact one."""
+    from uce_tpu_torch.diffusion.sampler import FastConfig
+
+    spec = "cfg_interval=1:3,cache=2"
+    cfg = ServerConfig(batch_size=1, max_wait_ms=1, fast=spec, warmup=False,
+                       num_inference_steps=3, height=32, width=32)
+    with GenerationServer(pipe, cfg) as srv:
+        served = srv.generate("a cat", seed=7)
+    kw = dict(num_inference_steps=3, seed=[7], height=32, width=32,
+              negative_prompt=[""])
+    direct = pipe(["a cat"], fast=FastConfig.from_spec(spec), **kw)
+    np.testing.assert_array_equal(served, direct[0])
+    assert (served != pipe(["a cat"], **kw)[0]).any()
+
+
+def test_noop_fast_spec_serves_the_exact_image(pipe):
+    cfg = ServerConfig(batch_size=1, max_wait_ms=1, fast="cache=1", **CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        served = srv.generate("a cat", seed=3)
+    exact = pipe(["a cat"], seed=[3], negative_prompt=[""], **CFG)
+    np.testing.assert_array_equal(served, exact[0])
+
+
+def test_fast_spec_rejected_for_family_without_fast():
+    """start() fails when the pipeline family takes no fast config, and a
+    bad spec fails construction."""
+    srv = GenerationServer(_NoSchedulerPipe(), ServerConfig(
+        batch_size=1, warmup=False, fast="cache=2", **CFG))
+    with pytest.raises(ValueError, match="fast"):
+        srv.start()
+    with pytest.raises(ValueError, match="unknown --fast key"):
+        GenerationServer(_NoSchedulerPipe(), ServerConfig(fast="bogus=1", **CFG))
+
+
+def test_int8_fast_server(snap):
+    """A W8A8 server takes a fast spec, as uce_tpu's does: it serves the
+    port's int8 pipe(fast=) image bit for bit, not the exact one."""
+    from uce_tpu_torch.diffusion.sampler import FastConfig
+
+    spec = "cfg_interval=1:3,cache=2"
+    tpipe = SDPipeline.from_pretrained(snap, dtype=torch.float32, device="cpu")
+    tpipe.quantize_weights("int8")
+    with GenerationServer(tpipe, ServerConfig(batch_size=1, max_wait_ms=1,
+                                              fast=spec, **CFG)) as srv:
+        served = srv.generate("a cat", seed=4)
+    kw = dict(seed=[4], negative_prompt=[""], **CFG)
+    np.testing.assert_array_equal(
+        served, tpipe(["a cat"], fast=FastConfig.from_spec(spec), **kw)[0])
+    assert (served != tpipe(["a cat"], **kw)[0]).any()
 
 
 def test_submit_after_close_raises(pipe):
@@ -267,13 +315,28 @@ def test_serve_cli_bench_mode_with_ladder(snap, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--family", "flux"], "items 14/15"),
     (["--mesh", "data=2"], "not ported"),
-    (["--fast", "cache=2"], "item 12"),
 ])
 def test_serve_cli_rejects_what_is_not_ported(snap, argv, match):
     from uce_tpu_torch.cli.main import main as cli_main
 
     with pytest.raises(NotImplementedError, match=match):
         cli_main(["serve", "--model_id", snap, "--device", "cpu", *argv])
+
+
+def test_serve_cli_bench_mode_fast(snap, capsys):
+    """``serve --fast`` through the CLI (with --quantize int8, as the card's
+    run drives it): one JSON report line."""
+    from uce_tpu_torch.cli.main import main as cli_main
+
+    rc = cli_main(["serve", "--model_id", snap, "--bench", "5", "--bench_requests",
+                   "2", "--batch_sizes", "1,2", "--image_size", "32",
+                   "--num_inference_steps", "3", "--max_wait_ms", "30",
+                   "--quantize", "int8", "--fast", "cfg_interval=1:3,cache=2",
+                   "--device", "cpu"])
+    assert rc == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1 and lines[0]["n_requests"] == 2
 
 
 def test_serve_cuda_without_cuda_fails(snap, monkeypatch):

@@ -61,7 +61,10 @@ def register_cli(sub, add_device_flag) -> None:
                         "outputs per (prompt, seed) under a --batch_sizes "
                         "ladder (costs the low-rate latency win)")
     p.add_argument("--fast", type=str, default=None, metavar="SPEC",
-                   help="beyond-protocol accelerations (not ported yet)")
+                   help="beyond-protocol accelerations, e.g. "
+                        "'cfg_interval=3:25,cache=2,level=1' (CFG only inside "
+                        "the call window; DeepCache reuses the deep UNet "
+                        "feature between every N-th call)")
     p.add_argument("--no_warmup", action="store_true",
                    help="skip the warmup batches")
     p.add_argument("--bench", type=str, default=None, metavar="RATES",
@@ -89,9 +92,6 @@ def _cmd(args) -> int:
     if args.mesh:
         raise NotImplementedError("serve --mesh is not ported yet (ROADMAP "
                                   "queue 1 item 5; one GPU for now)")
-    if args.fast:
-        raise NotImplementedError("serve --fast is not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
     device = resolve_device(args.device)
     pipe = SDPipeline.from_pretrained(args.model_id, device=device)
     if args.quantize:
@@ -110,6 +110,7 @@ def _cmd(args) -> int:
         warmup=not args.no_warmup,
         batch_sizes=batch_sizes,
         pin_rung=args.pin_rung,
+        fast=args.fast,
     )
     if args.bench:
         from uce_tpu_torch.serving.loadgen import run_load

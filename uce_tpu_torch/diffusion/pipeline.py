@@ -122,15 +122,48 @@ class SDPipeline:
         return {"text_embeds": text_embeds,
                 "time_ids": time_ids.expand(text_embeds.shape[0], 6)}
 
+    def _fast_model_factory(self, context, added_cond, bsz: int,
+                            fast: sampler.FastConfig):
+        """``sampler.denoise_fast``'s model factory: the cond-only variants
+        take the cond half of the context and of SDXL's added conditioning."""
+        def factory(cond_only: bool, cached: bool, want_deep: bool):
+            ctx, ac = context, added_cond
+            if cond_only:
+                ctx = context[bsz:]
+                ac = None if added_cond is None else {
+                    k: v[bsz:] for k, v in added_cond.items()}
+            if cached:
+                return lambda lat_in, t, deep: unet_mod.apply(
+                    self.unet_params, lat_in, t, ctx, self.unet_config,
+                    added_cond=ac, deep_feature=deep, cache_level=fast.cache_level)
+            return lambda lat_in, t: unet_mod.apply(
+                self.unet_params, lat_in, t, ctx, self.unet_config, added_cond=ac,
+                return_deep=want_deep, cache_level=fast.cache_level)
+        return factory
+
     @torch.inference_mode()
     def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
                  guidance_scale: float = 7.5, num_images_per_prompt: int = 1,
                  seed: int | Sequence[int] = 0, height: int = 512, width: int = 512,
                  scheduler: str | None = None,
-                 negative_prompt: str | Sequence[str] | None = None) -> np.ndarray:
+                 negative_prompt: str | Sequence[str] | None = None,
+                 mode: str = "cfg",
+                 fast: sampler.FastConfig | None = None) -> np.ndarray:
         """Returns uint8 images [N, H, W, 3], classifier-free guidance
         against ``negative_prompt`` (the empty prompt by default; a string
-        for every prompt or one per prompt, repeated per image)."""
+        for every prompt or one per prompt, repeated per image).
+
+        mode: only ``"cfg"`` is ported (uce_tpu's ``sld``,
+        ``concept_algebra`` and ``debias_vl`` raise NotImplementedError).
+        fast: an optional ``sampler.FastConfig`` (CFG window, DeepCache),
+        opt-in beyond the reference protocol; a no-op config takes the
+        exact path."""
+        if fast is not None and fast.is_noop:
+            fast = None
+        if fast is not None and mode not in ("cfg", "debias_vl"):
+            raise ValueError("fast modes support only cfg/debias_vl guidance")
+        if mode != "cfg":
+            raise NotImplementedError(f"mode={mode!r} is not ported (cfg only)")
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         n_prompts = len(prompts)
         prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
@@ -170,13 +203,18 @@ class SDPipeline:
                 if scheduler else
                 schedulers.plan_from_hf(self.scheduler_config, num_inference_steps))
 
-        def model_fn(lat_in, t):
-            return unet_mod.apply(self.unet_params, lat_in, t, context,
-                                  self.unet_config, added_cond=added_cond)
+        if fast is None:
+            def model_fn(lat_in, t):
+                return unet_mod.apply(self.unet_params, lat_in, t, context,
+                                      self.unet_config, added_cond=added_cond)
 
-        final = sampler.denoise(
-            model_fn, plan, latents,
-            guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
+            final = sampler.denoise(
+                model_fn, plan, latents,
+                guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
+        else:
+            final = sampler.denoise_fast(
+                self._fast_model_factory(context, added_cond, bsz, fast), plan,
+                latents, guidance_scale=guidance_scale, fast=fast)
         scaled = (final.float() / self.vae_config.scaling_factor).to(latents.dtype)
         imgs = vae_mod.decode(self.vae_params, scaled, self.vae_config)
         imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)

@@ -12,6 +12,7 @@ import csv
 import torch
 
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
+from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.utils.imaging import case_window, save_case_images, uce_output_folder
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -53,9 +54,13 @@ def generate_images(
     scheduler: str | None = None,
     batch_rows: int = 1,
     exp_name: str | None = None,
+    fast: str | None = None,
 ) -> int:
     """Returns the number of generated cases. ``batch_rows`` rows (each
-    with its own seed) share one batched denoise."""
+    with its own seed) share one batched denoise. ``fast`` is a
+    ``FastConfig.from_spec`` spec (CFG window, DeepCache), opt-in beyond the
+    reference protocol."""
+    fast_cfg = FastConfig.from_spec(fast) if fast else None
     pipe = SDPipeline.from_pretrained(model_name, dtype=DTYPES[str(dtype)],
                                       device=device)
     if uce_model_path:
@@ -70,7 +75,8 @@ def generate_images(
                       guidance_scale=guidance_scale,
                       num_images_per_prompt=num_samples,
                       seed=[r["evaluation_seed"] for r in chunk],
-                      height=image_size, width=image_size, scheduler=scheduler)
+                      height=image_size, width=image_size, scheduler=scheduler,
+                      fast=fast_cfg)
         for j, r in enumerate(chunk):
             save_case_images(images[j * num_samples:(j + 1) * num_samples],
                              folder, r["case_number"])
@@ -103,6 +109,12 @@ def register_cli(sub, add_device_flag) -> None:
                    "(its hyperparameters, e.g. v-prediction, carry over)")
     p.add_argument("--batch_rows", type=int, default=1,
                    help="fuse N CSV rows into one batched denoise")
+    p.add_argument("--fast", type=str, default=None, metavar="SPEC",
+                   help="beyond-protocol accelerations, e.g. "
+                        "'cfg_interval=3:25,cache=2,level=1' (CFG only inside "
+                        "the call window; DeepCache reuses the deep UNet "
+                        "feature between every N-th call); omit for the exact "
+                        "reference protocol")
     p.set_defaults(func=_cmd)
 
 
@@ -116,6 +128,6 @@ def _cmd(args) -> int:
         ddim_steps=args.ddim_steps, num_samples=args.num_samples,
         from_case=args.from_case, till_case=args.till_case, dtype=args.dtype,
         scheduler=args.scheduler, batch_rows=args.batch_rows,
-        exp_name=args.exp_name)
+        exp_name=args.exp_name, fast=args.fast)
     print(f"generated {n} cases")
     return 0

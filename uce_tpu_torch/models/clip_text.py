@@ -45,7 +45,14 @@ class CLIPTextConfig:
     eos_token_id: int | None = 49407
 
     @classmethod
-    def from_hf(cls, cfg: Mapping) -> "CLIPTextConfig":
+    def from_hf(cls, cfg: Mapping, diff_defaults: bool = False) -> "CLIPTextConfig":
+        """A text_encoder config.json (every structural key required), or
+        with ``diff_defaults`` the ``text_config`` of a composite CLIP
+        checkpoint (openai/clip-vit-base-patch32), a diff from transformers'
+        CLIPTextConfig defaults (512 wide, 8 heads, ...)."""
+        if diff_defaults:
+            cfg = {"vocab_size": 49408, "hidden_size": 512, "num_hidden_layers": 12,
+                   "num_attention_heads": 8, "intermediate_size": 2048, **cfg}
         return cls(
             vocab_size=cfg["vocab_size"],
             hidden_size=cfg["hidden_size"],

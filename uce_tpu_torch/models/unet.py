@@ -220,16 +220,48 @@ def _spatial_transformer(p, pre, x, context, heads: int, depth: int,
     return x + residual
 
 
+def deep_feature_shape(config: UNetConfig, batch: int, latent_h: int,
+                       latent_w: int, cache_level: int = 1) -> tuple:
+    """NCHW shape of the DeepCache deep feature: the tensor entering up block
+    ``n_blocks - cache_level`` (the output of the last skipped up block's
+    upsampler). See ``apply``'s ``deep_feature`` / ``return_deep``."""
+    shift = cache_level - 1
+    return (batch, config.block_out_channels[cache_level], latent_h >> shift,
+            latent_w >> shift)
+
+
 def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
           encoder_hidden_states, config: UNetConfig, *, attn_impl: str = "auto",
-          added_cond: Mapping[str, torch.Tensor] | None = None):
+          added_cond: Mapping[str, torch.Tensor] | None = None,
+          deep_feature: torch.Tensor | None = None, return_deep: bool = False,
+          cache_level: int = 1):
     """UNet forward. sample [B, C_in, H, W], timesteps [B] or scalar,
     encoder_hidden_states [B, T, D_text] -> noise prediction [B, C_out, H, W].
     ``attn_impl`` is passed to every attention call ("auto" or "plain").
     A ``text_time`` UNet (SDXL) takes ``added_cond`` = {"text_embeds": [B,
     P] pooled text, "time_ids": [B, 6]}: their embedding joins the time
-    embedding."""
+    embedding.
+
+    DeepCache (Ma et al. 2023, arXiv:2312.00858), uce_tpu's fast mode:
+
+    * ``return_deep=True`` runs the full forward and also returns the
+      feature entering up block ``n_blocks - cache_level`` -> ``(eps, deep)``;
+    * a ``deep_feature`` runs only the shallow path: conv_in, down blocks
+      ``< cache_level`` (for their skips), then up blocks ``>= n_blocks -
+      cache_level`` from ``deep_feature``, and conv_out. The deep levels and
+      the mid block are skipped.
+
+    ``cache_level`` is the number of levels kept live (1: the full-resolution
+    level only). Both paths share the skip code, so a same-step deep feature
+    fed back reproduces the full forward exactly.
+    """
     cfg, p = config, params
+    n_blocks = len(cfg.up_block_types)
+    shallow = deep_feature is not None
+    if (shallow or return_deep) and not 1 <= cache_level < n_blocks:
+        raise ValueError(f"cache_level must be in [1, {n_blocks - 1}]")
+    if shallow and return_deep:
+        raise ValueError("deep_feature and return_deep are exclusive")
     groups = cfg.norm_num_groups
     timesteps = torch.as_tensor(timesteps, device=sample.device)
     if timesteps.ndim == 0:
@@ -262,6 +294,8 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
     x = conv2d(sample, *_w(p, "conv_in"))
     res_stack = [x]
     for bi, btype in enumerate(cfg.down_block_types):
+        if shallow and bi >= cache_level:
+            break
         for li in range(cfg.layers_per_block):
             x = _resnet(p, f"down_blocks.{bi}.resnets.{li}", x, emb, groups)
             if btype == "CrossAttnDownBlock2D":
@@ -270,19 +304,32 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
                     cfg.heads(bi), cfg.tx_layers(bi), cfg, attn_impl)
             res_stack.append(x)
         if f"down_blocks.{bi}.downsamplers.0.conv.weight" in p:
+            # on the shallow path the last live level's downsample would
+            # feed only skipped up blocks
+            if shallow and bi == cache_level - 1:
+                break
             x = conv2d(x, *_w(p, f"down_blocks.{bi}.downsamplers.0.conv"), stride=2)
             res_stack.append(x)
 
-    last = len(cfg.block_out_channels) - 1
-    x = _resnet(p, "mid_block.resnets.0", x, emb, groups)
-    if "mid_block.attentions.0.norm.weight" in p:
-        x = _spatial_transformer(p, "mid_block.attentions.0", x, ehs,
-                                 cfg.heads(last), cfg.tx_layers(last), cfg,
-                                 attn_impl)
-    x = _resnet(p, "mid_block.resnets.1", x, emb, groups)
+    if not shallow:
+        last = len(cfg.block_out_channels) - 1
+        x = _resnet(p, "mid_block.resnets.0", x, emb, groups)
+        if "mid_block.attentions.0.norm.weight" in p:
+            x = _spatial_transformer(p, "mid_block.attentions.0", x, ehs,
+                                     cfg.heads(last), cfg.tx_layers(last), cfg,
+                                     attn_impl)
+        x = _resnet(p, "mid_block.resnets.1", x, emb, groups)
 
-    n_blocks = len(cfg.up_block_types)
+    deep_out = None
     for bi, btype in enumerate(cfg.up_block_types):
+        if bi == n_blocks - cache_level:
+            if return_deep:
+                deep_out = x
+            elif shallow:
+                x = (deep_feature.contiguous(memory_format=torch.channels_last)
+                     if kernels else deep_feature)
+        elif shallow and bi < n_blocks - cache_level:
+            continue
         rev = n_blocks - 1 - bi  # per-block head counts are indexed reversed
         for li in range(cfg.layers_per_block + 1):
             x = torch.cat([x, res_stack.pop()], dim=1)
@@ -297,7 +344,8 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
 
     x = group_norm_act(x, *_w(p, "conv_norm_out"), groups, act="silu")
     x = conv2d(x, *_w(p, "conv_out"))
-    return x.contiguous() if kernels else x
+    x = x.contiguous() if kernels else x
+    return (x, deep_out) if return_deep else x
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,8 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from uce_tpu_torch.diffusion.sampler import FastConfig
+
 logger = logging.getLogger(__name__)
 
 
@@ -57,8 +59,9 @@ class ServerConfig:
     use it for reproducibility-sensitive evals). The single-size server
     (empty ``batch_sizes``) never has the caveat.
 
-    ``fast`` (uce_tpu's beyond-protocol accelerations) is not ported yet
-    (ROADMAP queue 1 item 12): a server given one raises.
+    ``fast`` is a ``FastConfig.from_spec`` spec (CFG window, DeepCache),
+    opt-in beyond the reference protocol, passed to every batch; a pipeline
+    family whose call takes no ``fast`` fails start().
     """
 
     batch_size: int = 4
@@ -113,9 +116,11 @@ class GenerationServer:
             config.batch_sizes or (config.batch_size,))))
         if any(s < 1 for s in self.batch_sizes):
             raise ValueError("batch sizes must be >= 1")
+        self._fast = None
         if config.fast:
-            raise NotImplementedError("ServerConfig.fast is not ported yet "
-                                      "(ROADMAP queue 1 item 12)")
+            self._fast = FastConfig.from_spec(config.fast)
+            if self._fast.is_noop:
+                self._fast = None
         self.stats = ServerStats()
         self._queue: queue.Queue[Request | None] = queue.Queue()
         self._thread: threading.Thread | None = None
@@ -150,6 +155,8 @@ class GenerationServer:
                 not self._pipe_supports("scheduler"):
             raise ValueError(
                 "this pipeline family takes no scheduler override")
+        if self._fast is not None and not self._pipe_supports("fast"):
+            raise ValueError("this pipeline family takes no fast config")
         if self.config.warmup:
             t0 = time.time()
             # largest rung first: an out-of-memory fails startup before
@@ -263,6 +270,8 @@ class GenerationServer:
             out["scheduler"] = cfg.scheduler
         if self._pipe_supports("negative_prompt"):
             out["negative_prompt"] = negatives
+        if self._fast is not None:
+            out["fast"] = self._fast
         return out
 
     def _run_batch(self, batch: list[Request]) -> None:
