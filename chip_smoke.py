@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card at the full
-widths of SD 1.4, SD 2.1 (768-v) and SDXL base 1.0, and check them.
+widths of SD 1.4, SD 2.1 (768-v), SDXL base 1.0 and FLUX.1-schnell, and
+check them.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,10 @@ each phase's seconds and the total are printed):
      once; ptxas's registers and spills of the TMA + wgmma attention and
      conv kernels; the bf16 attention at d=64 must not spill), compare each
      kernel with its plain PyTorch version at the main paths' shapes (SD
-     1.4's, and SD 2.1's and SDXL's: d=64 attention, d=512 at s=9216 and
-     16384, the 96x96, 128x128 and 1024x1024 conv and GroupNorm maps,
+     1.4's, and SD 2.1's, SDXL's and FLUX's: d=64 attention, d=512 at s=9216
+     and 16384, FLUX's joint attention at d=128 (s=4352 and 1280), the
+     96x96, 128x128 and 1024x1024 conv and GroupNorm maps, FLUX's VAE
+     conv_in (Cin = 16, mma.sync),
      uce_solve at d=1024) and on the Pallas tests' cases (elementwise and
      relative L2 bounds; the conv's split-K path at the shapes that split),
      and time the kernel, the plain version and one
@@ -23,7 +26,8 @@ each phase's seconds and the total are printed):
      level at batch 8 with its TFLOP/s and K splits; every kernel at its
      main-path shapes also back to back, beside its library call (the
      int8-QK^T attention beside its yardsticks); ptxas must report no spills and no
-     serialized wgmma for the int8-QK^T kernel at any head dim;
+     serialized wgmma for the int8-QK^T kernel at any head dim and for the
+     bf16 one at d=64 and d=128;
   3. SD 1.4: a seeded random-weight snapshot (UNet, CLIP text, VAE, PNDM
      scheduler, a character-vocabulary tokenizer), drawn on the card and
      written in fp16 under build/;
@@ -79,7 +83,19 @@ each phase's seconds and the total are printed):
      keys), a telemetry row per iteration and concept, launches, and each
      iteration's seconds of generation, classification and re-solve;
  18. ``eval-clip-classify`` over the PNGs of 7: one row per case, ratios
-     summing to 1.
+     summing to 1;
+ 19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
+     CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
+     on the card (~33.8 GB, its bytes and seconds printed; the free space
+     under build/ is checked first), ``edit-flux`` (the two text-entry
+     targets, each held to a float64 solve; ``--method pallas`` refused),
+     one DiT forward at 1024^2 on impl="auto" against "plain" (57 d=128
+     kernel launches, device and wall ms), a VAE decode on both paths,
+     ``generate-flux`` (4 steps, guidance 0) on both paths with the edit
+     overlay (PNGs, launches from the steps, seconds per image after the
+     load, the two paths' image distance) and ``serve --family flux``
+     (ladder 1,2, 4 Poisson requests): the JSON report, the served images
+     and launches. The snapshot is deleted at the end.
 The last two lines are the kernels' JSON record (launches summed over the
 main paths' runs) and the device record.
 """
@@ -92,6 +108,7 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import functools
 import io
 import json
 import logging
@@ -110,10 +127,11 @@ import torch.nn.functional as F
 
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
+from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline, make_img_ids, pack_latents
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
-from uce_tpu_torch.edit import debias as debias_mod, sd as edit_sd
-from uce_tpu_torch.models import clip as clip_mod, clip_text, quantize, unet, vae
+from uce_tpu_torch.edit import debias as debias_mod, flux as edit_flux, sd as edit_sd
+from uce_tpu_torch.models import clip as clip_mod, clip_text, flux, quantize, t5, unet, vae
 from uce_tpu_torch.models.hf_loader import read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_sd_cross_attn_kv
@@ -121,7 +139,7 @@ from uce_tpu_torch.ops import attention
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.serving import socket_api
-from uce_tpu_torch.utils.imaging import decode_png
+from uce_tpu_torch.utils.imaging import decode_png, encode_png
 from uce_tpu_torch.utils.prompts import resolve_edit_request
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng, draw_prompt_latents
 
@@ -217,13 +235,16 @@ EXP_PER_CLOCK_PER_SM = 16
 # CFG) and 8 (4 prompts, the top serving rung), its VAE mid-block at batch 1
 # (generate) and 4 (the serving rung); then SDXL's (1024², latents 128²) and
 # SD 2.1's (768², latents 96²) UNet self-attentions at UNet batch 2, d=64,
-# and their VAE mid-blocks at s=16384 and 9216.
+# and their VAE mid-blocks at s=16384 and 9216; then FLUX.1-schnell's joint
+# attention at d=128 over 256 T5 tokens + the packed image at 1024^2 and
+# 512^2 (batch 1, 24 heads).
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
               (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512),
               (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64),
               (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
-              (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512)]
+              (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512),
+              (1, 24, 4352, 4352, 128), (1, 24, 1280, 1280, 128)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512),
               (2, 2, 200, 200, 64)]
@@ -239,12 +260,14 @@ GN_CASES = [((4, 32, 32, 1920), 32, 1e-5, "silu"), ((4, 8, 8, 2560), 32, 1e-5, "
 # (shape NHWC, cout): the UNet's 64x64 level at batch 4, one shape per UNet
 # level at batch 8 (the 8x8 one splits K), the VAE's 512x512 level; then
 # SDXL's 128x128 UNet level, SD 2.1's 96x96 and 12x12 ones at UNet batch 2,
-# and the VAE's 1024x1024 level (SDXL).
+# the VAE's 1024x1024 level (SDXL), and FLUX's VAE conv_in at 1024^2 (Cin =
+# 16 -> 512 at 128x128, on the mma.sync kernel).
 CONV_SLICE = [((4, 64, 64, 320), 320), ((8, 64, 64, 320), 320),
               ((8, 32, 32, 640), 640), ((8, 16, 16, 1280), 1280),
               ((8, 8, 8, 2560), 1280), ((1, 512, 512, 128), 128),
               ((2, 128, 128, 320), 320), ((2, 96, 96, 320), 320),
-              ((2, 12, 12, 1280), 1280), ((1, 1024, 1024, 128), 128)]
+              ((2, 12, 12, 1280), 1280), ((1, 1024, 1024, 128), 128),
+              ((1, 128, 128, 16), 512)]
 CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 640),
               ((4, 8, 8, 2560), 1280), ((1, 64, 64, 4), 512), ((1, 128, 128, 512), 512),
               ((1, 512, 512, 128), 3), ((2, 8, 8, 12), 20), ((1, 6, 6, 4), 20),
@@ -351,6 +374,22 @@ DEBIAS_ARGS = ["--edit_concepts", "doctor; nurse", "--debias_concepts",
                "--num_images_per_prompt", "4", "--num_inference_steps", "20",
                "--max_iterations", "2"]
 
+# FLUX.1-schnell (black-forest-labs/FLUX.1-schnell, its config.json files) at
+# its published widths and depth: the 19 + 38-block DiT, T5 v1.1-XXL
+# (text_encoder_2), CLIP-L (text_encoder; its config's legacy eos_token_id
+# 2), the 16-channel VAE with its scaling and shift factors, FlowMatchEuler
+# with shift 1 and no dynamic shifting; 1024^2, 4 steps, guidance 0, 256 T5
+# tokens. Per DiT forward 57 joint attentions at d=128 take the kernel
+# (tests/test_torch_flux_shapes.py); the decode launches as SDXL's
+# (VAE_LAUNCHES), its conv_in (Cin = 16) on the mma.sync kernel.
+FLUX_CLIP = dataclasses.replace(clip_text.SD14_TEXT_CONFIG, eos_token_id=2)
+FLUX_VAE = vae.FLUX_VAE_CONFIG
+FLUX_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 1.0,
+                  "use_dynamic_shifting": False, "num_train_timesteps": 1000}
+FLUX_STEPS = 4
+FLUX_DIT_LAUNCHES = {"sd_attention_d128": 57}
+FLUX_PROMPT = "a painting by kelly mckernan"
+
 
 def library_launches(per_call: dict) -> dict:
     """The library path's launches for a kernel path's: the attention only."""
@@ -438,6 +477,7 @@ def read_launches() -> dict[str, int]:
     torch.cuda.synchronize()
     counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
     counts["sd_attention_d512"] = sdk.launches_by_dim.get(512, 0)
+    counts["sd_attention_d128"] = sdk.launches_by_dim.get(128, 0)
     counts["sd_attention_qk8"] = sdk.launches_qk8
     counts["sd_attention_d512_merge"] = sdk.launches_merge
     counts["conv3x3_wgmma"] = convk.launches_wgmma
@@ -582,16 +622,20 @@ def phase_build() -> None:
             print(f"[ptxas] {name}: {line}")
     # The int8-QK^T kernel at every head dim it dispatches: no spills and
     # no wgmma serialized by ptxas (C7520, C7512). The bf16 kernel at d=64,
-    # the head dim of every SD 2.x and SDXL attention: no spills.
+    # the head dim of every SD 2.x and SDXL attention, and at d=128, FLUX's:
+    # no spills, no serialized wgmma.
     check_ptxas("sd_attention_qk8", "sd_attention_qk8_kernel", sdk.QK8_HEAD_DIMS,
                 whole_library=True)
-    check_ptxas("sd_attention", "sd_attention_kernel", (64,), whole_library=False)
+    check_ptxas("sd_attention", "sd_attention_kernel", (64, 128), whole_library=False)
+    for line in ptxas_report(_build.build_logs.get("sd_attention") or ""):
+        if "<128>" in line:
+            print(f"[ptxas] FLUX's d=128 attention: {line}")
 
 
 def check_ptxas(lib: str, kernel: str, dims, whole_library: bool) -> None:
     """Raise unless ptxas's report of ``lib`` lists ``kernel`` at every head
-    dim of ``dims`` with no spills; with ``whole_library``, no kernel of the
-    library may spill or have wgmma serialized by ptxas."""
+    dim of ``dims`` with no spills and no wgmma serialized; with
+    ``whole_library``, no kernel of the library may have either."""
     log = _build.build_logs.get(lib)
     if not log:
         return
@@ -600,7 +644,7 @@ def check_ptxas(lib: str, kernel: str, dims, whole_library: bool) -> None:
     found = {int(m.group(1)) for m in map(at, report) if m}
     checked = report if whole_library else [
         line for line in report if at(line) and int(at(line).group(1)) in dims]
-    faults = [line for line in checked if (whole_library and "serialized" in line)
+    faults = [line for line in checked if "serialized" in line
               or re.search(r"[1-9]\d* B spill (stores|loads)", line)]
     if faults or not set(dims) <= found:
         raise AssertionError(f"{lib} ptxas: head dims {sorted(found)} (want "
@@ -1103,9 +1147,9 @@ def phase_unet(pipe, rows: dict, model: Model, prompts: list[str]) -> None:
 
 
 def phase_vae(pipe, rows: dict, model: Model) -> None:
-    n = model.latent
-    lat = draw_prompt_latents((n, n, 4), SEED + 1, 1, 1).to("cuda", pipe.dtype)
-    lat = lat / pipe.vae_config.scaling_factor
+    n, vcfg = model.latent, pipe.vae_config
+    lat = draw_prompt_latents((n, n, vcfg.latent_channels), SEED + 1, 1, 1)
+    lat = (lat / vcfg.scaling_factor + vcfg.shift_factor).to("cuda", pipe.dtype)
     # the mid-block attention at one head splits its KV range where its
     # query tiles alone do not fill the card (s=4096 does, 9216 and 16384 not)
     merges = int(sdk.d512_splits(1, n * n, n * n, _build.sm_count(CUDA)) > 1)
@@ -1802,6 +1846,351 @@ def run_model(model: Model, rows: dict, seconds: dict,
     torch.cuda.empty_cache()
 
 
+@dataclasses.dataclass(frozen=True)
+class FluxModel:
+    """FLUX.1-schnell's image size, as ``phase_vae`` reads a model."""
+
+    name: str = "FLUX.1-schnell"
+    size: int = 1024
+
+    @property
+    def latent(self) -> int:
+        return self.size // 8
+
+
+FLUX = FluxModel()
+
+
+def flux_parts() -> list:
+    """(subfolder, config, file, state dict maker) of each weight file of the
+    FLUX snapshot, drawn on the card in bf16."""
+    rng = DeviceNormalRng(SEED + 3, "cuda", torch.bfloat16)
+    cast = lambda sd: {k: torch.as_tensor(v).to("cuda", torch.bfloat16)
+                       for k, v in sd.items()}
+    return [
+        ("transformer", flux.SCHNELL_CONFIG, "diffusion_pytorch_model.safetensors",
+         lambda: flux.init_state_dict(flux.SCHNELL_CONFIG, seed=SEED, device="cuda")),
+        ("text_encoder_2", t5.T5_XXL_CONFIG, "model.safetensors",
+         lambda: t5.init_state_dict(t5.T5_XXL_CONFIG, seed=SEED + 1, device="cuda")),
+        ("text_encoder", FLUX_CLIP, "model.safetensors",
+         lambda: cast(clip_text.init_state_dict(FLUX_CLIP, rng))),
+        ("vae", FLUX_VAE, "diffusion_pytorch_model.safetensors",
+         lambda: cast(vae.init_state_dict(FLUX_VAE, rng)))]
+
+
+def write_flux_snapshot(root: str) -> int:
+    """FLUX.1-schnell at full width and depth with seeded random weights,
+    stored in bf16 as a diffusers snapshot (each part drawn on the card,
+    written and freed in turn), character-vocabulary tokenizers for both
+    encoders. Fails before drawing if the disk under build/ is short.
+    Returns the bytes written."""
+    shapes = {**flux.state_dict_shapes(flux.SCHNELL_CONFIG),
+              **t5.state_dict_shapes(t5.T5_XXL_CONFIG)}
+    need = 2 * sum(int(np.prod(s)) for s in shapes.values()) + (1 << 30)
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"FLUX snapshot: {free / 1e9:.1f} GB free under {root}, "
+                             f"{need / 1e9:.1f} GB needed at full width; the model is "
+                             "not shrunk to fit")
+    written = 0
+    for sub, cfg, fname, draw in flux_parts():
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(cfg.to_hf(), f)
+        sd = draw()
+        path = os.path.join(root, sub, fname)
+        save_safetensors(sd, path)
+        written += os.path.getsize(path)
+        del sd
+        torch.cuda.empty_cache()
+    for sub in ("tokenizer", "tokenizer_2"):
+        write_tokenizer(os.path.join(root, sub), "<|endoftext|>")
+    os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(FLUX_SCHEDULER, f)
+    return written
+
+
+def phase_flux_edit(snap: str) -> str:
+    """``edit-flux`` through the CLI (5 art concepts, 3 preserve): the two
+    text-entry targets, each held to a float64 solve of the same fp32
+    embeddings (per input-dim group, as ``phase_edit``'s bounds); ``--method
+    pallas`` must exit non-zero."""
+    out = os.path.join(WORK, "edits_flux")
+    start = time.perf_counter()
+    rc = cli_main(["edit-flux", "--model_id", snap, "--edit_concepts", ART,
+                   "--concept_type", "art", "--preserve_concepts", PRESERVE,
+                   "--save_dir", out, "--exp_name", "erase_art", "--device", "cuda"])
+    seconds = time.perf_counter() - start
+    path = os.path.join(out, "erase_art.safetensors")
+    edits = read_safetensors(path)
+    shapes = {k: tuple(v.shape) for k, v in edits.items()}
+    cfg = flux.SCHNELL_CONFIG  # [3072, 4096] and [3072, 768]
+    want_shapes = {"context_embedder.weight": (cfg.inner_dim, cfg.joint_attention_dim),
+                   "time_text_embed.text_embedder.linear_1.weight": (
+                       cfg.inner_dim, cfg.pooled_projection_dim)}
+    if rc != 0 or shapes != want_shapes or not all(
+            bool(torch.isfinite(v).all()) for v in edits.values()):
+        raise AssertionError(f"edit-flux: rc {rc}, targets {shapes}")
+    edits_c, guides, preserves = resolve_edit_request(ART, None, PRESERVE, "art")
+    res = edit_flux.load_resources(snap, device="cuda")
+    embeds = edit_flux.encode_concepts(res, edits_c + guides + preserves)
+    targets = res.targets
+    del res
+    torch.cuda.empty_cache()
+    for key, w in targets.items():
+        d = w.shape[1]
+        stack = lambda names: torch.stack([embeds[n][d].double() for n in names])
+        c_edit, c_guide, c_pres = stack(edits_c), stack(guides), stack(preserves)
+        lam = 0.5 * torch.eye(d, dtype=torch.float64, device="cuda")
+        mat2 = lam + c_edit.T @ c_edit + c_pres.T @ c_pres
+        mat_a = lam + c_guide.T @ c_edit + c_pres.T @ c_pres
+        w64 = w.double().to("cuda")
+        exact = w64 @ torch.linalg.solve(mat2, mat_a.T).T
+        new = edits[key].double().to("cuda")
+        cond = float(torch.linalg.cond(mat2))
+        bound, back_bound = EDIT_COND_FACTOR * cond * EPS32, d ** 0.5 * EPS32
+        rel = float((new - exact).abs().max() / exact.abs().max())
+        back = float((new @ mat2 - w64 @ mat_a).norm() / (
+            new.norm() * mat2.norm() + w64.norm() * mat_a.norm()))
+        if not (rel <= bound and back <= back_bound):
+            raise AssertionError(f"edit-flux {key}: relative max diff {rel} from a "
+                                 f"float64 solve (bound {bound}), backward error {back} "
+                                 f"(bound {back_bound})")
+        print(f"[edit] FLUX.1-schnell {key} {tuple(w.shape)}, d={d}: cond(mat2) "
+              f"{cond:.4e}, relative max diff from a float64 solve {rel:.3e} (bound "
+              f"{bound:.3e}), backward error {back:.3e} (bound {back_bound:.3e})")
+    try:
+        rc = cli_main(["edit-flux", "--model_id", snap, "--edit_concepts", ART,
+                       "--concept_type", "art", "--save_dir", out, "--exp_name",
+                       "refused", "--device", "cuda", "--method", "pallas"])
+    except SystemExit as e:
+        rc = e.code
+    if not rc or os.path.exists(os.path.join(out, "refused.safetensors")):
+        raise AssertionError(f"edit-flux --method pallas exited with {rc!r}")
+    print(f"[edit] edit-flux (5 art concepts, 3 preserve): 2 finite targets in "
+          f"{seconds:.2f} s (CLI wall, load included); --method pallas refused: "
+          f"{rc!r}", flush=True)
+    return path
+
+
+@contextlib.contextmanager
+def attention_calls(seen: collections.Counter, row: dict):
+    """Count the q shape of every sd_attention wrapper call in the enclosed
+    calls, and hold the first call at each shape to the plain version on the
+    call's own inputs (raises outside the attention's bounds)."""
+    launch = sdk.sd_attention
+
+    def spy(q, k, v, scale, qk_int8=False):
+        got = launch(q, k, v, scale, qk_int8=qk_int8)
+        key = tuple(q.shape)
+        if key not in seen:
+            max_err = check_bf16("sd_attention", f"sd_attention {key} on the path's own "
+                                 "inputs", got, sdk.sd_attention_reference(q, k, v, scale))[0]
+            row["max_abs_err"] = max(row["max_abs_err"], max_err)
+        seen[key] += 1
+        return got
+
+    sdk.sd_attention = spy
+    try:
+        yield
+    finally:
+        sdk.sd_attention = launch
+
+
+def phase_flux_dit(pipe, rows: dict) -> None:
+    """One DiT forward at batch 1 and 1024^2 (the first step, t = 1) on
+    impl="auto" against impl="plain": rel L2, exactly 57 d=128 kernel
+    launches (the first call held to the plain version on its own inputs),
+    device ms (CUDA events) and wall ms of each."""
+    cfg, lh = pipe.transformer_config, FLUX.latent
+    with torch.inference_mode():
+        t5_embeds, pooled = pipe.encode_prompts([FLUX_PROMPT])
+        lat = draw_prompt_latents((lh, lh, FLUX_VAE.latent_channels), SEED, 1, 1)
+        lat = pack_latents(lat.to("cuda", pipe.dtype))
+        img_ids, txt_ids = make_img_ids(lh, lh), np.zeros((t5_embeds.shape[1], 3))
+        t = torch.ones(1, device="cuda")
+        outs, device_ms, wall_ms = {}, {}, {}
+        for impl in ("auto", "plain"):
+            fwd = lambda: flux.apply(pipe.transformer_params, lat, t5_embeds, pooled, t,
+                                     img_ids, txt_ids, cfg, attn_impl=impl)
+            reset_launches()
+            seen = collections.Counter()
+            with attention_calls(seen, rows["sd_attention"]):
+                outs[impl] = fwd().float()
+            got = read_launches()
+            want = FLUX_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0}
+            expect_launches(f"FLUX DiT forward ({impl})", got, want)
+            device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                fwd()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - start) * 1e3)
+            wall_ms[impl] = float(np.median(walls))
+    if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
+        raise AssertionError("FLUX DiT forward: non-finite output")
+    rel = rel_l2(outs["auto"], outs["plain"])
+    if rel > REL_L2_MAX:
+        raise AssertionError(f"FLUX DiT forward auto vs plain: rel L2 {rel} > {REL_L2_MAX}")
+    print(f"[dit] FLUX.1-schnell DiT forward, batch 1 at 1024^2 ({lat.shape[1]} image + "
+          f"{t5_embeds.shape[1]} text tokens): rel L2 auto vs plain {rel:.3e} (bound "
+          f"{REL_L2_MAX}); {FLUX_DIT_LAUNCHES['sd_attention_d128']} d=128 kernel launches "
+          f"per forward; auto: device {device_ms['auto']:.2f} ms, wall "
+          f"{wall_ms['auto']:.2f} ms; plain: device {device_ms['plain']:.2f} ms, wall "
+          f"{wall_ms['plain']:.2f} ms (median of 3)", flush=True)
+
+
+@contextlib.contextmanager
+def flux_calls(records: list):
+    """Record (seconds, images) of every FluxPipeline call of the enclosed
+    calls (the CLIs' and the server's: seconds after the load)."""
+    call = FluxPipeline.__call__
+
+    @functools.wraps(call)  # the server adapts to the call's signature
+    def spy(self, *args, **kwargs):
+        start = time.perf_counter()
+        images = call(self, *args, **kwargs)
+        records.append((time.perf_counter() - start, images))
+        return images
+
+    FluxPipeline.__call__ = spy
+    try:
+        yield
+    finally:
+        FluxPipeline.__call__ = call
+
+
+def check_images(what: str, images, size: int = 1024) -> None:
+    """uint8 RGB of the size, not constant, and through a PNG and back."""
+    for img in images:
+        if img.shape != (size, size, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"{what}: image {img.shape} {img.dtype}, std "
+                                 f"{img.std()}")
+        if not np.array_equal(decode_png(encode_png(img)), img):
+            raise AssertionError(f"{what}: PNG round trip changed the image")
+
+
+def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict) -> tuple:
+    """``generate-flux`` through the CLI, 1 prompt, 4 steps, guidance 0, at
+    1024^2 with the edit overlay, on ``path``: the PNG, the launches derived
+    from the steps (57 d=128 attentions each) and one decode, and the
+    seconds of the image after the load."""
+    csv_path = os.path.join(WORK, "prompts_flux.csv")
+    with open(csv_path, "w", newline="") as f:
+        csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
+                                 [0, FLUX_PROMPT, 1]])
+    out = os.path.join(WORK, f"images_flux_{path}")
+    per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
+    want = {**per_decode, "sd_attention_d128": FLUX_STEPS * FLUX_DIT_LAUNCHES[
+        "sd_attention_d128"], "sd_attention_d512": 1}
+    want["sd_attention"] = want["sd_attention_d128"] + 1
+    seen, gn_seen, calls = collections.Counter(), collections.Counter(), []
+    with kernel_env(path == "kernels"):
+        reset_launches()
+        start = time.perf_counter()
+        with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                gn_seen, rows["group_norm_act"]), finite_decodes(), flux_calls(calls):
+            rc = cli_main(["generate-flux", "--model_name", snap, "--prompts_path",
+                           csv_path, "--save_path", out, "--uce_model_path", edit_path,
+                           "--device", "cuda"])
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+    if path == "kernels":
+        want["conv3x3_reduce"] = conv_split_sums(seen)
+    if rc != 0 or len(calls) != 1:
+        raise AssertionError(f"generate-flux ({path}): rc {rc}, {len(calls)} calls")
+    what = f"FLUX.1-schnell generate-flux ({path}), 1 row x ({FLUX_STEPS} steps + 1 decode)"
+    expect_launches(what, launches, want)
+    image = read_case_images(os.path.join(out, "erase_art"), [[0, None, None]])[0]
+    check_images(what, [image])
+    print(f"[generate] {what}: 1 PNG 1024x1024x3 uint8 in {seconds:.2f} s (CLI wall, "
+          f"load included), {calls[0][0]:.3f} s for the image after the load; launches "
+          f"{launches} (want {want})", flush=True)
+    return launches, image
+
+
+def phase_flux_serve(snap: str, edit_path: str) -> dict:
+    """``serve --family flux`` with the edit overlay through the CLI: warm-up
+    of the ladder 1,2, then 4 Poisson requests at 1/s, at 1024^2, 4 steps,
+    guidance 0; the JSON report, the served images' checks and launches."""
+    argv = ["serve", "--model_id", snap, "--family", "flux", "--uce_model_path",
+            edit_path, "--num_inference_steps", str(FLUX_STEPS), "--guidance_scale", "0",
+            "--image_size", "1024", "--batch_sizes", "1,2", "--bench", "1",
+            "--bench_requests", "4", "--device", "cuda"]
+    out, calls = io.StringIO(), []
+    reset_launches()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out), flux_calls(calls):
+        rc = cli_main(argv)
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    reports = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    if rc != 0 or len(reports) != 1:
+        raise AssertionError(f"serve --family flux: rc {rc}, output {out.getvalue()!r}")
+    rep = reports[0]
+    if not (rep["n_requests"] == 4 and rep["throughput_rps"] > 0
+            and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
+        raise AssertionError(f"serve --family flux report: {rep}")
+    batches = 2 + rep["batches"]  # one warm-up batch per rung
+    want = {"sd_attention_d128": batches * FLUX_STEPS * FLUX_DIT_LAUNCHES[
+        "sd_attention_d128"], "sd_attention_d512": batches}
+    expect_launches(f"serve --family flux, {batches} batches", launches, want)
+    served = [img for _, images in calls[2:] for img in images]
+    check_images("serve --family flux", served)
+    print(f"[serve] {json.dumps(rep)}")
+    print(f"[serve] --family flux --batch_sizes 1,2 --bench 1: 4 requests in "
+          f"{rep['batches']} batches (+2 warm-up), throughput {rep['throughput_rps']} "
+          f"req/s, latency p50 {rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; "
+          f"{len(served)} served images (padding included) 1024x1024x3 uint8, PNG round "
+          f"trip exact; seconds per batch {[round(c[0], 3) for c in calls]}; "
+          f"{seconds:.1f} s CLI wall (load, warm-up and load run); launches {want}",
+          flush=True)
+    return launches
+
+
+def run_flux(rows: dict, seconds: dict) -> None:
+    """FLUX.1-schnell at full width and depth: snapshot, edit-flux, a DiT
+    forward on both paths, a VAE decode, generate-flux on both paths and
+    serve --family flux."""
+    snap = os.path.join(WORK, "flux_random")
+    try:
+        with timed("FLUX snapshot", seconds):
+            start = time.perf_counter()
+            nbytes = write_flux_snapshot(snap)
+            print(f"[flux] snapshot: {nbytes} bytes written in "
+                  f"{time.perf_counter() - start:.1f} s", flush=True)
+        with timed("FLUX edit", seconds):
+            edit_path = phase_flux_edit(snap)
+        with timed("FLUX DiT and VAE", seconds):
+            start = time.perf_counter()
+            pipe = FluxPipeline.from_pretrained(snap, device="cuda")
+            print(f"[flux] FluxPipeline.from_pretrained: "
+                  f"{time.perf_counter() - start:.1f} s", flush=True)
+            phase_flux_dit(pipe, rows)
+            phase_vae(pipe, rows, FLUX)
+            del pipe
+            torch.cuda.empty_cache()
+        with timed("FLUX generate", seconds):
+            phase_flux_generate(snap, edit_path, "library", rows)
+            launches, kernel_image = phase_flux_generate(snap, edit_path, "kernels", rows)
+            add_launches(rows, launches)
+            library_image = read_case_images(os.path.join(
+                WORK, "images_flux_library", "erase_art"), [[0, None, None]])[0]
+            diff = np.abs(kernel_image.astype(int) - library_image.astype(int))
+            print(f"[generate] FLUX kernels vs library path: mean |diff| "
+                  f"{diff.mean():.3f} uint8 levels, max {int(diff.max())}", flush=True)
+        with timed("FLUX serve", seconds):
+            add_launches(rows, phase_flux_serve(snap, edit_path))
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -1836,6 +2225,7 @@ def main() -> int:
         run_sd14(rows, seconds)
         run_model(SD21, rows, seconds, lms_steps=LMS_STEPS)
         run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC)
+        run_flux(rows, seconds)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"[time] total {time.perf_counter() - start:.1f} s", flush=True)

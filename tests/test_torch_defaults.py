@@ -106,3 +106,35 @@ def test_debias_runs_on_the_embeddings_device():
     assert applier.w_cat.device.type == "cpu"
     assert applier.solve([[0.5, -0.5]]).device.type == "cpu"
     assert make_collapsed_solver(*args)([[0.5, -0.5]])["a.attn2.to_k.weight"].device.type == "cpu"
+
+
+def test_flux_entry_points_default_to_cuda():
+    """FLUX's library entry points: the pipeline (its device field and
+    from_pretrained), the edit's resources and solve, the T5 loader, and
+    the random-weight draws of the DiT and T5."""
+    from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline
+    from uce_tpu_torch.edit import flux as edit_flux
+    from uce_tpu_torch.models import flux, t5
+
+    field = {f.name: f for f in dataclasses.fields(FluxPipeline)}["device"]
+    assert field.default == torch.device("cuda")
+    field = {f.name: f for f in dataclasses.fields(edit_flux.FluxEditResources)}["device"]
+    assert field.default == torch.device("cuda")
+    for fn in (FluxPipeline.from_pretrained, edit_flux.load_resources,
+               edit_flux.load_t5_encoder, edit_flux.erase_from_embeddings,
+               flux.init_state_dict, t5.init_state_dict):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("command", ["edit-flux", "generate-flux"])
+def test_flux_clis_default_to_cuda_and_do_not_fall_back(command, monkeypatch, tmp_path):
+    from uce_tpu_torch.cli.main import build_parser, main
+
+    argv = {"edit-flux": ["--edit_concepts", "a", "--concept_type", "art",
+                          "--model_id", str(tmp_path)],
+            "generate-flux": ["--model_name", str(tmp_path), "--prompts_path",
+                              str(tmp_path / "p.csv"), "--save_path", str(tmp_path)]}[command]
+    assert build_parser().parse_args([command, *argv]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, *argv])

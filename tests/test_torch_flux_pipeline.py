@@ -1,0 +1,214 @@
+"""The port's FLUX pipeline (uce_tpu_torch/diffusion/pipeline_flux.py, the
+flow-match plan, the VAE's shift_factor) against uce_tpu's: the latent
+packing, the position ids, the dynamic-shift mu, the FlowMatchEuler plans,
+and whole generations from tests/snapshot.py's tiny FLUX snapshot in fp32
+at 16x16, 2 steps, within 1 uint8 level of uce_tpu's images (the bar of
+tests/test_pipeline_parity.py), also with a UCE edit overlay and with
+per-prompt seeds. And the generate-flux CLI's file contract."""
+
+import csv
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from uce_tpu_torch.diffusion import pipeline_flux as tpf, schedulers as tsched
+from uce_tpu_torch.models import vae as tvae
+
+GEN = dict(num_inference_steps=2, height=16, width=16)
+
+
+def _max_diff(a, b) -> int:
+    return int(np.abs(np.asarray(a).astype(np.int32) - np.asarray(b).astype(np.int32)).max())
+
+
+def test_pack_unpack_roundtrip_and_channel_major_order():
+    """The port packs NCHW latents as uce_tpu packs the same latents NHWC:
+    packed[k] = lat[c, py, px] at k = c*4 + py*2 + px (channel-major)."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion import pipeline_flux as jpf
+
+    lat = torch.as_tensor(np.random.default_rng(0).standard_normal((2, 4, 8, 12)),
+                          dtype=torch.float32)
+    packed = tpf.pack_latents(lat)
+    assert packed.shape == (2, 4 * 6, 16)
+    want = np.asarray(jpf.pack_latents(jnp.asarray(lat.permute(0, 2, 3, 1).numpy())))
+    np.testing.assert_array_equal(packed.numpy(), want)
+    assert torch.equal(tpf.unpack_latents(packed, 8, 12), lat)
+    one = torch.zeros(1, 3, 2, 2)
+    for c in range(3):
+        for py in range(2):
+            for px in range(2):
+                one[0, c, py, px] = c * 100 + py * 10 + px
+    got = tpf.pack_latents(one)[0, 0]
+    for k in range(12):
+        c, rem = divmod(k, 4)
+        py, px = divmod(rem, 2)
+        assert got[k] == c * 100 + py * 10 + px
+
+
+def test_img_ids_and_shift_mu_match_uce_tpu():
+    from uce_tpu.diffusion import pipeline_flux as jpf
+
+    for h, w in [(8, 12), (128, 128)]:
+        np.testing.assert_array_equal(tpf.make_img_ids(h, w), jpf.make_img_ids(h, w))
+    for seq in (256, 1024, 4096, 64):
+        assert tpf.compute_shift_mu(seq) == jpf.compute_shift_mu(seq)
+    assert abs(tpf.compute_shift_mu(4096) - 1.15) < 1e-9
+
+
+@pytest.mark.parametrize("steps,shift,dyn,mu", [(4, 1.0, False, None), (2, 3.0, False, None),
+                                                (28, 1.0, True, 1.15), (50, 1.0, True, 0.6)])
+def test_flow_match_euler_plan_matches_uce_tpu(steps, shift, dyn, mu):
+    from uce_tpu.diffusion import schedulers as jsched
+
+    want = jsched.flow_match_euler_plan(steps, shift=shift, use_dynamic_shifting=dyn, mu=mu)
+    got = tsched.flow_match_euler_plan(steps, shift=shift, use_dynamic_shifting=dyn, mu=mu)
+    assert got.kind == want.kind == "flow_euler" and got.num_calls == want.num_calls
+    np.testing.assert_array_equal(got.timesteps, np.asarray(want.timesteps))
+    np.testing.assert_array_equal(got.tables["sigmas"], np.asarray(want.tables["sigmas"]))
+    cfg = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": shift,
+           "use_dynamic_shifting": dyn}
+    via_hf = tsched.plan_from_hf(cfg, steps, mu=mu)
+    np.testing.assert_array_equal(via_hf.tables["sigmas"],
+                                  np.asarray(jsched.plan_from_hf(cfg, steps, mu=mu)
+                                             .tables["sigmas"]))
+    # one step: x + (sigma_{i+1} - sigma_i) * v
+    x, v = torch.ones(3), torch.full((3,), 2.0)
+    out, _ = got.step(v, 0, x, [])
+    sig = got.tables["sigmas"]
+    assert torch.equal(out, x + float(sig[1] - sig[0]) * v)
+
+
+def test_vae_shift_factor_read_as_uce_tpu():
+    from uce_tpu.models import vae as jvae
+
+    hf = dict(tvae.SD_VAE_CONFIG.to_hf(), latent_channels=16, scaling_factor=0.3611,
+              shift_factor=0.1159)
+    got = tvae.VAEConfig.from_hf(hf)
+    assert (got.shift_factor, got.scaling_factor, got.latent_channels) == (0.1159, 0.3611, 16)
+    assert got.shift_factor == jvae.VAEConfig.from_hf(hf).shift_factor
+    assert tvae.VAEConfig.from_hf(dict(hf, shift_factor=None)).shift_factor == 0.0
+    assert tvae.SD_VAE_CONFIG.shift_factor == 0.0
+
+
+@pytest.fixture(scope="module")
+def flux_snap(tmp_path_factory):
+    from tests.snapshot import make_flux_snapshot
+
+    return make_flux_snapshot(tmp_path_factory.mktemp("torch_flux_pipe_snap"))
+
+
+@pytest.fixture(scope="module")
+def pipes(flux_snap):
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_flux import FluxPipeline as JaxFlux
+
+    jpipe = JaxFlux.from_pretrained(flux_snap, dtype=jnp.float32, max_sequence_length=16)
+    tpipe = tpf.FluxPipeline.from_pretrained(flux_snap, dtype=torch.float32,
+                                             max_sequence_length=16, device="cpu")
+    return jpipe, tpipe
+
+
+@pytest.fixture(scope="module")
+def edit_path(tmp_path_factory):
+    from safetensors.numpy import save_file
+
+    rng = np.random.default_rng(0)
+    path = str(tmp_path_factory.mktemp("torch_flux_edit") / "edit.safetensors")
+    save_file({"context_embedder.weight":
+               (rng.standard_normal((32, 16)) * 0.3).astype(np.float32),
+               "unrelated.weight": np.zeros((2, 2), np.float32)}, path)
+    return path
+
+
+@pytest.mark.parametrize("prompts,seed,per_prompt", [
+    ("a cat on mars", 4, 1),
+    (["a cat", "a dog"], [3, 9], 2)], ids=["int_seed", "list_seeds"])
+def test_from_pretrained_images_match_uce_tpu(pipes, prompts, seed, per_prompt):
+    jpipe, tpipe = pipes
+    kw = dict(GEN, seed=seed, num_images_per_prompt=per_prompt)
+    want = np.asarray(jpipe(prompts, **kw))
+    got = tpipe(prompts, **kw)
+    n = per_prompt * (1 if isinstance(prompts, str) else len(prompts))
+    assert got.shape == want.shape == (n, 16, 16, 3) and got.dtype == np.uint8
+    assert _max_diff(got, want) <= 1
+    if per_prompt > 1:  # per-prompt generators advance across samples
+        assert (got[0] != got[1]).any()
+        solo = tpipe("a dog", **dict(GEN, seed=[9], num_images_per_prompt=2))
+        np.testing.assert_array_equal(solo, got[2:])
+
+
+def test_edit_overlay_changes_images_as_in_uce_tpu(flux_snap, edit_path, capsys):
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_flux import FluxPipeline as JaxFlux
+
+    kw = dict(GEN, seed=9)
+    jpipe = JaxFlux.from_pretrained(flux_snap, dtype=jnp.float32, max_sequence_length=16)
+    tpipe = tpf.FluxPipeline.from_pretrained(flux_snap, dtype=torch.float32,
+                                             max_sequence_length=16, device="cpu")
+    base = tpipe("van gogh style", **kw)
+    jpipe.load_uce_edits(edit_path)
+    tpipe.load_uce_edits(edit_path)
+    assert "skipped unknown key unrelated.weight" in capsys.readouterr().out
+    got = tpipe("van gogh style", **kw)
+    assert _max_diff(got, jpipe("van gogh style", **kw)) <= 1
+    assert (got != base).any()
+    assert tpipe.transformer_params["context_embedder.weight"].shape == (32, 16)
+
+
+def test_edit_of_the_wrong_shape_raises(pipes, tmp_path):
+    from uce_tpu_torch.models.hf_loader import save_safetensors
+
+    path = str(tmp_path / "bad.safetensors")
+    save_safetensors({"context_embedder.weight": torch.zeros(16, 32)}, path)
+    with pytest.raises(ValueError, match="model expects"):
+        pipes[1].load_uce_edits(path)
+
+
+def test_generate_from_embeddings_validates_rows(pipes):
+    tpipe = pipes[1]
+    t5, pooled = tpipe.encode_prompts(["a cat", "a dog", "a fox"])
+    assert t5.shape == (3, 16, 16) and pooled.shape == (3, 24)
+    with pytest.raises(ValueError, match="pre-expanded"):
+        tpipe.generate_from_embeddings(t5, pooled, num_images_per_prompt=2, **GEN)
+    with pytest.raises(ValueError, match="pre-expanded"):
+        tpipe.generate_from_embeddings(t5, pooled[:2], **GEN)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tpipe.generate_from_embeddings(t5, pooled, num_inference_steps=1, height=18,
+                                       width=16)
+
+
+def test_generate_flux_cli(flux_snap, edit_path, tmp_path):
+    """``generate-flux`` writes {case}_{num}.png under the edit's stem for
+    the CSV's case window, with the pipeline's images; the options this
+    port has not taken yet exit with their ROADMAP item."""
+    from uce_tpu_torch.cli.main import main
+    from uce_tpu_torch.utils.imaging import decode_png
+
+    csv_path = tmp_path / "prompts.csv"
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["case_number", "prompt", "evaluation_seed"])
+        w.writerows([[0, "a cat", 5], [1, "a dog", 6], [2, "a fox", 7]])
+    base = ["generate-flux", "--model_name", flux_snap, "--prompts_path", str(csv_path),
+            "--save_path", str(tmp_path / "out"), "--uce_model_path", edit_path,
+            "--image_size", "16", "--num_inference_steps", "2", "--device", "cpu"]
+    assert main(base + ["--till_case", "1", "--num_samples", "2"]) == 0
+    folder = tmp_path / "out" / "edit"
+    assert sorted(os.listdir(folder)) == ["0_0.png", "0_1.png", "1_0.png", "1_1.png"]
+    pipe = tpf.FluxPipeline.from_pretrained(flux_snap, dtype=torch.bfloat16, device="cpu")
+    pipe.load_uce_edits(edit_path)
+    want = pipe("a dog", num_inference_steps=2, seed=6, num_images_per_prompt=2,
+                height=16, width=16)
+    for num in range(2):
+        img = decode_png((folder / f"1_{num}.png").read_bytes())
+        np.testing.assert_array_equal(img, want[num])
+    for flag, item in [(["--quantize", "w8"], "item 17"), (["--staged"], "item 17"),
+                       (["--mesh", "data=2"], "item 4")]:
+        with pytest.raises(SystemExit, match=item):
+            main(base + flag)

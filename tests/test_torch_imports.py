@@ -27,11 +27,16 @@ sys.meta_path.insert(0, Block())
 import uce_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(uce_tpu_torch.__path__, "uce_tpu_torch.")
          if m.name != "uce_tpu_torch.__main__"]
+FLUX = {{"uce_tpu_torch.models.t5", "uce_tpu_torch.models.flux",
+         "uce_tpu_torch.diffusion.pipeline_flux", "uce_tpu_torch.edit.flux",
+         "uce_tpu_torch.cli.edit_cmds", "uce_tpu_torch.cli.flux_gen_cmd"}}
+assert FLUX <= set(names), FLUX - set(names)
 for name in names:
     importlib.import_module(name)
 from uce_tpu_torch.cli.main import main
 for argv in (["--help"], ["edit-sd", "--help"], ["edit-sdxl", "--help"],
-             ["generate", "--help"], ["serve", "--help"], ["debias-sd", "--help"],
+             ["edit-flux", "--help"], ["generate", "--help"], ["generate-flux", "--help"],
+             ["serve", "--help"], ["debias-sd", "--help"],
              ["eval-clip-classify", "--help"]):
     try:
         main(argv)
@@ -47,10 +52,11 @@ def test_port_imports_without_reference_packages():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("imported")[-1]) >= 45
+    assert int(proc.stdout.split("imported")[-1]) >= 51
 
 
 def test_module_entry_point_help():
     proc = subprocess.run([sys.executable, "-m", "uce_tpu_torch", "--help"],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "edit-sd" in proc.stdout
+    assert "edit-flux" in proc.stdout and "generate-flux" in proc.stdout

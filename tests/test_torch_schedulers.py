@@ -55,8 +55,15 @@ NEW_SCHEDULERS = ["DDIMScheduler", "LMSDiscreteScheduler", "EulerDiscreteSchedul
 
 @pytest.mark.parametrize("cls", ["FlowMatchEulerDiscreteScheduler"])
 def test_unported_schedulers_raise(cls):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tsched.plan_from_hf({"_class_name": cls}, 10)
+    """FlowMatchEuler (FLUX) is ported: its plan is uce_tpu's; a scheduler
+    class that neither package has raises in both, with uce_tpu's error."""
+    want = jsched.plan_from_hf({"_class_name": cls}, 10)
+    got = tsched.plan_from_hf({"_class_name": cls}, 10)
+    assert got.kind == want.kind == "flow_euler"
+    np.testing.assert_array_equal(got.tables["sigmas"], np.asarray(want.tables["sigmas"]))
+    for plan_from_hf in (tsched.plan_from_hf, jsched.plan_from_hf):
+        with pytest.raises(ValueError, match="unsupported scheduler class"):
+            plan_from_hf({"_class_name": "DPMSolverMultistepScheduler"}, 10)
 
 
 @pytest.mark.parametrize("name,planner", [("ddim", tsched.ddim_plan),

@@ -58,7 +58,7 @@ def test_full_width_text_configs_match_uce_tpu(name):
 
 def test_vae_scaling_factor_from_config():
     """SDXL's VAE keeps SD's shapes and reads its scaling factor (0.13025)
-    from its config, as uce_tpu does; FLUX's shift_factor still raises."""
+    from its config, as uce_tpu does, and so does FLUX's shift_factor."""
     from uce_tpu.models import vae as jvae
     from uce_tpu_torch.models import vae as tvae
 
@@ -67,8 +67,9 @@ def test_vae_scaling_factor_from_config():
     assert tvae.VAEConfig.from_hf(hf) == dataclasses.replace(
         tvae.SD_VAE_CONFIG, scaling_factor=0.13025)
     assert jvae.VAEConfig.from_hf(hf).scaling_factor == 0.13025
-    with pytest.raises(NotImplementedError, match="shift_factor"):
-        tvae.VAEConfig.from_hf(dict(hf, shift_factor=0.1159))
+    shifted = dict(hf, shift_factor=0.1159)
+    assert tvae.VAEConfig.from_hf(shifted).shift_factor == \
+        jvae.VAEConfig.from_hf(shifted).shift_factor == 0.1159
 
 
 def test_text_time_unet_matches_uce_tpu(snap):

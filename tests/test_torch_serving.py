@@ -313,7 +313,7 @@ def test_serve_cli_bench_mode_with_ladder(snap, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--family", "flux"], "items 14/15"),
+    (["--family", "hidream"], "items 14/15"),
     (["--mesh", "data=2"], "not ported"),
 ])
 def test_serve_cli_rejects_what_is_not_ported(snap, argv, match):
@@ -424,3 +424,63 @@ def test_int8_server_matches_uce_tpu(snap, tmp_path):
             images.append(srv.generate("a cat", seed=7, negative_prompt="a dog"))
     diff = np.abs(images[0].astype(np.int16) - images[1].astype(np.int16))
     assert diff.max() <= 1, f"max uint8 diff {diff.max()}"
+
+
+# ---------------------------------------------------------------------------
+# FLUX (``serve --family flux``) on tests/snapshot.py's tiny FLUX snapshot
+# ---------------------------------------------------------------------------
+
+FLUX_CFG = dict(num_inference_steps=2, guidance_scale=0.0, height=16, width=16)
+
+
+@pytest.fixture(scope="module")
+def flux_snap(tmp_path_factory):
+    from tests.snapshot import make_flux_snapshot
+
+    return make_flux_snapshot(tmp_path_factory.mktemp("torch_serving_flux_snap"))
+
+
+def test_flux_server_matches_uce_tpu(flux_snap):
+    """A FluxPipeline served through the batch ladder (it takes no scheduler,
+    negative prompt or fast config: the server adapts by signature): each
+    served image within 1 uint8 level of uce_tpu's pipeline on the same
+    snapshot (fp32); a negative prompt is refused at submit, a scheduler
+    override or a fast spec at start."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_flux import FluxPipeline as JaxFlux
+    from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline
+
+    pipe = FluxPipeline.from_pretrained(flux_snap, dtype=torch.float32, device="cpu")
+    cfg = ServerConfig(batch_sizes=(1, 2), max_wait_ms=500, **FLUX_CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        futures = [srv.submit(p, seed=s) for p, s in [("a cat", 3), ("a dog", 4)]]
+        served = [f.result(timeout=600) for f in futures]
+        with pytest.raises(ValueError, match="no negative prompts"):
+            srv.submit("a cat", seed=1, negative_prompt="blurry")
+    jpipe = JaxFlux.from_pretrained(flux_snap, dtype=jnp.float32)
+    want = np.asarray(jpipe(["a cat", "a dog"], seed=[3, 4], **FLUX_CFG))
+    for img, ref in zip(served, want):
+        assert img.shape == (16, 16, 3) and img.dtype == np.uint8
+        assert np.abs(img.astype(int) - ref.astype(int)).max() <= 1
+    for bad in (dict(scheduler="ddim"), dict(fast="cache=2")):
+        with pytest.raises(ValueError, match="takes no"):
+            GenerationServer(pipe, ServerConfig(warmup=False, **bad, **FLUX_CFG)).start()
+
+
+def test_serve_cli_flux_bench(flux_snap, capsys):
+    """``serve --family flux`` through the CLI: one JSON load report; its
+    --quantize waits for ROADMAP item 17."""
+    from uce_tpu_torch.cli.main import main as cli_main
+
+    base = ["serve", "--model_id", flux_snap, "--family", "flux", "--device", "cpu"]
+    rc = cli_main(base + ["--bench", "5", "--bench_requests", "2", "--batch_sizes", "1,2",
+                          "--image_size", "16", "--num_inference_steps", "2",
+                          "--guidance_scale", "0", "--max_wait_ms", "30"])
+    assert rc == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1 and lines[0]["n_requests"] == 2
+    assert lines[0]["throughput_rps"] > 0
+    with pytest.raises(NotImplementedError, match="item 17"):
+        cli_main(base + ["--quantize", "int8"])

@@ -1,10 +1,11 @@
 """``python -m uce_tpu_torch serve``: generation server over a Unix socket
-(uce_tpu/cli/serve_cmd.py for the SD family).
+(uce_tpu/cli/serve_cmd.py for the SD and FLUX families).
 
-Loads an SDPipeline once, quantizes it (``--quantize int8|w8``), overlays a
-UCE edit, warms every batch size of the ladder, and serves JSON-line
-requests with dynamic batching (``uce_tpu_torch/serving/``). The reference
-has no serving path: its eval scripts reload the pipeline per process
+Loads an SDPipeline (``--family sd``) or a FluxPipeline (``--family flux``)
+once, quantizes an SD one (``--quantize int8|w8``), overlays a UCE edit,
+warms every batch size of the ladder, and serves JSON-line requests with
+dynamic batching (``uce_tpu_torch/serving/``). The reference has no
+serving path: its eval scripts reload the pipeline per process
 (evalscripts/generate-images-sd.py:13-15).
 
 Client example::
@@ -29,7 +30,7 @@ def register_cli(sub, add_device_flag) -> None:
                    help="local HF snapshot directory")
     p.add_argument("--family", type=str, default="sd",
                    choices=["sd", "flux", "hidream"],
-                   help="pipeline family (only sd is ported)")
+                   help="pipeline family (sd and flux are ported)")
     p.add_argument("--llama_dir", type=str, default=None,
                    help="Llama snapshot for --family hidream")
     p.add_argument("--socket", type=str,
@@ -40,7 +41,8 @@ def register_cli(sub, add_device_flag) -> None:
                    choices=["w8", "int8"],
                    help="quantize the UNet and VAE weights: int8 = W8A8 "
                         "(int8 products and the int8-QK^T attention kernel), "
-                        "w8 = weight-only int8 (half the weight memory)")
+                        "w8 = weight-only int8 (half the weight memory); "
+                        "SD only")
     p.add_argument("--batch_size", type=int, default=4,
                    help="serving batch (requests pad into it)")
     p.add_argument("--batch_sizes", type=str, default=None,
@@ -82,20 +84,29 @@ def register_cli(sub, add_device_flag) -> None:
 
 def _cmd(args) -> int:
     from uce_tpu_torch.cli.main import resolve_device
-    from uce_tpu_torch.diffusion.pipeline import SDPipeline
     from uce_tpu_torch.serving.server import GenerationServer, ServerConfig
     from uce_tpu_torch.serving.socket_api import SocketFrontend
 
-    if args.family != "sd":
+    if args.family == "hidream":
         raise NotImplementedError(f"serve --family {args.family} is not ported "
                                   "yet (ROADMAP queue 1 items 14/15)")
     if args.mesh:
         raise NotImplementedError("serve --mesh is not ported yet (ROADMAP "
                                   "queue 1 item 5; one GPU for now)")
+    if args.family == "flux" and args.quantize:
+        raise NotImplementedError("serve --family flux --quantize is not ported "
+                                  "yet (ROADMAP queue 1 item 17)")
     device = resolve_device(args.device)
-    pipe = SDPipeline.from_pretrained(args.model_id, device=device)
-    if args.quantize:
-        pipe.quantize_weights(args.quantize)
+    if args.family == "flux":
+        from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline
+
+        pipe = FluxPipeline.from_pretrained(args.model_id, device=device)
+    else:
+        from uce_tpu_torch.diffusion.pipeline import SDPipeline
+
+        pipe = SDPipeline.from_pretrained(args.model_id, device=device)
+        if args.quantize:
+            pipe.quantize_weights(args.quantize)
     if args.uce_model_path:
         pipe.load_uce_edits(args.uce_model_path)
     batch_sizes = tuple(

@@ -1,0 +1,216 @@
+"""FLUX.1 text-to-image pipeline (flow matching), as
+``uce_tpu/diffusion/pipeline_flux.py`` runs it: T5 + CLIP prompt encoding,
+``num_inference_steps`` FlowMatchEuler steps of the joint transformer over
+2x2-packed latent patches with (0, y, x) RoPE ids, then the 16-channel VAE
+decode with ``shift_factor`` (schnell: 4 steps, guidance 0, 256 T5 tokens;
+dev: an embedded guidance scale and dynamic sigma shifting).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from uce_tpu_torch.diffusion import schedulers
+from uce_tpu_torch.edit import embeddings as emb
+from uce_tpu_torch.edit.flux import (default_max_sequence_length, load_t5_encoder,
+                                     load_t5_tokenizer)
+from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
+from uce_tpu_torch.models import clip_text, flux as flux_mod, t5 as t5_mod
+from uce_tpu_torch.models import unet as unet_mod, vae as vae_mod
+from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
+from uce_tpu_torch.utils import torch_rng
+
+# The edit slots of the DiT (uce_flux_edit.py's two text-entry projections).
+EDIT_SLOTS = ("context_embedder.weight", "time_text_embed.text_embedder.linear_1.weight")
+
+
+def pack_latents(latents: torch.Tensor) -> torch.Tensor:
+    """[B, C, h, w] -> [B, (h/2)(w/2), 4C] 2x2 patch packing, CHANNEL-major
+    inner order (c, py, px): diffusers' FluxPipeline._pack_latents (NCHW
+    view, permute (0, 2, 4, 1, 3, 5)), which real x_embedder / proj_out
+    weights are trained against. HiDream's patchify is pixel-major: do not
+    share this code with it."""
+    b, c, h, w = latents.shape
+    x = latents.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(b, (h // 2) * (w // 2), 4 * c)
+
+
+def unpack_latents(packed: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Inverse of pack_latents -> [B, C, h, w]; h, w are the unpacked
+    latent dims."""
+    b, _, c4 = packed.shape
+    c = c4 // 4
+    x = packed.reshape(b, h // 2, w // 2, c, 2, 2).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(b, c, h, w)
+
+
+def make_img_ids(h: int, w: int) -> np.ndarray:
+    """[S, 3] (0, y, x) grid over the packed patches, row-major."""
+    ids = np.zeros(((h // 2) * (w // 2), 3), np.float64)
+    ids[:, 1] = np.repeat(np.arange(h // 2), w // 2)
+    ids[:, 2] = np.tile(np.arange(w // 2), h // 2)
+    return ids
+
+
+def compute_shift_mu(seq_len: int, base_seq=256, max_seq=4096,
+                     base_shift=0.5, max_shift=1.15) -> float:
+    """FLUX-dev dynamic shifting: mu linear in the image sequence length."""
+    m = (max_shift - base_shift) / (max_seq - base_seq)
+    return seq_len * m + (base_shift - m * base_seq)
+
+
+@dataclasses.dataclass
+class FluxPipeline:
+    transformer_params: dict
+    transformer_config: flux_mod.FluxConfig
+    t5_params: dict
+    t5_config: t5_mod.T5Config
+    t5_tokenizer: object
+    clip_params: dict
+    clip_config: clip_text.CLIPTextConfig
+    clip_tokenizer: object
+    vae_params: dict
+    vae_config: vae_mod.VAEConfig
+    scheduler_config: dict
+    dtype: torch.dtype = torch.bfloat16
+    max_sequence_length: int = 256
+    device: torch.device = torch.device("cuda")
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,
+                        max_sequence_length: int | None = None,
+                        device="cuda") -> "FluxPipeline":
+        """Load a FLUX snapshot directory. The DiT is read tensor by tensor
+        straight into ``dtype`` on ``device`` (never a whole fp32 copy on the
+        host); the T5 and CLIP encoders run in fp32, as in uce_tpu."""
+        device = torch.device(device)
+        tcfg = flux_mod.FluxConfig.from_hf(
+            load_json(os.path.join(model_dir, "transformer", "config.json")))
+        tparams = load_state_dict(model_dir, "transformer", dtype=dtype, device=device)
+        t5_params, t5_cfg = load_t5_encoder(model_dir, device=device)
+        cparams, ccfg = load_text_encoder(model_dir, device=device)
+        vcfg = vae_mod.VAEConfig.from_hf(
+            load_json(os.path.join(model_dir, "vae", "config.json")))
+        vparams = unet_mod.load_params(load_state_dict(model_dir, "vae"), dtype, device)
+        sp = os.path.join(model_dir, "scheduler", "scheduler_config.json")
+        scfg = (load_json(sp) if os.path.exists(sp)
+                else {"_class_name": "FlowMatchEulerDiscreteScheduler"})
+        if max_sequence_length is None:
+            max_sequence_length = default_max_sequence_length(model_dir)
+        return cls(transformer_params=tparams, transformer_config=tcfg,
+                   t5_params=t5_params, t5_config=t5_cfg,
+                   t5_tokenizer=load_t5_tokenizer(model_dir),
+                   clip_params=cparams, clip_config=ccfg,
+                   clip_tokenizer=load_tokenizer(model_dir),
+                   vae_params=vparams, vae_config=vcfg, scheduler_config=scfg,
+                   dtype=dtype, max_sequence_length=max_sequence_length,
+                   device=device)
+
+    def load_uce_edits(self, safetensors_path: str) -> None:
+        """Overlay UCE-edited text-entry projections (uce_flux_edit.py's
+        artifacts: context_embedder / text_embedder.linear_1); other keys are
+        skipped, a shape mismatch raises."""
+        for key, v in read_safetensors(safetensors_path).items():
+            if key not in EDIT_SLOTS:
+                print(f"load_uce_edits: skipped unknown key {key}")
+                continue
+            old = self.transformer_params[key]
+            if tuple(v.shape) != tuple(old.shape):
+                raise ValueError(f"edit for '{key}' has shape {tuple(v.shape)}, model "
+                                 f"expects {tuple(old.shape)}")
+            self.transformer_params[key] = v.float().to(device=old.device, dtype=self.dtype)
+
+    @torch.inference_mode()
+    def encode_prompts(self, prompts: Sequence[str]):
+        """(T5 last hidden state [B, max_sequence_length, d], CLIP pooled
+        [B, d']) in the pipeline's dtype. The T5 runs with no attention mask
+        (pad tokens attend), as diffusers' FluxPipeline._get_t5_prompt_embeds."""
+        ids, _ = emb.tokenize_batch(self.t5_tokenizer, list(prompts),
+                                    self.max_sequence_length)
+        t5_out = t5_mod.encode_tokens(self.t5_params,
+                                      torch.as_tensor(ids, device=self.device), None,
+                                      self.t5_config)
+        cids, _ = emb.tokenize_batch(self.clip_tokenizer, list(prompts),
+                                     self.clip_config.max_position_embeddings)
+        _, pooled, _ = clip_text.encode_tokens(
+            self.clip_params, torch.as_tensor(cids, device=self.device), self.clip_config)
+        return t5_out.to(self.dtype), pooled.to(self.dtype)
+
+    def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 4,
+                 guidance_scale: float = 0.0, num_images_per_prompt: int = 1,
+                 seed: int | Sequence[int] = 0, height: int = 1024,
+                 width: int = 1024) -> np.ndarray:
+        """uint8 images [N, H, W, 3]."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        n_prompts = len(prompts)
+        prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
+        t5_embeds, pooled = self.encode_prompts(prompts)
+        return self.generate_from_embeddings(
+            t5_embeds, pooled, n_prompts=n_prompts,
+            num_images_per_prompt=num_images_per_prompt,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            seed=seed, height=height, width=width)
+
+    @torch.inference_mode()
+    def generate_from_embeddings(self, t5_embeds, pooled, n_prompts: int | None = None,
+                                 num_images_per_prompt: int = 1,
+                                 num_inference_steps: int = 4,
+                                 guidance_scale: float = 0.0,
+                                 seed: int | Sequence[int] = 0, height: int = 1024,
+                                 width: int = 1024) -> np.ndarray:
+        """Generate from precomputed (t5_embeds [B, S, d], pooled [B, d']),
+        whose rows are already expanded per sample."""
+        bsz = t5_embeds.shape[0]
+        if n_prompts is None:
+            n_prompts = bsz // num_images_per_prompt
+        if n_prompts * num_images_per_prompt != bsz or pooled.shape[0] != bsz:
+            raise ValueError(
+                f"t5_embeds rows ({bsz}) / pooled rows ({pooled.shape[0]}) must equal "
+                f"n_prompts ({n_prompts}) x num_images_per_prompt "
+                f"({num_images_per_prompt}); embeds must be pre-expanded per sample")
+        vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
+        gran = 2 * vae_scale  # VAE downsampling x the 2x2 patch pack
+        if height % gran or width % gran:
+            raise ValueError(f"height/width must be multiples of {gran} (got "
+                             f"{height}x{width}): VAE scale {vae_scale} x the 2x2 "
+                             "latent patchify")
+        lh, lw = height // vae_scale, width // vae_scale
+        latents = torch_rng.draw_prompt_latents(
+            (lh, lw, self.vae_config.latent_channels), seed, n_prompts,
+            num_images_per_prompt).to(self.device, self.dtype)
+        lat = pack_latents(latents)
+        scfg = self.scheduler_config
+        use_dyn = scfg.get("use_dynamic_shifting", False)
+        mu = compute_shift_mu(lat.shape[1], scfg.get("base_image_seq_len", 256),
+                              scfg.get("max_image_seq_len", 4096),
+                              scfg.get("base_shift", 0.5),
+                              scfg.get("max_shift", 1.15)) if use_dyn else None
+        plan = schedulers.flow_match_euler_plan(
+            num_inference_steps, shift=scfg.get("shift", 1.0),
+            use_dynamic_shifting=use_dyn, mu=mu)
+
+        img_ids = make_img_ids(lh, lw)
+        txt_ids = np.zeros((t5_embeds.shape[1], 3))
+        cfg = self.transformer_config
+        guidance = (torch.full((bsz,), float(guidance_scale), device=self.device)
+                    if cfg.guidance_embeds else None)
+        t5_embeds = t5_embeds.to(self.device, self.dtype)
+        pooled = pooled.to(self.device, self.dtype)
+        for i in range(plan.num_calls):
+            # the transformer re-scales by 1000
+            t = np.float32(plan.timesteps[i]) / np.float32(1000.0)
+            v = flux_mod.apply(self.transformer_params, lat, t5_embeds, pooled,
+                               torch.full((bsz,), float(t), device=self.device),
+                               img_ids, txt_ids, cfg, guidance=guidance)
+            lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+        lat = unpack_latents(lat, lh, lw).float()
+        lat = lat / self.vae_config.scaling_factor + self.vae_config.shift_factor
+        imgs = vae_mod.decode(self.vae_params, lat.to(self.dtype), self.vae_config)
+        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
+        imgs = torch.round(imgs * 255.0).to(torch.uint8)
+        return imgs.permute(0, 2, 3, 1).cpu().numpy()

@@ -4,20 +4,22 @@ A plan holds static numpy tables (per-call timesteps, alphas, sigmas,
 multistep coefficients) built once; the sampler walks it with a Python loop
 and carries the multistep state itself. Ported: DDIM, PNDM (PLMS,
 ``skip_prk_steps``; SD v1.x's scheduler), LMSDiscrete and EulerDiscrete
-(SDXL's), each with epsilon or v-prediction; FlowMatchEuler (FLUX) raises
-NotImplementedError. Defaults are diffusers' (scaled_linear betas
-0.00085..0.012, leading timestep spacing, steps_offset=1).
+(SDXL's), each with epsilon or v-prediction, and FlowMatchEuler (FLUX's,
+velocity prediction, with static or dynamic shifting). Defaults are
+diffusers' (scaled_linear betas 0.00085..0.012, leading timestep spacing,
+steps_offset=1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Mapping
 
 import numpy as np
 import torch
 
-_NOT_PORTED = ("FlowMatchEulerDiscreteScheduler",)
+logger = logging.getLogger(__name__)
 
 SCHEDULER_CLASS_FOR_NAME = {
     "ddim": "DDIMScheduler",
@@ -50,7 +52,8 @@ def _leading_timesteps(num_train, num_steps, steps_offset=1) -> np.ndarray:
 class Plan:
     """Static tables for one (scheduler, num_steps) pair.
 
-    kind: "ddim", "pndm", "lms" or "euler" (selects the step function).
+    kind: "ddim", "pndm", "lms", "euler" or "flow_euler" (selects the step
+    function).
     num_calls: number of model evaluations (== len(timesteps)).
     timesteps: [num_calls] float32 values fed to the UNet.
     init_noise_sigma: multiply the initial gaussian latents by this.
@@ -293,14 +296,32 @@ def _euler_step(plan: Plan, eps, i: int, sample, carry):
     return sample + float(sigmas[i + 1] - sigmas[i]) * d, carry
 
 
+def flow_match_euler_plan(num_steps: int, num_train_timesteps=1000,
+                          shift: float = 1.0, use_dynamic_shifting=False,
+                          mu: float | None = None) -> Plan:
+    """FlowMatchEulerDiscrete (FLUX): sigmas linear from 1 to 1/num_steps,
+    shifted statically by ``shift`` or, with ``use_dynamic_shifting`` and a
+    ``mu`` (``pipeline_flux.compute_shift_mu``), by exp(mu); timesteps are
+    sigma * num_train_timesteps."""
+    sigmas = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float64)
+    if use_dynamic_shifting and mu is not None:
+        sigmas = np.exp(mu) / (np.exp(mu) + (1 / sigmas - 1))
+    else:
+        sigmas = shift * sigmas / (1 + (shift - 1) * sigmas)
+    timesteps = sigmas * num_train_timesteps
+    sigmas = np.concatenate([sigmas, [0.0]])
+    return Plan(kind="flow_euler", num_calls=num_steps,
+                timesteps=timesteps.astype(np.float32), init_noise_sigma=1.0,
+                tables={"sigmas": sigmas.astype(np.float32)})
+
+
+def _flow_euler_step(plan: Plan, v, i: int, sample, carry):
+    sigmas = plan.tables["sigmas"]
+    return sample + float(sigmas[i + 1] - sigmas[i]) * v, carry
+
+
 _STEP_FNS = {"ddim": _ddim_step, "pndm": _pndm_step, "lms": _lms_step,
-             "euler": _euler_step}
-
-
-def _not_ported(cls: str):
-    return NotImplementedError(
-        f"{cls} is not ported to uce_tpu_torch yet; use the uce_tpu package "
-        "for it")
+             "euler": _euler_step, "flow_euler": _flow_euler_step}
 
 
 def _reject_unsupported_hf_options(cfg: Mapping, cls: str) -> None:
@@ -336,11 +357,14 @@ def _reject_unsupported_hf_options(cfg: Mapping, cls: str) -> None:
                          f"{cfg['interpolation_type']!r} is not implemented")
 
 
-def plan_from_hf(cfg: Mapping, num_steps: int) -> Plan:
-    """Build a plan from a diffusers scheduler_config.json dict."""
+def plan_from_hf(cfg: Mapping, num_steps: int, mu: float | None = None) -> Plan:
+    """Build a plan from a diffusers scheduler_config.json dict.
+
+    ``mu``: the resolution-dependent shift exponent of FlowMatchEuler configs
+    with ``use_dynamic_shifting`` (``pipeline_flux.compute_shift_mu`` of the
+    packed sequence length); other classes ignore it. A dynamic-shifting
+    config without a ``mu`` takes the static shift, with a warning."""
     cls = cfg.get("_class_name", "PNDMScheduler")
-    if cls in _NOT_PORTED:
-        raise _not_ported(cls)
     _reject_unsupported_hf_options(cfg, cls)
     common = dict(
         num_train_timesteps=cfg.get("num_train_timesteps", 1000),
@@ -364,6 +388,16 @@ def plan_from_hf(cfg: Mapping, num_steps: int) -> Plan:
         return euler_plan(num_steps,
                           timestep_spacing=cfg.get("timestep_spacing", "leading"),
                           steps_offset=cfg.get("steps_offset", 1), **common)
+    if cls == "FlowMatchEulerDiscreteScheduler":
+        use_dyn = cfg.get("use_dynamic_shifting", False)
+        if use_dyn and mu is None:
+            logger.warning(
+                "scheduler config requests use_dynamic_shifting but no mu was "
+                "provided; using the static shift=%s schedule (pass "
+                "mu=compute_shift_mu(seq_len, ...))", cfg.get("shift", 1.0))
+        return flow_match_euler_plan(
+            num_steps, num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+            shift=cfg.get("shift", 1.0), use_dynamic_shifting=use_dyn, mu=mu)
     raise ValueError(f"unsupported scheduler class: {cls}")
 
 

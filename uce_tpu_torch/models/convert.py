@@ -1,7 +1,8 @@
 """Weight carry-over from uce_tpu's parameter trees to the port's layouts.
 
 uce_tpu keeps nested dicts of arrays with conv kernels HWIO and linear
-weights [in, out] (CLIP text layer-stacked as [L, ...]); the port keeps
+weights [in, out] (CLIP text, T5 and the FLUX blocks layer-stacked as
+[L, ...]); the port keeps
 diffusers/HF layouts (conv OIHW, linear [out, in]). Inputs are anything
 ``numpy.asarray`` accepts (numpy or jax arrays). A quantized leaf of
 uce_tpu (``{"qint8"|"w8int": int8, "scale": [1, ..., out]}``) becomes the
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.models.clip_text import _LAYER_KEYS, CLIPTextConfig
+from uce_tpu_torch.models.flux import FluxConfig
+from uce_tpu_torch.models.t5 import T5Config
 from uce_tpu_torch.ops.quant import QKEY, WKEY
 
 
@@ -81,3 +84,37 @@ def clip_text_params(params: Mapping, config: CLIPTextConfig) -> dict:
     if "text_projection" in params:
         out["text_projection"] = t(np.asarray(params["text_projection"], np.float32).T)
     return out
+
+
+def flux_params(params: Mapping, config: FluxConfig) -> dict:
+    """uce_tpu's FLUX DiT params (both block families layer-stacked) -> the
+    port's flat diffusers state dict."""
+    stacked = {"transformer_blocks": config.num_layers,
+               "single_transformer_blocks": config.num_single_layers}
+    out = {}
+    for key, v in _flatten(params).items():
+        family, _, rest = key.partition(".")
+        v = np.asarray(v, np.float32)
+        if family in stacked:
+            assert v.shape[0] == stacked[family], key
+            for i in range(stacked[family]):
+                name = f"{family}.{i}.{rest}"
+                out[name] = torch.tensor(_to_port_layout(name, v[i]))
+        else:
+            out[key] = torch.tensor(_to_port_layout(key, v))
+    return out
+
+
+def t5_params(params: Mapping, config: T5Config) -> dict:
+    """uce_tpu's layer-stacked T5 params ([in, out], rel_bias [heads,
+    buckets]) -> the port's (HF layouts)."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    layers = params["layers"]
+    return {
+        "token_embedding": t(params["token_embedding"]),
+        "rel_bias": t(np.asarray(params["rel_bias"]).T),
+        "layers": [{name: t(np.asarray(v[i]).T if np.asarray(v).ndim == 3 else v[i])
+                    for name, v in layers.items()}
+                   for i in range(config.num_layers)],
+        "final_ln": t(params["final_ln"]),
+    }

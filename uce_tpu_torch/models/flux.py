@@ -1,0 +1,273 @@
+"""FLUX.1 joint transformer (FluxTransformer2DModel), the denoiser of the FLUX
+path, as ``uce_tpu/models/flux.py`` computes it.
+
+Packed 2x2 latent patches embedded to the inner width, T5 context and
+pooled-CLIP / timestep (/ guidance) AdaLN conditioning, 3-axis interleaved
+RoPE over (id, y, x), ``num_layers`` double-stream blocks (separate text and
+image projections, joint attention with the text first, per-stream
+AdaLayerNormZero), then ``num_single_layers`` single-stream blocks (fused
+attention + MLP), and the AdaLayerNormContinuous head.
+
+Params are the flat diffusers state dict (linear weights [out, in]); the
+blocks run as a Python loop over their per-layer keys. The joint attention
+goes through ``ops/attention.dot_product_attention``: under ``"auto"`` it is
+long, mask-free self-attention, which the sd_attention kernel takes at
+head dim 128 on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from uce_tpu_torch.models.layers import linear, timestep_embedding
+from uce_tpu_torch.ops.attention import dot_product_attention
+
+# diffusers' names of the attention projections of each block family
+_DOUBLE_LINEARS = ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj",
+                   "to_add_out", "to_out.0")
+_DOUBLE_NORMS = ("norm_q", "norm_k", "norm_added_q", "norm_added_k")
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    in_channels: int = 64
+    num_layers: int = 19
+    num_single_layers: int = 38
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 768
+    guidance_embeds: bool = False  # True for dev, False for schnell
+    axes_dims_rope: tuple = (16, 56, 56)
+
+    @classmethod
+    def from_hf(cls, cfg: Mapping) -> "FluxConfig":
+        return cls(
+            in_channels=cfg.get("in_channels", 64),
+            num_layers=cfg.get("num_layers", 19),
+            num_single_layers=cfg.get("num_single_layers", 38),
+            attention_head_dim=cfg.get("attention_head_dim", 128),
+            num_attention_heads=cfg.get("num_attention_heads", 24),
+            joint_attention_dim=cfg.get("joint_attention_dim", 4096),
+            pooled_projection_dim=cfg.get("pooled_projection_dim", 768),
+            guidance_embeds=cfg.get("guidance_embeds", False),
+            axes_dims_rope=tuple(cfg.get("axes_dims_rope", (16, 56, 56))),
+        )
+
+    def to_hf(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["axes_dims_rope"] = list(d["axes_dims_rope"])
+        return {"_class_name": "FluxTransformer2DModel", **d}
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+# black-forest-labs/FLUX.1-schnell transformer/config.json
+SCHNELL_CONFIG = FluxConfig()
+
+
+def _ln(x, eps: float = 1e-6):
+    """LayerNorm without affine (elementwise_affine=False), in fp32."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=eps).to(x.dtype)
+
+
+def _rms(x, scale, eps: float = 1e-6):
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def rope_freqs(ids: np.ndarray, axes_dims, theta: float = 10000.0, device="cpu"):
+    """ids [S, n_axes] -> (cos, sin) [S, sum(axes_dims)] fp32 on ``device``,
+    interleaved-pair convention (diffusers FluxPosEmbed); the angles are
+    computed in float64 on the host."""
+    cos_parts, sin_parts = [], []
+    for axis, dim in enumerate(axes_dims):
+        freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+        angles = np.asarray(ids)[:, axis:axis + 1].astype(np.float64) * freqs
+        cos_parts.append(np.repeat(np.cos(angles), 2, axis=-1))
+        sin_parts.append(np.repeat(np.sin(angles), 2, axis=-1))
+    as_t = lambda parts: torch.as_tensor(np.concatenate(parts, -1), dtype=torch.float32,
+                                         device=device)
+    return as_t(cos_parts), as_t(sin_parts)
+
+
+def apply_rope(x, cos, sin):
+    """x [B, H, S, D]; interleaved pairs (x0, x1) -> (x0 cos - x1 sin,
+    x1 cos + x0 sin), in fp32, returned in x's dtype."""
+    x32 = x.float()
+    xr = x32.reshape(*x.shape[:-1], -1, 2)
+    x_rot = torch.stack([-xr[..., 1], xr[..., 0]], dim=-1).reshape(x32.shape)
+    return (x32 * cos + x_rot * sin).to(x.dtype)
+
+
+def _heads(x, h: int):
+    b, s, d = x.shape
+    return x.reshape(b, s, h, d // h).transpose(1, 2)
+
+
+def _unheads(x):
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def _lin(p, name, x):
+    return linear(x, p[name + ".weight"], p.get(name + ".bias"))
+
+
+def _mlp_embed(p, name, v):
+    return _lin(p, name + ".linear_2", F.silu(_lin(p, name + ".linear_1", v)))
+
+
+def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timestep,
+          img_ids: np.ndarray, txt_ids: np.ndarray, config: FluxConfig,
+          guidance=None, attn_impl: str = "auto"):
+    """Forward. latents [B, S_img, in_channels] packed patches; t5_embeds
+    [B, S_txt, joint_attention_dim]; pooled [B, pooled_projection_dim];
+    timestep [B] in [0, 1] (sigma; x1000 here, as diffusers); ids [S, 3]
+    position grids. Returns the velocity [B, S_img, in_channels]."""
+    cfg, p = config, params
+    H = cfg.num_attention_heads
+    dtype = latents.dtype
+
+    x = _lin(p, "x_embedder", latents)
+    enc = _lin(p, "context_embedder", t5_embeds)
+
+    t_proj = timestep_embedding(torch.as_tensor(timestep).float() * 1000.0, 256).to(dtype)
+    temb = _mlp_embed(p, "time_text_embed.timestep_embedder", t_proj)
+    if cfg.guidance_embeds:
+        g = torch.as_tensor(guidance, dtype=torch.float32, device=latents.device)
+        g_proj = timestep_embedding(g * 1000.0, 256).to(dtype)
+        temb = temb + _mlp_embed(p, "time_text_embed.guidance_embedder", g_proj)
+    temb = temb + _mlp_embed(p, "time_text_embed.text_embedder", pooled.to(dtype))
+    temb_act = F.silu(temb)
+
+    s_txt = t5_embeds.shape[1]
+    ids = np.concatenate([np.asarray(txt_ids), np.asarray(img_ids)], axis=0)
+    cos, sin = rope_freqs(ids, cfg.axes_dims_rope, device=latents.device)
+
+    def ada_chunks(name, n):
+        return [c[:, None] for c in _lin(p, name, temb_act).chunk(n, dim=-1)]
+
+    def attention(q, k, v):
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        return _unheads(dot_product_attention(q, k, v, scale=q.shape[-1] ** -0.5,
+                                              impl=attn_impl))
+
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}."
+        sh_m, sc_m, g_m, sh_f, sc_f, g_f = ada_chunks(b + "norm1.linear", 6)
+        csh_m, csc_m, cg_m, csh_f, csc_f, cg_f = ada_chunks(b + "norm1_context.linear", 6)
+        hx = _ln(x) * (1 + sc_m) + sh_m
+        he = _ln(enc) * (1 + csc_m) + csh_m
+        a = b + "attn."
+        proj = lambda name, h: _heads(_lin(p, a + name, h), H)
+        q = _rms(proj("to_q", hx), p[a + "norm_q.weight"])
+        k = _rms(proj("to_k", hx), p[a + "norm_k.weight"])
+        eq = _rms(proj("add_q_proj", he), p[a + "norm_added_q.weight"])
+        ek = _rms(proj("add_k_proj", he), p[a + "norm_added_k.weight"])
+        # the text stream first in the joint sequence (diffusers' order)
+        out = attention(torch.cat([eq, q], dim=2), torch.cat([ek, k], dim=2),
+                        torch.cat([proj("add_v_proj", he), proj("to_v", hx)], dim=2))
+        enc_out, x_out = out[:, :s_txt], out[:, s_txt:]
+        x = x + g_m * _lin(p, a + "to_out.0", x_out)
+        enc = enc + cg_m * _lin(p, a + "to_add_out", enc_out)
+
+        hx = _ln(x) * (1 + sc_f) + sh_f
+        x = x + g_f * _lin(p, b + "ff.net.2",
+                           _gelu_tanh(_lin(p, b + "ff.net.0.proj", hx)))
+        he = _ln(enc) * (1 + csc_f) + csh_f
+        enc = enc + cg_f * _lin(p, b + "ff_context.net.2",
+                                _gelu_tanh(_lin(p, b + "ff_context.net.0.proj", he)))
+
+    h = torch.cat([enc, x], dim=1)
+    for i in range(cfg.num_single_layers):
+        b = f"single_transformer_blocks.{i}."
+        sh, sc, gate = ada_chunks(b + "norm.linear", 3)
+        hn = _ln(h) * (1 + sc) + sh
+        a = b + "attn."
+        q = _rms(_heads(_lin(p, a + "to_q", hn), H), p[a + "norm_q.weight"])
+        k = _rms(_heads(_lin(p, a + "to_k", hn), H), p[a + "norm_k.weight"])
+        attn = attention(q, k, _heads(_lin(p, a + "to_v", hn), H))
+        mlp = _gelu_tanh(_lin(p, b + "proj_mlp", hn))
+        h = h + gate * _lin(p, b + "proj_out", torch.cat([attn, mlp], dim=-1))
+    x = h[:, s_txt:]
+
+    # AdaLayerNormContinuous head: chunk order (scale, shift)
+    scale, shift = _lin(p, "norm_out.linear", temb_act).chunk(2, dim=-1)
+    x = _ln(x) * (1 + scale[:, None]) + shift[:, None]
+    return _lin(p, "proj_out", x)
+
+
+def state_dict_shapes(config: FluxConfig) -> dict[str, tuple]:
+    """Every key of the diffusers state dict with its shape (the contract
+    of ``uce_tpu/models/flux.py::init_state_dict``)."""
+    cfg = config
+    D, dh = cfg.inner_dim, cfg.attention_head_dim
+    shapes: dict[str, tuple] = {}
+
+    def lin(name, cin, cout):
+        shapes[name + ".weight"], shapes[name + ".bias"] = (cout, cin), (cout,)
+
+    lin("x_embedder", cfg.in_channels, D)
+    lin("context_embedder", cfg.joint_attention_dim, D)
+    embedders = [("timestep_embedder", 256), ("text_embedder", cfg.pooled_projection_dim)]
+    if cfg.guidance_embeds:
+        embedders.append(("guidance_embedder", 256))
+    for name, cin in embedders:
+        lin(f"time_text_embed.{name}.linear_1", cin, D)
+        lin(f"time_text_embed.{name}.linear_2", D, D)
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        lin(b + ".norm1.linear", D, 6 * D)
+        lin(b + ".norm1_context.linear", D, 6 * D)
+        for k in _DOUBLE_LINEARS:
+            lin(f"{b}.attn.{k}", D, D)
+        for k in _DOUBLE_NORMS:
+            shapes[f"{b}.attn.{k}.weight"] = (dh,)
+        for ff in ("ff", "ff_context"):
+            lin(f"{b}.{ff}.net.0.proj", D, 4 * D)
+            lin(f"{b}.{ff}.net.2", 4 * D, D)
+    for i in range(cfg.num_single_layers):
+        b = f"single_transformer_blocks.{i}"
+        lin(b + ".norm.linear", D, 3 * D)
+        for k in ("to_q", "to_k", "to_v"):
+            lin(f"{b}.attn.{k}", D, D)
+        for k in ("norm_q", "norm_k"):
+            shapes[f"{b}.attn.{k}.weight"] = (dh,)
+        lin(b + ".proj_mlp", D, 4 * D)
+        lin(b + ".proj_out", 5 * D, D)
+    lin("norm_out.linear", D, 2 * D)
+    lin("proj_out", D, cfg.in_channels)
+    return shapes
+
+
+def init_state_dict(config: FluxConfig, seed: int = 0, scale: float = 0.02,
+                    device="cuda", dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    """Seeded random state dict in diffusers keys, drawn on ``device`` by a
+    ``torch.Generator`` of that device (FLUX.1's 11.9 B parameters are
+    23.7 GB in bf16; on the host in fp32 they would be 48 GB): linear
+    weights N(0, scale^2), biases 0, the q/k RMS norm scales 1."""
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(int(seed))
+    sd = {}
+    for key, shape in state_dict_shapes(config).items():
+        if key.endswith(".bias"):
+            sd[key] = torch.zeros(shape, device=device, dtype=dtype)
+        elif len(shape) == 1:
+            sd[key] = torch.ones(shape, device=device, dtype=dtype)
+        else:
+            sd[key] = torch.randn(shape, generator=gen, device=device,
+                                  dtype=dtype).mul_(scale)
+    return sd

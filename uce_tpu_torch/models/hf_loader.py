@@ -10,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Callable, Iterable, Mapping
+from typing import Callable, Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -35,15 +35,15 @@ def iter_safetensors(model_dir: str, subfolder: str | None = None) -> Iterable[s
     return [os.path.join(root, n) for n in names]
 
 
-def read_safetensors(path: str, keys: Callable[[str], bool] | None = None
-                     ) -> dict[str, torch.Tensor]:
-    """Read the tensors of one file (optionally filtered by name) on the CPU."""
+def iter_safetensors_file(path: str, keys: Callable[[str], bool] | None = None
+                          ) -> Iterator[tuple[str, torch.Tensor]]:
+    """(name, CPU tensor) of one file (optionally filtered by name), one
+    tensor at a time, each copied out of a memory map of the file."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
     data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n) \
         if os.path.getsize(path) > 8 + n else np.zeros(0, np.uint8)
-    out = {}
     for name, info in header.items():
         if name == "__metadata__" or (keys is not None and not keys(name)):
             continue
@@ -53,11 +53,16 @@ def read_safetensors(path: str, keys: Callable[[str], bool] | None = None
         begin, end = info["data_offsets"]
         shape = tuple(info["shape"])
         if end == begin:
-            out[name] = torch.empty(shape, dtype=dtype)
+            yield name, torch.empty(shape, dtype=dtype)
             continue
         buf = bytearray(data[begin:end])
-        out[name] = torch.frombuffer(buf, dtype=dtype).reshape(shape)
-    return out
+        yield name, torch.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+def read_safetensors(path: str, keys: Callable[[str], bool] | None = None
+                     ) -> dict[str, torch.Tensor]:
+    """Read the tensors of one file (optionally filtered by name) on the CPU."""
+    return dict(iter_safetensors_file(path, keys))
 
 
 def load_state_dict(
@@ -66,35 +71,42 @@ def load_state_dict(
     *,
     keys: Callable[[str], bool] | None = None,
     dtype: torch.dtype | None = None,
+    device=None,
 ) -> dict[str, torch.Tensor]:
-    """All tensors of a snapshot (sub)directory, optionally filtered/cast."""
+    """All tensors of a snapshot (sub)directory, optionally filtered, cast
+    and placed: each tensor goes to ``device`` (and is cast there) as soon as
+    it is read, so no more than one tensor at a time is held on the host."""
     out: dict[str, torch.Tensor] = {}
     for path in iter_safetensors(model_dir, subfolder):
-        for k, t in read_safetensors(path, keys).items():
+        for k, t in iter_safetensors_file(path, keys):
+            if device is not None:
+                t = t.to(device)
             out[k] = t.to(dtype) if dtype is not None else t
     return out
 
 
 def save_safetensors(tensors: Mapping[str, object], path: str) -> None:
-    """Write a flat name -> tensor (or numpy array) dict as safetensors."""
+    """Write a flat name -> tensor (or numpy array) dict as safetensors: the
+    header from the shapes, then one tensor at a time, each brought to the
+    host only while it is written."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    header, blobs, offset = {}, [], 0
+    as_tensor = lambda t: (torch.from_numpy(np.ascontiguousarray(t))
+                           if isinstance(t, np.ndarray) else t.detach())
+    header, offset = {}, 0
     for name in sorted(tensors):
-        t = tensors[name]
-        t = (torch.from_numpy(np.ascontiguousarray(t)) if isinstance(t, np.ndarray)
-             else t.detach().to("cpu").contiguous())
+        t = as_tensor(tensors[name])
         if t.dtype not in _NAMES:
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
-        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
-        blob = raw.tobytes()
+        nbytes = t.numel() * t.element_size()
         header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(blob)]}
-        blobs.append(blob)
-        offset += len(blob)
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for blob in blobs:
-            f.write(blob)
+        for name in sorted(tensors):
+            t = as_tensor(tensors[name]).to("cpu").contiguous()
+            raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            f.write(raw.numpy().tobytes())

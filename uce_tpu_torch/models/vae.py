@@ -1,5 +1,6 @@
-"""AutoencoderKL (SD VAE) decoder, NCHW, over a flat diffusers state dict
-(latents -> pixels; the caller divides by ``scaling_factor`` first). With
+"""AutoencoderKL (SD and FLUX VAE) decoder, NCHW, over a flat diffusers state
+dict (latents -> pixels; the caller divides by ``scaling_factor`` first and,
+for FLUX's VAE, adds ``shift_factor``). With
 ``UCE_CONV_IMPL`` or ``UCE_GN_IMPL`` set to ``pallas`` the decoder holds its
 activations in ``torch.channels_last``, as the UNet does."""
 
@@ -32,11 +33,10 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
+    shift_factor: float = 0.0  # FLUX's VAE: 0.1159
 
     @classmethod
     def from_hf(cls, cfg: Mapping) -> "VAEConfig":
-        if cfg.get("shift_factor"):
-            raise NotImplementedError("VAE shift_factor (FLUX) is not ported yet")
         return cls(
             in_channels=cfg.get("in_channels", 3),
             out_channels=cfg.get("out_channels", 3),
@@ -45,6 +45,7 @@ class VAEConfig:
             layers_per_block=cfg.get("layers_per_block", 2),
             norm_num_groups=cfg.get("norm_num_groups", 32),
             scaling_factor=cfg.get("scaling_factor", 0.18215),
+            shift_factor=cfg.get("shift_factor") or 0.0,
         )
 
     def to_hf(self) -> dict:
@@ -54,6 +55,8 @@ class VAEConfig:
 
 
 SD_VAE_CONFIG = VAEConfig()
+# black-forest-labs/FLUX.1-schnell vae/config.json (FLUX.1-dev's is the same)
+FLUX_VAE_CONFIG = VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
 
 
 def _w(p, name):
@@ -86,7 +89,7 @@ def _attn(p, pre, x, groups):
 
 
 def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
-    """latents [B, 4, h, w] (already divided by scaling_factor) ->
+    """latents [B, latent_channels, h, w] (already scaled) ->
     [B, 3, H, W] in [-1, 1]."""
     cfg, p = config, params
     g = cfg.norm_num_groups

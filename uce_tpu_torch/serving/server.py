@@ -102,9 +102,11 @@ class ServerStats:
 class GenerationServer:
     """Dynamic-batching front end over a pipeline's fixed serving shapes.
 
-    ``pipe`` is any pipeline whose call signature matches SDPipeline
-    (prompt list, seed list, num_inference_steps, guidance_scale,
-    height, width, negative_prompt) and returns uint8 [N, H, W, 3].
+    ``pipe`` is any pipeline called with (prompt list, seed list,
+    num_inference_steps, guidance_scale, num_images_per_prompt, height,
+    width) that returns uint8 [N, H, W, 3]: SDPipeline, which also takes
+    scheduler, negative_prompt and fast, or FluxPipeline, which takes none of
+    them (the server adapts to the call's signature).
     """
 
     def __init__(self, pipe, config: ServerConfig = ServerConfig()):
