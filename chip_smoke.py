@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card at the full
-widths of SD 1.4, SD 2.1 (768-v), SDXL base 1.0 and FLUX.1-schnell, and
-check them.
+widths of SD 1.4, SD 2.1 (768-v), SDXL base 1.0, FLUX.1-schnell and
+HiDream-I1-Full, and check them.
 
     python3 chip_smoke.py
 
@@ -12,8 +12,9 @@ each phase's seconds and the total are printed):
      once; ptxas's registers and spills of the TMA + wgmma attention and
      conv kernels; the bf16 attention at d=64 must not spill), compare each
      kernel with its plain PyTorch version at the main paths' shapes (SD
-     1.4's, and SD 2.1's, SDXL's and FLUX's: d=64 attention, d=512 at s=9216
-     and 16384, FLUX's joint attention at d=128 (s=4352 and 1280), the
+     1.4's, and SD 2.1's, SDXL's, FLUX's and HiDream's: d=64 attention, d=512
+     at s=9216 and 16384, FLUX's joint attention at d=128 (s=4352 and 1280)
+     and HiDream's at CFG batch 2 (s=4480), the
      96x96, 128x128 and 1024x1024 conv and GroupNorm maps, FLUX's VAE
      conv_in (Cin = 16, mma.sync),
      uce_solve at d=1024) and on the Pallas tests' cases (elementwise and
@@ -86,8 +87,8 @@ each phase's seconds and the total are printed):
      summing to 1;
  19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
      CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
-     on the card (~33.8 GB, its bytes and seconds printed; the free space
-     under build/ is checked first), ``edit-flux`` (the two text-entry
+     on the card (~33.8 GB, its bytes and seconds printed; the host's free
+     memory is checked first), ``edit-flux`` (the two text-entry
      targets, each held to a float64 solve; ``--method pallas`` refused),
      one DiT forward at 1024^2 on impl="auto" against "plain" (57 d=128
      kernel launches, device and wall ms), a VAE decode on both paths,
@@ -95,7 +96,22 @@ each phase's seconds and the total are printed):
      overlay (PNGs, launches from the steps, seconds per image after the
      load, the two paths' image distance) and ``serve --family flux``
      (ladder 1,2, 4 Poisson requests): the JSON report, the served images
-     and launches. The snapshot is deleted at the end.
+     and launches. The snapshot is deleted at the end;
+ 20. HiDream-I1-Full at full width and depth (the 16 + 32-block MoE DiT,
+     Llama-3.1-8B, T5-XXL, CLIP-L and bigG, the 16-channel VAE): a seeded
+     random-weight bf16 snapshot drawn on the card (~60.5 GB), ``edit-hidream``
+     (49 caption projections, each held to a float64 solve of its own
+     stream; ``--method pallas`` refused), the pipeline loaded staged
+     (encode, ``free_encoders`` with the HBM before and after, then the
+     DiT): one DiT forward at CFG batch 2 and 1024^2 on impl="auto" against
+     "plain" on the same expert routing (48 d=128 launches, each held to
+     the plain version), a CFG window over every call equal to the exact
+     run bit for bit and a 1:2 window finite and different, then
+     ``generate-hidream --staged`` (2 steps, CFG 5.0) on both paths with
+     the edit overlay: PNGs, launches from the steps, the seconds of the
+     load, encode, DiT load and image. FLUX's snapshot and HiDream's DiT
+     keep their weight files in host memory (``write_weights``): the card's
+     machine allows a run 45 GiB of disk writes, less than the two snapshots.
 The last two lines are the kernels' JSON record (launches summed over the
 main paths' runs) and the device record.
 """
@@ -128,13 +144,17 @@ import torch.nn.functional as F
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline, make_img_ids, pack_latents
+from uce_tpu_torch.diffusion import pipeline_hidream
+from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline, cfg_embeddings
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
-from uce_tpu_torch.edit import debias as debias_mod, flux as edit_flux, sd as edit_sd
-from uce_tpu_torch.models import clip as clip_mod, clip_text, flux, quantize, t5, unet, vae
-from uce_tpu_torch.models.hf_loader import read_safetensors, save_safetensors
+from uce_tpu_torch.edit import debias as debias_mod, flux as edit_flux, hidream as edit_hd
+from uce_tpu_torch.edit import sd as edit_sd
+from uce_tpu_torch.models import clip as clip_mod, clip_text, flux, hidream, llama, quantize
+from uce_tpu_torch.models import t5, unet, vae
+from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
-from uce_tpu_torch.models.sd_targets import is_sd_cross_attn_kv
+from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
 from uce_tpu_torch.ops import attention
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
@@ -237,14 +257,16 @@ EXP_PER_CLOCK_PER_SM = 16
 # SD 2.1's (768², latents 96²) UNet self-attentions at UNet batch 2, d=64,
 # and their VAE mid-blocks at s=16384 and 9216; then FLUX.1-schnell's joint
 # attention at d=128 over 256 T5 tokens + the packed image at 1024^2 and
-# 512^2 (batch 1, 24 heads).
+# 512^2 (batch 1, 24 heads); last HiDream-I1's at 1024^2 under CFG (batch 2,
+# 20 heads, 4096 image + 128 T5 + 2 x 128 Llama tokens).
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
               (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512),
               (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64),
               (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
               (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512),
-              (1, 24, 4352, 4352, 128), (1, 24, 1280, 1280, 128)]
+              (1, 24, 4352, 4352, 128), (1, 24, 1280, 1280, 128),
+              (2, 20, 4480, 4480, 128)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512),
               (2, 2, 200, 200, 64)]
@@ -389,6 +411,25 @@ FLUX_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 1.0
 FLUX_STEPS = 4
 FLUX_DIT_LAUNCHES = {"sd_attention_d128": 57}
 FLUX_PROMPT = "a painting by kelly mckernan"
+
+# HiDream-I1-Full at its published widths and depth (HiDream-ai/HiDream-I1-Full's
+# transformer/config.json, hidream.I1_FULL_CONFIG: 16 + 32 MoE blocks of 20 x
+# 128, 4 routed experts with 2 active; meta-llama/Meta-Llama-3.1-8B-Instruct's
+# config.json as text_encoder_4; T5 v1.1-XXL as text_encoder_3; CLIP-L with a
+# 768 projection and OpenCLIP bigG with its 1280 projection, both with the
+# legacy eos_token_id 2; FLUX's 16-channel VAE), FlowMatchEuler with shift 3
+# (the repository's snapshots and uce_tpu's fallback); 1024^2, CFG 5.0, 128
+# T5 and Llama tokens, 2 steps. Per DiT forward at CFG batch 2, 48 joint
+# attentions at (2, 20, 4480, 4480, 128) take the kernel
+# (tests/test_torch_hidream_shapes.py); the decode launches as FLUX's.
+HIDREAM_CLIP_L = dataclasses.replace(clip_text.SD14_TEXT_CONFIG, projection_dim=768,
+                                     eos_token_id=2)
+HIDREAM_CLIP_G = dataclasses.replace(clip_text.SDXL_TEXT2_CONFIG, eos_token_id=2)
+HIDREAM_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 3.0,
+                     "use_dynamic_shifting": False, "num_train_timesteps": 1000}
+HIDREAM_STEPS = 2
+HIDREAM_GUIDANCE = 5.0
+HIDREAM_DIT_LAUNCHES = {"sd_attention_d128": 48}
 
 
 def library_launches(per_call: dict) -> dict:
@@ -629,7 +670,7 @@ def phase_build() -> None:
     check_ptxas("sd_attention", "sd_attention_kernel", (64, 128), whole_library=False)
     for line in ptxas_report(_build.build_logs.get("sd_attention") or ""):
         if "<128>" in line:
-            print(f"[ptxas] FLUX's d=128 attention: {line}")
+            print(f"[ptxas] FLUX's and HiDream's d=128 attention: {line}")
 
 
 def check_ptxas(lib: str, kernel: str, dims, whole_library: bool) -> None:
@@ -967,18 +1008,42 @@ def run_edit(snap: str, name: str, extra: list[str], model: Model
     return edits, seconds
 
 
+def float64_edit(c_edit, c_guide, c_pres) -> tuple:
+    """(mat2, mat_a, E) of the art erase (unit scales, lamb 0.5) solved in
+    float64 from the concepts' fp32 embeddings (stacks [K, d])."""
+    c_edit, c_guide, c_pres = (c.double() for c in (c_edit, c_guide, c_pres))
+    lam = 0.5 * torch.eye(c_edit.shape[1], dtype=torch.float64, device=c_edit.device)
+    mat2 = lam + c_edit.T @ c_edit + c_pres.T @ c_pres
+    mat_a = lam + c_guide.T @ c_edit + c_pres.T @ c_pres
+    return mat2, mat_a, torch.linalg.solve(mat2, mat_a.T).T
+
+
+def hold_edit(what: str, w, new, solved: tuple, cond: float) -> tuple:
+    """Raise unless the edited weight ``new`` is within EDIT_COND_FACTOR *
+    cond * eps32 of W @ E from the float64 solve (max abs diff over max abs)
+    and within sqrt(d) * eps32 in backward error; returns (rel, bound,
+    back, back bound)."""
+    mat2, mat_a, e64 = solved
+    w64, new = w.double().to("cuda"), new.double().to("cuda")
+    exact, d = w64 @ e64, w64.shape[1]
+    bound, back_bound = EDIT_COND_FACTOR * cond * EPS32, d ** 0.5 * EPS32
+    rel = float((new - exact).abs().max() / exact.abs().max())
+    back = float((new @ mat2 - w64 @ mat_a).norm() / (
+        new.norm() * mat2.norm() + w64.norm() * mat_a.norm()))
+    if not (rel <= bound and back <= back_bound):
+        raise AssertionError(f"{what}: relative max diff {rel} from a float64 solve "
+                             f"(bound {bound}), backward error {back} (bound {back_bound})")
+    return rel, bound, back, back_bound
+
+
 def edit_float64(snap: str, model: Model) -> tuple:
     """The art erase solved in float64 from the same fp32 concept
     embeddings, cond(mat2), and the backward error of edited weights."""
     edits, guides, preserves = resolve_edit_request(ART, None, PRESERVE, "art")
     res = edit_sd.load_resources(snap, family=model.family, device="cuda")
     emb = res.encode_concepts(edits + guides + preserves)
-    stack = lambda names: torch.stack([emb[n].double() for n in names])
-    c_edit, c_guide, c_pres = stack(edits), stack(guides), stack(preserves)
-    lam = 0.5 * torch.eye(c_edit.shape[1], dtype=torch.float64, device="cuda")
-    mat2 = lam + c_edit.T @ c_edit + c_pres.T @ c_pres
-    mat_a = lam + c_guide.T @ c_edit + c_pres.T @ c_pres
-    e = torch.linalg.solve(mat2, mat_a.T).T
+    stack = lambda names: torch.stack([emb[n] for n in names])
+    mat2, mat_a, e = float64_edit(stack(edits), stack(guides), stack(preserves))
     targets = {k: w.double().to(e.device) for k, w in res.targets.items()}
 
     def backward_error(edited: dict) -> float:
@@ -1878,32 +1943,88 @@ def flux_parts() -> list:
          lambda: cast(vae.init_state_dict(FLUX_VAE, rng)))]
 
 
-def write_flux_snapshot(root: str) -> int:
-    """FLUX.1-schnell at full width and depth with seeded random weights,
-    stored in bf16 as a diffusers snapshot (each part drawn on the card,
-    written and freed in turn), character-vocabulary tokenizers for both
-    encoders. Fails before drawing if the disk under build/ is short.
-    Returns the bytes written."""
-    shapes = {**flux.state_dict_shapes(flux.SCHNELL_CONFIG),
-              **t5.state_dict_shapes(t5.T5_XXL_CONFIG)}
-    need = 2 * sum(int(np.prod(s)) for s in shapes.values()) + (1 << 30)
+def meminfo() -> dict[str, int]:
+    """/proc/meminfo's fields in bytes, and this process's resident bytes."""
+    with open("/proc/meminfo") as f:
+        info = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    with open("/proc/self/status") as f:
+        info["VmRSS"] = next(int(line.split()[1]) * 1024 for line in f
+                             if line.startswith("VmRSS:"))
+    return info
+
+
+def host_memory() -> str:
+    info = meminfo()
+    return (f"host memory: {info['MemAvailable'] / 1e9:.1f} GB available, shmem "
+            f"{info['Shmem'] / 1e9:.1f} GB, this process {info['VmRSS'] / 1e9:.1f} GB "
+            "resident")
+
+
+def snapshot_room_check(what: str, root: str, in_memory: dict, on_disk: dict) -> None:
+    """Fail before drawing a snapshot whose bf16 weights do not fit: those
+    kept in memory (plus 8 GB) the host's available memory, the others
+    (plus 1 GB) the disk under build/. The model is not shrunk to fit."""
+    nbytes = lambda shapes: 2 * sum(int(np.prod(s)) for s in shapes.values())
+    need, avail = nbytes(in_memory) + 8e9, meminfo()["MemAvailable"]
+    if avail < need:
+        raise AssertionError(f"{what} snapshot: {avail / 1e9:.1f} GB of host memory "
+                             f"available, {need / 1e9:.1f} GB needed at full width")
     os.makedirs(root, exist_ok=True)
-    free = shutil.disk_usage(root).free
+    need, free = nbytes(on_disk) + 1e9, shutil.disk_usage(root).free
     if free < need:
-        raise AssertionError(f"FLUX snapshot: {free / 1e9:.1f} GB free under {root}, "
-                             f"{need / 1e9:.1f} GB needed at full width; the model is "
-                             "not shrunk to fit")
+        raise AssertionError(f"{what} snapshot: {free / 1e9:.1f} GB free under {root}, "
+                             f"{need / 1e9:.1f} GB needed at full width")
+
+
+def write_weights(sd: dict, path: str, fds: list) -> int:
+    """Write a state dict as a safetensors file held in host memory (an
+    anonymous memory file, memfd) and link ``path`` to it through
+    /proc/<pid>/fd: the loader reads it as any file, and the machine's disk
+    takes none of it (the card's machine allows a run 45 GiB of disk
+    writes, less than FLUX's and HiDream's snapshots together). ``fds`` keeps the file open
+    until the caller closes it. Returns its bytes."""
+    fd = os.memfd_create(os.path.basename(path))
+    fds.append(fd)
+    save_safetensors(sd, f"/proc/self/fd/{fd}")
+    os.symlink(f"/proc/{os.getpid()}/fd/{fd}", path)
+    return os.fstat(fd).st_size
+
+
+def write_parts(root: str, parts: list, fds: list, in_memory=lambda sub: True) -> int:
+    """Each part's config.json, and its weights drawn on the card, written
+    to memory (``write_weights``; where ``in_memory(subfolder)``) or to the
+    disk, and freed in turn. Returns the bytes."""
     written = 0
-    for sub, cfg, fname, draw in flux_parts():
+    for sub, cfg, fname, draw in parts:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         with open(os.path.join(root, sub, "config.json"), "w") as f:
             json.dump(cfg.to_hf(), f)
-        sd = draw()
-        path = os.path.join(root, sub, fname)
-        save_safetensors(sd, path)
-        written += os.path.getsize(path)
+        sd, path = draw(), os.path.join(root, sub, fname)
+        if in_memory(sub):
+            written += write_weights(sd, path, fds)
+        else:
+            save_safetensors(sd, path)
+            written += os.path.getsize(path)
         del sd
         torch.cuda.empty_cache()
+    return written
+
+
+def close_files(fds: list) -> None:
+    for fd in fds:
+        os.close(fd)
+    fds.clear()
+
+
+def write_flux_snapshot(root: str, fds: list) -> int:
+    """FLUX.1-schnell at full width and depth with seeded random weights,
+    stored in bf16 as a diffusers snapshot whose weight files are held in
+    memory (``write_parts``), character-vocabulary tokenizers for both
+    encoders. Fails before drawing if the host's memory is short. Returns
+    the bytes written."""
+    snapshot_room_check("FLUX", root, {**flux.state_dict_shapes(flux.SCHNELL_CONFIG),
+                                       **t5.state_dict_shapes(t5.T5_XXL_CONFIG)}, {})
+    written = write_parts(root, flux_parts(), fds)
     for sub in ("tokenizer", "tokenizer_2"):
         write_tokenizer(os.path.join(root, sub), "<|endoftext|>")
     os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
@@ -1941,23 +2062,11 @@ def phase_flux_edit(snap: str) -> str:
     torch.cuda.empty_cache()
     for key, w in targets.items():
         d = w.shape[1]
-        stack = lambda names: torch.stack([embeds[n][d].double() for n in names])
-        c_edit, c_guide, c_pres = stack(edits_c), stack(guides), stack(preserves)
-        lam = 0.5 * torch.eye(d, dtype=torch.float64, device="cuda")
-        mat2 = lam + c_edit.T @ c_edit + c_pres.T @ c_pres
-        mat_a = lam + c_guide.T @ c_edit + c_pres.T @ c_pres
-        w64 = w.double().to("cuda")
-        exact = w64 @ torch.linalg.solve(mat2, mat_a.T).T
-        new = edits[key].double().to("cuda")
-        cond = float(torch.linalg.cond(mat2))
-        bound, back_bound = EDIT_COND_FACTOR * cond * EPS32, d ** 0.5 * EPS32
-        rel = float((new - exact).abs().max() / exact.abs().max())
-        back = float((new @ mat2 - w64 @ mat_a).norm() / (
-            new.norm() * mat2.norm() + w64.norm() * mat_a.norm()))
-        if not (rel <= bound and back <= back_bound):
-            raise AssertionError(f"edit-flux {key}: relative max diff {rel} from a "
-                                 f"float64 solve (bound {bound}), backward error {back} "
-                                 f"(bound {back_bound})")
+        stack = lambda names: torch.stack([embeds[n][d] for n in names])
+        solved = float64_edit(stack(edits_c), stack(guides), stack(preserves))
+        cond = float(torch.linalg.cond(solved[0]))
+        rel, bound, back, back_bound = hold_edit(f"edit-flux {key}", w, edits[key],
+                                                 solved, cond)
         print(f"[edit] FLUX.1-schnell {key} {tuple(w.shape)}, d={d}: cond(mat2) "
               f"{cond:.4e}, relative max diff from a float64 solve {rel:.3e} (bound "
               f"{bound:.3e}), backward error {back:.3e} (bound {back_bound:.3e})")
@@ -1976,16 +2085,17 @@ def phase_flux_edit(snap: str) -> str:
 
 
 @contextlib.contextmanager
-def attention_calls(seen: collections.Counter, row: dict):
+def attention_calls(seen: collections.Counter, row: dict, every: bool = False):
     """Count the q shape of every sd_attention wrapper call in the enclosed
-    calls, and hold the first call at each shape to the plain version on the
-    call's own inputs (raises outside the attention's bounds)."""
+    calls, and hold the first call at each shape (``every``: each call) to
+    the plain version on the call's own inputs (raises outside the
+    attention's bounds)."""
     launch = sdk.sd_attention
 
     def spy(q, k, v, scale, qk_int8=False):
         got = launch(q, k, v, scale, qk_int8=qk_int8)
         key = tuple(q.shape)
-        if key not in seen:
+        if every or key not in seen:
             max_err = check_bf16("sd_attention", f"sd_attention {key} on the path's own "
                                  "inputs", got, sdk.sd_attention_reference(q, k, v, scale))[0]
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
@@ -2157,13 +2267,14 @@ def run_flux(rows: dict, seconds: dict) -> None:
     """FLUX.1-schnell at full width and depth: snapshot, edit-flux, a DiT
     forward on both paths, a VAE decode, generate-flux on both paths and
     serve --family flux."""
-    snap = os.path.join(WORK, "flux_random")
+    snap, fds = os.path.join(WORK, "flux_random"), []
+    print(f"[host] {host_memory()}", flush=True)
     try:
         with timed("FLUX snapshot", seconds):
             start = time.perf_counter()
-            nbytes = write_flux_snapshot(snap)
-            print(f"[flux] snapshot: {nbytes} bytes written in "
-                  f"{time.perf_counter() - start:.1f} s", flush=True)
+            nbytes = write_flux_snapshot(snap, fds)
+            print(f"[flux] snapshot: {nbytes} bytes written to host memory in "
+                  f"{time.perf_counter() - start:.1f} s; {host_memory()}", flush=True)
         with timed("FLUX edit", seconds):
             edit_path = phase_flux_edit(snap)
         with timed("FLUX DiT and VAE", seconds):
@@ -2188,7 +2299,394 @@ def run_flux(rows: dict, seconds: dict) -> None:
             add_launches(rows, phase_flux_serve(snap, edit_path))
     finally:
         shutil.rmtree(snap, ignore_errors=True)
+        close_files(fds)
         torch.cuda.empty_cache()
+        print(f"[host] snapshot closed; {host_memory()}", flush=True)
+
+
+def hidream_parts() -> list:
+    """(subfolder, config, file, state dict maker) of each weight file of the
+    HiDream snapshot, drawn on the card in bf16."""
+    rng = DeviceNormalRng(SEED + 3, "cuda", torch.bfloat16)
+    cast = lambda sd: {k: torch.as_tensor(v).to("cuda", torch.bfloat16)
+                       for k, v in sd.items()}
+    return [
+        ("transformer", hidream.I1_FULL_CONFIG, "diffusion_pytorch_model.safetensors",
+         lambda: hidream.init_state_dict(hidream.I1_FULL_CONFIG, seed=SEED, device="cuda")),
+        ("text_encoder_4", llama.LLAMA31_8B_CONFIG, "model.safetensors",
+         lambda: llama.init_state_dict(llama.LLAMA31_8B_CONFIG, seed=SEED + 2,
+                                       device="cuda")),
+        ("text_encoder_3", t5.T5_XXL_CONFIG, "model.safetensors",
+         lambda: t5.init_state_dict(t5.T5_XXL_CONFIG, seed=SEED + 1, device="cuda")),
+        ("text_encoder", HIDREAM_CLIP_L, "model.safetensors",
+         lambda: cast(clip_text.init_state_dict(HIDREAM_CLIP_L, rng))),
+        ("text_encoder_2", HIDREAM_CLIP_G, "model.safetensors",
+         lambda: cast(clip_text.init_state_dict(HIDREAM_CLIP_G, rng))),
+        ("vae", FLUX_VAE, "diffusion_pytorch_model.safetensors",
+         lambda: cast(vae.init_state_dict(FLUX_VAE, rng)))]
+
+
+def write_hidream_snapshot(root: str, fds: list) -> int:
+    """HiDream-I1-Full at full width and depth with seeded random weights,
+    stored in bf16 as a diffusers snapshot with the Llama in text_encoder_4
+    (60.5 GB: more than a run may write to the disk, so the DiT's 34.2 GB
+    are held in memory, ``write_parts``), and character-vocabulary
+    tokenizers for the four encoders. Fails before drawing if the host's
+    memory or the disk is short. Returns the bytes written."""
+    snapshot_room_check("HiDream", root, hidream.state_dict_shapes(hidream.I1_FULL_CONFIG),
+                        {**llama.state_dict_shapes(llama.LLAMA31_8B_CONFIG),
+                         **t5.state_dict_shapes(t5.T5_XXL_CONFIG)})
+    written = write_parts(root, hidream_parts(), fds, lambda sub: sub == "transformer")
+    # a Llama snapshot carries its tokenizer beside its weights (edit-hidream
+    # reads it there); the pipeline reads tokenizer_4
+    for sub in ("tokenizer", "tokenizer_2", "tokenizer_3", "tokenizer_4", "text_encoder_4"):
+        write_tokenizer(os.path.join(root, sub), "<|endoftext|>")
+    os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(HIDREAM_SCHEDULER, f)
+    return written
+
+
+def phase_hidream_edit(snap: str) -> str:
+    """``edit-hidream`` through the CLI (5 art concepts, 3 preserve): 49
+    finite caption-projection targets, each held to a float64 solve of its
+    own stream's fp32 embeddings (those the CLI run encoded), within
+    EDIT_COND_FACTOR * cond(mat2) * eps32 and backward error sqrt(d) *
+    eps32, as ``phase_flux_edit``; ``--method pallas`` must exit non-zero.
+    mat2 = 0.5 I + C^T C for the 8 concepts' rows C, so cond(mat2) is (0.5 +
+    the largest eigenvalue of C C^T) / 0.5, exactly."""
+    out = os.path.join(WORK, "edits_hidream")
+    cfg = hidream.I1_FULL_CONFIG
+    n_cp = cfg.num_caption_projections
+    embeds = []
+    start = time.perf_counter()
+    with captured(edit_hd, "encode_concepts", embeds):
+        rc = cli_main(["edit-hidream", "--model_id", snap, "--edit_concepts", ART,
+                       "--concept_type", "art", "--preserve_concepts", PRESERVE,
+                       "--save_dir", out, "--exp_name", "erase_art", "--device", "cuda"])
+    seconds = time.perf_counter() - start
+    path = os.path.join(out, "erase_art.safetensors")
+    edits = read_safetensors(path)
+    want = {f"caption_projection.{i}.linear.weight": (
+        cfg.inner_dim, cfg.caption_channels[0 if i == n_cp - 1 else 1]) for i in range(n_cp)}
+    if rc != 0 or len(embeds) != 1 or {k: tuple(v.shape) for k, v in edits.items()} != want \
+            or not all(bool(torch.isfinite(v).all()) for v in edits.values()):
+        raise AssertionError(f"edit-hidream: rc {rc}, {len(edits)} targets")
+    targets = load_state_dict(snap, "transformer", keys=is_hidream_caption_projection,
+                              dtype=torch.float32)
+    edits_c, guides, preserves = resolve_edit_request(ART, None, PRESERVE, "art")
+    streams = list(cfg.llama_layers) + ["t5"]
+    solved, worst = {}, {"rel": 0.0, "back": 0.0}
+    for m in range(n_cp):
+        key = f"caption_projection.{m}.linear.weight"
+        if streams[m] not in solved:  # modules on one stream share mat2 and E
+            stack = lambda names: torch.stack([embeds[0][n][m] for n in names])
+            rows_c = torch.cat([stack(edits_c), stack(preserves)]).double()
+            cond = float((0.5 + torch.linalg.eigvalsh(rows_c @ rows_c.T).max()) / 0.5)
+            solved[streams[m]] = (float64_edit(stack(edits_c), stack(guides),
+                                               stack(preserves)), cond)
+        rel, bound, back, back_bound = hold_edit(
+            f"edit-hidream {key} (stream {streams[m]})", targets[key], edits[key],
+            *solved[streams[m]])
+        d = targets[key].shape[1]
+        worst["rel"], worst["back"] = max(worst["rel"], rel / bound), max(worst["back"], back)
+        if m in (0, 15, 31, 47, 48):
+            print(f"[edit] HiDream {key} (stream {streams[m]}), d={d}: cond(mat2) "
+                  f"{cond:.4e}, relative max diff from a float64 solve {rel:.3e} (bound "
+                  f"{bound:.3e}), backward error {back:.3e} (bound {back_bound:.3e})")
+    conds = [v[1] for v in solved.values()]
+    del solved, embeds
+    torch.cuda.empty_cache()
+    try:
+        rc = cli_main(["edit-hidream", "--model_id", snap, "--edit_concepts", ART,
+                       "--concept_type", "art", "--save_dir", out, "--exp_name",
+                       "refused", "--device", "cuda", "--method", "pallas"])
+    except SystemExit as e:
+        rc = e.code
+    if not rc or os.path.exists(os.path.join(out, "refused.safetensors")):
+        raise AssertionError(f"edit-hidream --method pallas exited with {rc!r}")
+    print(f"[edit] edit-hidream (5 art concepts, 3 preserve): {n_cp} finite targets "
+          f"{list(want.values())[0]} on {len(conds)} distinct streams, cond(mat2) "
+          f"{min(conds):.3e}..{max(conds):.3e}; every target within its float64 bounds "
+          f"(worst relative diff {worst['rel']:.3f} of its bound, worst backward error "
+          f"{worst['back']:.3e}); {seconds:.2f} s (CLI wall, load included); --method "
+          f"pallas refused: {rc!r}", flush=True)
+    return path
+
+
+@contextlib.contextmanager
+def hidream_stages(record: dict):
+    """Seconds of every HiDreamPipeline load, prompt encoding, DiT load and
+    generation of the enclosed calls (summed per stage; ``image`` is the
+    generation after the DiT load), and the card's allocated bytes around
+    ``free_encoders``."""
+    cls = HiDreamPipeline
+    saved = {n: cls.__dict__[n] for n in ("from_pretrained", "encode_prompts",
+                                          "free_encoders", "_ensure_transformer",
+                                          "generate_from_embeddings")}
+
+    def timed_stage(name, fn):
+        def spy(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                record[name] = record.get(name, 0.0) + time.perf_counter() - start
+        return spy
+
+    def free_spy(self):
+        torch.cuda.synchronize()
+        record["hbm_before_free"] = torch.cuda.memory_allocated()
+        saved["free_encoders"](self)
+        record["hbm_after_free"] = torch.cuda.memory_allocated()
+
+    load = saved["from_pretrained"].__func__
+    cls.from_pretrained = classmethod(timed_stage("load", load))
+    cls.encode_prompts = timed_stage("encode", saved["encode_prompts"])
+    cls.free_encoders = free_spy
+    cls._ensure_transformer = timed_stage("dit_load", saved["_ensure_transformer"])
+    cls.generate_from_embeddings = timed_stage("generate",
+                                               saved["generate_from_embeddings"])
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+    if "generate" in record:
+        record["image"] = record["generate"] - record.get("dit_load", 0.0)
+
+
+def check_free_encoders(what: str, record: dict) -> str:
+    """The staged load gave the encoders' memory back to the card."""
+    before, after = record["hbm_before_free"], record["hbm_after_free"]
+    if not before - after > 50e9:
+        raise AssertionError(f"{what}: free_encoders left {after / 1e9:.2f} of "
+                             f"{before / 1e9:.2f} GB allocated")
+    return f"HBM allocated {before / 1e9:.2f} GB -> {after / 1e9:.2f} GB at free_encoders"
+
+
+@contextlib.contextmanager
+def moe_routes(routes: list, replay: bool = False):
+    """Record the experts that each MoE gate call of the enclosed forward
+    picks (a [B, S, E] mask of the top-k), or with ``replay`` route each
+    call to the recorded experts, weighted by this forward's own softmax
+    scores. The dense MoE's routing is discontinuous: a near tie between two
+    experts' scores flips on the last bit, so two forwards that differ in
+    their arithmetic are compared on the same routing."""
+    gate = hidream.moe_gate
+    recorded = iter(list(routes))
+
+    def spy(p, name, x, num_activated):
+        if not replay:
+            w = gate(p, name, x, num_activated)
+            routes.append(w > 0)
+            return w
+        logits = torch.matmul(x.float(), p[name + ".gate.weight"].float().T)
+        return torch.softmax(logits, dim=-1) * next(recorded)
+
+    hidream.moe_gate = spy
+    try:
+        yield
+    finally:
+        hidream.moe_gate = gate
+
+
+def phase_hidream_dit(snap: str, rows: dict) -> None:
+    """The pipeline loaded staged (encode, free_encoders, then the DiT); one
+    DiT forward at CFG batch 2 and 1024^2 (t = 1000) on impl="auto" against
+    impl="plain" routed to the same experts (``moe_routes``): rel L2,
+    exactly 48 d=128 kernel launches (each held to the plain version on its
+    own inputs), device ms (CUDA events) and wall ms of each; the plain
+    forward on its own routing: its rel L2 and the share of tokens whose
+    experts differ; and, as a control of how far rounding carries through
+    the random-weight network, the plain forward on latents one bf16 ulp
+    away. Then, at 2 steps, generate_from_embeddings with a
+    CFG window over every call equal to the exact run bit for bit, and one
+    with cfg_interval=1:2 finite and different."""
+    record = {}
+    with hidream_stages(record):
+        pipe = HiDreamPipeline.from_pretrained(snap, staged=True, device="cuda")
+        embeds = cfg_embeddings(pipe.encode_prompts([""]), pipe.encode_prompts([FLUX_PROMPT]))
+        if not all(bool(torch.isfinite(e).all()) for e in embeds):
+            raise AssertionError("HiDream prompt embeddings: non-finite values")
+        pipe.free_encoders()
+        pipe._ensure_transformer()
+    print(f"[hidream] staged HiDreamPipeline: encoders loaded in {record['load']:.1f} s, "
+          f"2 prompts encoded in {record['encode']:.2f} s, "
+          f"{check_free_encoders('HiDream DiT phase', record)}, DiT loaded in "
+          f"{record['dit_load']:.1f} s ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "allocated)", flush=True)
+    cfg, lh = pipe.transformer_config, FLUX.latent
+    t5_e, llama_e, pooled_e = (e.to(pipe.dtype) for e in embeds)
+    with torch.inference_mode():
+        lat = draw_prompt_latents((lh, lh, FLUX_VAE.latent_channels), SEED, 1, 1)
+        lat = pipeline_hidream.pack_latents(lat.to("cuda", pipe.dtype))
+        lat = torch.cat([lat, lat])
+        img_ids, t = make_img_ids(lh, lh), torch.full((2,), 1000.0, device="cuda")
+        outs, device_ms, wall_ms, routes = {}, {}, {}, {}
+        joint = (2, cfg.num_attention_heads,
+                 lat.shape[1] + t5_e.shape[1] + 2 * llama_e.shape[2], cfg.attention_head_dim)
+        # control: the latents one bf16 ulp away (each element's next value)
+        nudged = (lat.view(torch.int16) + 1).view(torch.bfloat16)
+        # auto, plain on auto's routing, plain on its own routing, the control
+        # on auto's routing
+        for run, impl, x in (("auto", "auto", lat), ("plain", "plain", lat),
+                             ("plain, own routing", "plain", lat),
+                             ("plain, nudged", "plain", nudged)):
+            fwd = lambda: hidream.apply(pipe.transformer_params, x, t5_e, llama_e,
+                                        pooled_e, t, img_ids, cfg, attn_impl=impl)
+            reset_launches()
+            seen = collections.Counter()
+            replay = run in ("plain", "plain, nudged")
+            routes[run] = routes["auto"] if replay else []
+            with attention_calls(seen, rows["sd_attention"], every=True), moe_routes(
+                    routes[run], replay=replay):
+                outs[run] = fwd().float()
+            got = read_launches()
+            want = HIDREAM_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0}
+            expect_launches(f"HiDream DiT forward ({run})", got, want)
+            if impl == "auto" and dict(seen) != {joint: want["sd_attention_d128"]}:
+                raise AssertionError(f"HiDream DiT attention calls: {dict(seen)}")
+            if run in ("plain, own routing", "plain, nudged"):
+                continue
+            device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                fwd()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - start) * 1e3)
+            wall_ms[impl] = float(np.median(walls))
+    if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
+        raise AssertionError("HiDream DiT forward: non-finite output")
+    rel = rel_l2(outs["auto"], outs["plain"])
+    if rel > REL_L2_MAX:
+        raise AssertionError(f"HiDream DiT forward auto vs plain on the same routing: rel "
+                             f"L2 {rel} > {REL_L2_MAX}")
+    flips = [float((a != b).any(-1).float().mean())
+             for a, b in zip(routes["auto"], routes["plain, own routing"])]
+    print(f"[dit] HiDream-I1 DiT forward, CFG batch 2 at 1024^2 ({lat.shape[1]} image + "
+          f"{t5_e.shape[1]} T5 + 2 x {llama_e.shape[2]} Llama tokens): rel L2 auto vs "
+          f"plain on the same routing {rel:.3e} (bound {REL_L2_MAX}); on its own routing "
+          f"{rel_l2(outs['auto'], outs['plain, own routing']):.3e}, experts differing for "
+          f"{np.mean(flips):.4%} of the tokens of a MoE layer on average (max "
+          f"{max(flips):.4%}, {len(flips)} layers); control: plain with every latent one "
+          f"bf16 ulp away, same routing, {rel_l2(outs['plain, nudged'], outs['plain']):.3e} "
+          f"from plain; 48 d=128 kernel launches per forward, "
+          f"each held to the plain version on its own inputs; auto: device "
+          f"{device_ms['auto']:.2f} ms, wall {wall_ms['auto']:.2f} ms; plain: device "
+          f"{device_ms['plain']:.2f} ms, wall {wall_ms['plain']:.2f} ms (median of 3)",
+          flush=True)
+
+    kw = dict(do_cfg=True, num_inference_steps=HIDREAM_STEPS,
+              guidance_scale=HIDREAM_GUIDANCE, seed=1, height=1024, width=1024)
+    images, launches = {}, None
+    for name, fast in (("exact", None), ("window 0:2", FastConfig(cfg_interval=(0, 2))),
+                       ("window 1:2", FastConfig(cfg_interval=(1, 2)))):
+        reset_launches()
+        start = time.perf_counter()
+        with finite_decodes():
+            images[name] = pipe.generate_from_embeddings(*embeds, fast=fast, **kw)
+        seconds = time.perf_counter() - start
+        got = read_launches()
+        # one launch per joint attention at either batch (cond-only calls too)
+        expect_launches(f"HiDream generate_from_embeddings ({name})", got,
+                        {"sd_attention_d128": HIDREAM_STEPS * HIDREAM_DIT_LAUNCHES[
+                            "sd_attention_d128"], "sd_attention_d512": 1})
+        launches = got if name == "exact" else launches
+        check_images(f"HiDream generate_from_embeddings ({name})", images[name])
+        print(f"[fast] HiDream generate_from_embeddings ({name}), {HIDREAM_STEPS} steps "
+              f"at 1024^2: {seconds:.3f} s, {got['sd_attention_d128']} d=128 launches",
+              flush=True)
+    if not np.array_equal(images["window 0:2"], images["exact"]):
+        raise AssertionError("HiDream cfg_interval=0:2 differs from the exact run")
+    diff = np.abs(images["window 1:2"].astype(int) - images["exact"].astype(int))
+    if not diff.max() > 0:
+        raise AssertionError("HiDream cfg_interval=1:2 equals the exact run")
+    print(f"[fast] HiDream cfg_interval=0:2 equals the exact run bit for bit; 1:2 "
+          f"(call 0 on the cond rows alone) is {diff.mean():.3f} uint8 levels from it "
+          f"on average, max {int(diff.max())}", flush=True)
+    add_launches(rows, launches)
+    del pipe, embeds, outs
+    torch.cuda.empty_cache()
+
+
+def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict) -> tuple:
+    """``generate-hidream --staged`` through the CLI, 1 prompt, 2 steps, CFG
+    5.0, at 1024^2 with the edit overlay, on ``path``: the PNG, the launches
+    derived from the steps (48 d=128 attentions per forward at batch 2) and
+    one decode, the seconds of the encoders' load, the encode phase, the DiT
+    load and the image after it, and the HBM around free_encoders."""
+    csv_path = os.path.join(WORK, "prompts_hidream.csv")
+    with open(csv_path, "w", newline="") as f:
+        csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
+                                 [0, FLUX_PROMPT, 1]])
+    out = os.path.join(WORK, f"images_hidream_{path}")
+    per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
+    want = {**per_decode, "sd_attention_d128": HIDREAM_STEPS * HIDREAM_DIT_LAUNCHES[
+        "sd_attention_d128"], "sd_attention_d512": 1}
+    want["sd_attention"] = want["sd_attention_d128"] + 1
+    seen, gn_seen, record = collections.Counter(), collections.Counter(), {}
+    with kernel_env(path == "kernels"):
+        reset_launches()
+        start = time.perf_counter()
+        with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                gn_seen, rows["group_norm_act"]), finite_decodes(), hidream_stages(record):
+            rc = cli_main(["generate-hidream", "--model_name", snap, "--prompts_path",
+                           csv_path, "--save_path", out, "--uce_model_path", edit_path,
+                           "--num_inference_steps", str(HIDREAM_STEPS), "--staged",
+                           "--device", "cuda"])
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+    if path == "kernels":
+        want["conv3x3_reduce"] = conv_split_sums(seen)
+    if rc != 0:
+        raise AssertionError(f"generate-hidream ({path}): rc {rc}")
+    what = (f"HiDream-I1 generate-hidream --staged ({path}), 1 row x ({HIDREAM_STEPS} "
+            "steps at CFG batch 2 + 1 decode)")
+    expect_launches(what, launches, want)
+    image = read_case_images(os.path.join(out, "erase_art"), [[0, None, None]])[0]
+    check_images(what, [image])
+    print(f"[generate] {what}: 1 PNG 1024x1024x3 uint8 in {seconds:.2f} s (CLI wall); "
+          f"encoders loaded in {record['load']:.1f} s, encode phase "
+          f"{record['encode']:.2f} s, {check_free_encoders(what, record)}, DiT loaded in "
+          f"{record['dit_load']:.1f} s, {record['image']:.3f} s for the image after the "
+          f"load; launches {launches} (want {want})", flush=True)
+    return launches, image
+
+
+def run_hidream(rows: dict, seconds: dict) -> None:
+    """HiDream-I1-Full at full width and depth: snapshot, edit-hidream, the
+    staged pipeline's DiT forward on both paths and its CFG window, and
+    generate-hidream --staged on both paths."""
+    snap, fds = os.path.join(WORK, "hidream_random"), []
+    print(f"[host] {host_memory()}", flush=True)
+    try:
+        with timed("HiDream snapshot", seconds):
+            start = time.perf_counter()
+            nbytes = write_hidream_snapshot(snap, fds)
+            print(f"[hidream] snapshot: {nbytes} bytes written to host memory (the DiT) "
+                  f"and disk in {time.perf_counter() - start:.1f} s; {host_memory()}",
+                  flush=True)
+        with timed("HiDream edit", seconds):
+            edit_path = phase_hidream_edit(snap)
+        with timed("HiDream DiT", seconds):
+            phase_hidream_dit(snap, rows)
+        with timed("HiDream generate", seconds):
+            phase_hidream_generate(snap, edit_path, "library", rows)
+            launches, kernel_image = phase_hidream_generate(snap, edit_path, "kernels", rows)
+            add_launches(rows, launches)
+            library_image = read_case_images(os.path.join(
+                WORK, "images_hidream_library", "erase_art"), [[0, None, None]])[0]
+            diff = np.abs(kernel_image.astype(int) - library_image.astype(int))
+            print(f"[generate] HiDream kernels vs library path: mean |diff| "
+                  f"{diff.mean():.3f} uint8 levels, max {int(diff.max())}", flush=True)
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+        close_files(fds)
+        torch.cuda.empty_cache()
+        print(f"[host] snapshot closed; {host_memory()}", flush=True)
 
 
 def main() -> int:
@@ -2226,6 +2724,7 @@ def main() -> int:
         run_model(SD21, rows, seconds, lms_steps=LMS_STEPS)
         run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC)
         run_flux(rows, seconds)
+        run_hidream(rows, seconds)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"[time] total {time.perf_counter() - start:.1f} s", flush=True)

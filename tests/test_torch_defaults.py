@@ -138,3 +138,35 @@ def test_flux_clis_default_to_cuda_and_do_not_fall_back(command, monkeypatch, tm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([command, *argv])
+
+
+def test_hidream_entry_points_default_to_cuda():
+    """HiDream's library entry points: the pipeline (its device field and
+    from_pretrained), the edit's resources and solve, the Llama loader, and
+    the random-weight draws of the DiT and the Llama."""
+    from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline, load_transformer
+    from uce_tpu_torch.edit import hidream as edit_hd
+    from uce_tpu_torch.models import hidream, llama
+
+    for cls in (HiDreamPipeline, edit_hd.HiDreamEditResources):
+        field = {f.name: f for f in dataclasses.fields(cls)}["device"]
+        assert field.default == torch.device("cuda"), cls
+    for fn in (HiDreamPipeline.from_pretrained, load_transformer, edit_hd.load_resources,
+               edit_hd.load_llama_encoder, edit_hd.erase_from_embeddings,
+               hidream.init_state_dict, llama.init_state_dict):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("command", ["edit-hidream", "generate-hidream"])
+def test_hidream_clis_default_to_cuda_and_do_not_fall_back(command, monkeypatch, tmp_path):
+    from uce_tpu_torch.cli.main import build_parser, main
+
+    argv = {"edit-hidream": ["--edit_concepts", "a", "--concept_type", "art",
+                             "--model_id", str(tmp_path)],
+            "generate-hidream": ["--model_name", str(tmp_path), "--prompts_path",
+                                 str(tmp_path / "p.csv"), "--save_path",
+                                 str(tmp_path)]}[command]
+    assert build_parser().parse_args([command, *argv]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, *argv])

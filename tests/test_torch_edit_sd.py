@@ -9,7 +9,8 @@ import torch
 
 from tests.snapshot import make_sd_snapshot
 from tests.test_goldens import GOLDEN_PATH
-from uce_tpu_torch.models.hf_loader import read_safetensors, save_safetensors
+from uce_tpu_torch.models.hf_loader import (iter_safetensors_file, read_safetensors,
+                                          save_safetensors)
 from uce_tpu_torch.ops.solver import apply_edit_matrix, uce_edit_matrix
 
 
@@ -60,6 +61,9 @@ def test_safetensors_round_trip_with_the_library(tmp_path, dtype):
         assert back.keys() == tensors.keys()
         for k, v in tensors.items():
             assert back[k].dtype == dtype and torch.equal(back[k], v)
+        # one buffer for every tensor of the file, each copied out in turn
+        reused = {k: t.clone() for k, t in iter_safetensors_file(str(path), reuse=True)}
+        assert all(torch.equal(reused[k], v) for k, v in tensors.items())
 
 
 @pytest.fixture(scope="module")

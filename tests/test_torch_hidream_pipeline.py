@@ -1,0 +1,207 @@
+"""The port's HiDream-I1 pipeline (uce_tpu_torch/diffusion/pipeline_hidream.py)
+against uce_tpu's: the pixel-major latent packing, whole generations from
+tests/snapshot.py's tiny HiDream snapshot in fp32 at 16x16, 2 steps, CFG
+5.0, within 1 uint8 level of uce_tpu's images (the bar of
+tests/test_pipeline_parity.py), also with a UCE edit overlay; the staged
+load equal to the whole one; the CFG window; and the generate-hidream CLI
+with --staged."""
+
+import csv
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from uce_tpu_torch.diffusion import pipeline_hidream as tph
+from uce_tpu_torch.diffusion.sampler import FastConfig
+from uce_tpu_torch.models.hf_loader import save_safetensors
+
+GEN = dict(num_inference_steps=2, guidance_scale=5.0, height=16, width=16)
+
+
+def _max_diff(a, b) -> int:
+    return int(np.abs(np.asarray(a).astype(np.int32) - np.asarray(b).astype(np.int32)).max())
+
+
+def test_pack_unpack_roundtrip_and_pixel_major_order():
+    """The port packs NCHW latents as uce_tpu packs the same latents NHWC:
+    packed[k] = lat[py, px, c] at k = (py*2 + px)*C + c (pixel-major, not
+    FLUX's channel-major order)."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion import pipeline_hidream as jph
+
+    lat = torch.as_tensor(np.random.default_rng(0).standard_normal((2, 4, 8, 12)),
+                          dtype=torch.float32)
+    packed = tph.pack_latents(lat)
+    assert packed.shape == (2, 4 * 6, 16)
+    want = np.asarray(jph.pack_latents(jnp.asarray(lat.permute(0, 2, 3, 1).numpy())))
+    np.testing.assert_array_equal(packed.numpy(), want)
+    assert torch.equal(tph.unpack_latents(packed, 8, 12), lat)
+    one = torch.zeros(1, 3, 2, 2)
+    for c in range(3):
+        for py in range(2):
+            for px in range(2):
+                one[0, c, py, px] = c * 100 + py * 10 + px
+    got = tph.pack_latents(one)[0, 0]
+    for k in range(12):
+        pix, c = divmod(k, 3)
+        py, px = divmod(pix, 2)
+        assert got[k] == c * 100 + py * 10 + px
+
+
+@pytest.fixture(scope="module")
+def hd_snap(tmp_path_factory):
+    from tests.snapshot import make_hidream_snapshot
+
+    return make_hidream_snapshot(tmp_path_factory.mktemp("torch_hidream_pipe_snap"))
+
+
+@pytest.fixture(scope="module")
+def tpipe(hd_snap):
+    return tph.HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                               max_sequence_length=16, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def edit_path(tmp_path_factory):
+    rng = np.random.default_rng(0)
+    path = str(tmp_path_factory.mktemp("torch_hidream_edit") / "edit.safetensors")
+    save_safetensors({f"caption_projection.{i}.linear.weight":
+                      torch.as_tensor(rng.standard_normal((32, 16)) * 0.3,
+                                      dtype=torch.float32) for i in (0, 2)}
+                     | {"unrelated.weight": torch.zeros(2, 2)}, path)
+    return path
+
+
+def test_images_match_uce_tpu_with_and_without_edit(hd_snap, tpipe, edit_path, capsys):
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_hidream import HiDreamPipeline as JaxHiDream
+
+    jpipe = JaxHiDream.from_pretrained(hd_snap, dtype=jnp.float32, max_sequence_length=16)
+    kw = dict(GEN, seed=4, num_images_per_prompt=2)
+    want = np.asarray(jpipe("van gogh style", **kw))
+    got = tpipe("van gogh style", **kw)
+    assert got.shape == want.shape == (2, 16, 16, 3) and got.dtype == np.uint8
+    assert _max_diff(got, want) <= 1
+    assert (got[0] != got[1]).any()
+
+    edited = tph.HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                                 max_sequence_length=16, device="cpu")
+    jpipe.load_uce_edits(edit_path)
+    edited.load_uce_edits(edit_path)
+    assert "skipped unknown key unrelated.weight" in capsys.readouterr().out
+    got_e = edited("van gogh style", **kw)
+    assert _max_diff(got_e, np.asarray(jpipe("van gogh style", **kw))) <= 1
+    assert (got_e != got).any()
+
+
+def test_edit_overlay_index_and_shape_errors(hd_snap, tmp_path):
+    """Index n_llama is the T5 projection; a larger index (another
+    config's artifact) or another shape raises."""
+    pipe = tph.HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                               max_sequence_length=16, device="cpu")
+    t5_key = "caption_projection.2.linear.weight"  # 2 llama streams, then T5
+    path = str(tmp_path / "t5.safetensors")
+    save_safetensors({t5_key: torch.ones(32, 16)}, path)
+    pipe.load_uce_edits(path)
+    assert torch.equal(pipe.transformer_params[t5_key], torch.ones(32, 16))
+    for key, shape, match in [("caption_projection.3.linear.weight", (32, 16), "exceeds"),
+                              ("caption_projection.0.linear.weight", (16, 32), "shape")]:
+        save_safetensors({key: torch.zeros(shape)}, path)
+        with pytest.raises(ValueError, match=match):
+            pipe.load_uce_edits(path)
+
+
+def test_staged_equals_whole_load(hd_snap, tpipe, edit_path):
+    """from_pretrained(staged=True): encode, free_encoders, then the DiT
+    loads on the first generate_from_embeddings call, with the pending
+    edit applied then: the whole load's images, bit for bit."""
+    whole = tph.HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                                max_sequence_length=16, device="cpu")
+    whole.load_uce_edits(edit_path)
+    want = whole("a cat", **GEN, seed=3)
+    pipe = tph.HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                               max_sequence_length=16, staged=True,
+                                               device="cpu")
+    assert pipe.transformer_params is None
+    pipe.load_uce_edits(edit_path)
+    assert pipe.transformer_params is None and pipe.pending_edits == [edit_path]
+    embeds = tph.cfg_embeddings(pipe.encode_prompts([""]), pipe.encode_prompts(["a cat"]))
+    pipe.free_encoders()
+    with pytest.raises(RuntimeError, match="freed"):
+        pipe.encode_prompts(["a dog"])
+    got = pipe.generate_from_embeddings(*(e.cpu() for e in embeds), do_cfg=True, **GEN,
+                                        seed=3)
+    np.testing.assert_array_equal(got, want)
+    assert pipe.pending_edits == [] and pipe.transformer_params is not None
+    t5, llama, pooled = embeds
+    assert t5.shape == (2, 16, 16) and llama.shape == (2, 2, 16, 16)
+    assert pooled.shape == (2, 36)
+    with pytest.raises(ValueError, match="pre-expanded"):
+        pipe.generate_from_embeddings(t5, llama, pooled[:1], do_cfg=True, **GEN)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        pipe.generate_from_embeddings(t5, llama, pooled, do_cfg=True,
+                                      **dict(GEN, height=18))
+
+
+def test_fast_cfg_window(tpipe):
+    """A window over every call equals the exact run bit for bit; a window
+    over call 1 only (call 0 on the cond rows alone) differs; cache=N
+    raises; without CFG fast is ignored."""
+    kw = dict(GEN, seed=3)
+    base = tpipe("a cat", **kw)
+    np.testing.assert_array_equal(
+        tpipe("a cat", fast=FastConfig(cfg_interval=(0, 100)), **kw), base)
+    fast = tpipe("a cat", fast=FastConfig(cfg_interval=(1, 2)), **kw)
+    assert fast.shape == base.shape and (fast != base).any()
+    with pytest.raises(ValueError, match="cfg_interval only"):
+        tpipe("a cat", fast=FastConfig(cache_interval=2), **kw)
+    no_cfg = dict(kw, guidance_scale=1.0)
+    np.testing.assert_array_equal(
+        tpipe("a cat", fast=FastConfig(cfg_interval=(0, 1)), **no_cfg),
+        tpipe("a cat", **no_cfg))
+
+
+def test_quantize_and_mesh_raise_with_their_items(hd_snap, tpipe):
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tph.HiDreamPipeline.from_pretrained(hd_snap, quantize="w8", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tpipe.quantize_weights("w8")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tpipe.apply_mesh(None)
+
+
+def test_generate_hidream_cli_staged(hd_snap, tpipe, edit_path, tmp_path):
+    """``generate-hidream --staged`` writes {case}_{num}.png under the
+    edit's stem for the CSV's case window, with the pipeline's images; the
+    options this port has not taken yet exit with their ROADMAP item."""
+    from uce_tpu_torch.cli.main import main
+    from uce_tpu_torch.utils.imaging import decode_png
+
+    csv_path = tmp_path / "prompts.csv"
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["case_number", "prompt", "evaluation_seed"])
+        w.writerows([[0, "a cat", 5], [1, "a dog", 6], [2, "a fox", 7]])
+    base = ["generate-hidream", "--model_name", hd_snap, "--prompts_path", str(csv_path),
+            "--save_path", str(tmp_path / "out"), "--uce_model_path", edit_path,
+            "--image_size", "16", "--num_inference_steps", "2", "--max_sequence_length",
+            "16", "--device", "cpu"]
+    assert main(base + ["--till_case", "1", "--num_samples", "2", "--staged"]) == 0
+    folder = tmp_path / "out" / "edit"
+    assert sorted(os.listdir(folder)) == ["0_0.png", "0_1.png", "1_0.png", "1_1.png"]
+    pipe = tph.HiDreamPipeline.from_pretrained(hd_snap, max_sequence_length=16,
+                                               device="cpu")
+    pipe.load_uce_edits(edit_path)
+    want = pipe("a dog", num_inference_steps=2, seed=6, num_images_per_prompt=2,
+                height=16, width=16)
+    for num in range(2):
+        img = decode_png((folder / f"1_{num}.png").read_bytes())
+        np.testing.assert_array_equal(img, want[num])
+    for flag, item in [(["--quantize", "w8"], "item 17"), (["--mesh", "data=2"], "item 4"),
+                       (["--fast", "cache=2"], "cfg_interval only")]:
+        with pytest.raises(SystemExit, match=item):
+            main(base + flag)

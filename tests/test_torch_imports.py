@@ -31,11 +31,16 @@ FLUX = {{"uce_tpu_torch.models.t5", "uce_tpu_torch.models.flux",
          "uce_tpu_torch.diffusion.pipeline_flux", "uce_tpu_torch.edit.flux",
          "uce_tpu_torch.cli.edit_cmds", "uce_tpu_torch.cli.flux_gen_cmd"}}
 assert FLUX <= set(names), FLUX - set(names)
+HIDREAM = {{"uce_tpu_torch.models.llama", "uce_tpu_torch.models.hidream",
+            "uce_tpu_torch.diffusion.pipeline_hidream", "uce_tpu_torch.edit.hidream",
+            "uce_tpu_torch.cli.hidream_gen_cmd"}}
+assert HIDREAM <= set(names), HIDREAM - set(names)
 for name in names:
     importlib.import_module(name)
 from uce_tpu_torch.cli.main import main
 for argv in (["--help"], ["edit-sd", "--help"], ["edit-sdxl", "--help"],
              ["edit-flux", "--help"], ["generate", "--help"], ["generate-flux", "--help"],
+             ["edit-hidream", "--help"], ["generate-hidream", "--help"],
              ["serve", "--help"], ["debias-sd", "--help"],
              ["eval-clip-classify", "--help"]):
     try:
@@ -52,7 +57,7 @@ def test_port_imports_without_reference_packages():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("imported")[-1]) >= 51
+    assert int(proc.stdout.split("imported")[-1]) >= 56
 
 
 def test_module_entry_point_help():
@@ -60,3 +65,4 @@ def test_module_entry_point_help():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "edit-sd" in proc.stdout
     assert "edit-flux" in proc.stdout and "generate-flux" in proc.stdout
+    assert "edit-hidream" in proc.stdout and "generate-hidream" in proc.stdout

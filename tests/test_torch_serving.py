@@ -313,7 +313,7 @@ def test_serve_cli_bench_mode_with_ladder(snap, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--family", "hidream"], "items 14/15"),
+    (["--family", "hidream"], "--quantize w8 \\(ROADMAP queue 1 item 17\\)"),
     (["--mesh", "data=2"], "not ported"),
 ])
 def test_serve_cli_rejects_what_is_not_ported(snap, argv, match):

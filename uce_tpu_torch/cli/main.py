@@ -1,6 +1,7 @@
 """CLI of the port: ``python -m uce_tpu_torch <edit-sd|edit-sdxl|edit-flux|
-debias-sd|generate|generate-flux|serve|eval-clip-classify> ...`` with the flag
-names of the uce_tpu CLI (and of the reference scripts).
+edit-hidream|debias-sd|generate|generate-flux|generate-hidream|serve|
+eval-clip-classify> ...`` with the flag names of the uce_tpu CLI (and of the
+reference scripts).
 
 ``--device`` defaults to ``cuda``; ``cpu`` runs only when asked for. A run
 that asks for cuda where there is none fails rather than use the CPU.
@@ -78,13 +79,14 @@ def cmd_edit_sd(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from uce_tpu_torch.cli import debias_cmd, edit_cmds, flux_gen_cmd, serve_cmd
+    from uce_tpu_torch.cli import (debias_cmd, edit_cmds, flux_gen_cmd, hidream_gen_cmd,
+                                   serve_cmd)
     from uce_tpu_torch.eval import clip_classify, generate
 
     parser = argparse.ArgumentParser(
         prog="python -m uce_tpu_torch",
         description="Unified Concept Editing on PyTorch/CUDA (SD v1.x/v2.x, SDXL, "
-                    "FLUX.1)")
+                    "FLUX.1, HiDream-I1)")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("edit-sd", help="closed-form erase for SD v1.x/v2.x")
     _add_edit_flags(p, "CompVis/stable-diffusion-v1-4")
@@ -96,6 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     debias_cmd.register_cli(sub, _add_device_flag)
     generate.register_cli(sub, _add_device_flag)
     flux_gen_cmd.register_cli(sub, _add_device_flag)
+    hidream_gen_cmd.register_cli(sub, _add_device_flag)
     serve_cmd.register_cli(sub, _add_device_flag)
     clip_classify.register_cli(sub, _add_device_flag)
     return parser

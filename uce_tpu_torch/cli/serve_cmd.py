@@ -88,8 +88,10 @@ def _cmd(args) -> int:
     from uce_tpu_torch.serving.socket_api import SocketFrontend
 
     if args.family == "hidream":
-        raise NotImplementedError(f"serve --family {args.family} is not ported "
-                                  "yet (ROADMAP queue 1 items 14/15)")
+        raise NotImplementedError(
+            "serve --family hidream is not ported yet: the server loads the pipeline "
+            "whole (unstaged), and HiDream-I1's 52 GB of fp32 encoders and 34 GB bf16 "
+            "DiT fit one 80 GB card only with --quantize w8 (ROADMAP queue 1 item 17)")
     if args.mesh:
         raise NotImplementedError("serve --mesh is not ported yet (ROADMAP "
                                   "queue 1 item 5; one GPU for now)")

@@ -1,0 +1,355 @@
+"""HiDream-I1 text-to-image pipeline (flow matching, four text encoders), as
+``uce_tpu/diffusion/pipeline_hidream.py`` runs it.
+
+Conditioning: CLIP-L and CLIP-G pooled (concatenated), a T5 sequence and
+Llama-3.1 hidden states (``hidden_states[1:]`` at the DiT config's
+``llama_layers``), all at ``max_sequence_length`` = 128
+(``uce_hidream_edit.py:220``). Then FlowMatchEuler steps of the MoE DiT,
+which predicts the negated flow (``v = -pred``), under CFG with the
+unconditional rows first, the Euler update in fp32, and the 16-channel VAE
+with its ``shift_factor``.
+
+The encoders run in fp32 and the DiT in bf16, as uce_tpu loads them: at
+HiDream-I1-Full's widths about 52 GB of encoders and 34 GB of DiT, more
+than one 80 GB card holds at once. ``from_pretrained(staged=True)`` defers
+the DiT: encode every prompt, ``free_encoders()``, then the DiT loads into
+the freed memory on the first ``generate_from_embeddings`` call (the
+reference's three-phase load, ``uce_hidream_edit.py:16-28, 51-64, 97-108``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import os
+import re
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from uce_tpu_torch.diffusion import schedulers
+from uce_tpu_torch.diffusion.pipeline_flux import compute_shift_mu, make_img_ids
+from uce_tpu_torch.edit import embeddings as emb
+from uce_tpu_torch.edit.flux import load_t5_encoder, load_t5_tokenizer
+from uce_tpu_torch.edit.hidream import (load_llama_encoder, load_llama_tokenizer,
+                                        resolve_llama_dir)
+from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
+from uce_tpu_torch.models import clip_text, hidream as hd_mod, llama as llama_mod
+from uce_tpu_torch.models import t5 as t5_mod, unet as unet_mod, vae as vae_mod
+from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
+from uce_tpu_torch.utils import torch_rng
+
+_EDIT_KEY = re.compile(r"caption_projection\.(\d+)\.linear\.weight$")
+
+
+def pack_latents(latents: torch.Tensor) -> torch.Tensor:
+    """[B, C, h, w] -> [B, (h/2)(w/2), 4C] 2x2 patch packing, PIXEL-major
+    inner order (py, px, c): HiDream's own patchify (einops 'B C (H p1)
+    (W p2) -> B (H W) (p1 p2 C)'), which its x_embedder and final layer
+    are trained against. Not FLUX's channel-major packing."""
+    b, c, h, w = latents.shape
+    x = latents.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 3, 5, 1)
+    return x.reshape(b, (h // 2) * (w // 2), 4 * c)
+
+
+def unpack_latents(packed: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Inverse of pack_latents -> [B, C, h, w]; h, w are the unpacked
+    latent dims."""
+    b, _, c4 = packed.shape
+    c = c4 // 4
+    x = packed.reshape(b, h // 2, w // 2, 2, 2, c).permute(0, 5, 1, 3, 2, 4)
+    return x.reshape(b, c, h, w)
+
+
+def load_transformer(model_dir: str, dtype=torch.bfloat16, device="cuda"):
+    """(params, config) of the snapshot's MoE DiT, read tensor by tensor
+    straight into ``dtype`` on ``device``."""
+    config = hd_mod.HiDreamConfig.from_hf(
+        load_json(os.path.join(model_dir, "transformer", "config.json")))
+    sd = load_state_dict(model_dir, "transformer", dtype=dtype, device=device)
+    return hd_mod.convert_hf_state_dict(sd), config
+
+
+def cuda_allocated(device: torch.device) -> str:
+    """The card's allocated bytes, for the staged load's prints."""
+    return f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB"
+
+
+@dataclasses.dataclass
+class HiDreamPipeline:
+    transformer_params: dict | None
+    transformer_config: hd_mod.HiDreamConfig
+    clip_params: dict | None
+    clip_config: clip_text.CLIPTextConfig
+    clip_tokenizer: object
+    clip_params_2: dict | None
+    clip_config_2: clip_text.CLIPTextConfig
+    clip_tokenizer_2: object
+    t5_params: dict | None
+    t5_config: t5_mod.T5Config
+    t5_tokenizer: object
+    llama_params: dict | None
+    llama_config: llama_mod.LlamaConfig
+    llama_tokenizer: object
+    vae_params: dict
+    vae_config: vae_mod.VAEConfig
+    scheduler_config: dict
+    dtype: torch.dtype = torch.bfloat16
+    max_sequence_length: int = 128
+    device: torch.device = torch.device("cuda")
+    # staged loading: where the deferred DiT comes from, and the edits to
+    # overlay once it is loaded
+    model_dir: str | None = None
+    pending_edits: list = dataclasses.field(default_factory=list)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, llama_dir: str | None = None,
+                        dtype=torch.bfloat16, max_sequence_length: int = 128,
+                        staged: bool = False, quantize: str | None = None,
+                        device="cuda") -> "HiDreamPipeline":
+        """Load a HiDream snapshot (and a Llama-3.1 snapshot, by default its
+        ``text_encoder_4``). ``staged=True`` loads everything but the DiT,
+        which waits for the first generation call (after
+        ``free_encoders()``)."""
+        if quantize:
+            raise NotImplementedError(
+                f"HiDream --quantize {quantize} (the depth-stacked DiT quantization) "
+                "is not ported yet (ROADMAP queue 1 item 17)")
+        device = torch.device(device)
+        llama_dir = resolve_llama_dir(model_dir, llama_dir)
+        if staged:
+            tparams, tcfg = None, hd_mod.HiDreamConfig.from_hf(
+                load_json(os.path.join(model_dir, "transformer", "config.json")))
+        else:
+            tparams, tcfg = load_transformer(model_dir, dtype, device)
+        cparams, ccfg = load_text_encoder(model_dir, "text_encoder", device)
+        cparams2, ccfg2 = load_text_encoder(model_dir, "text_encoder_2", device)
+        t5params, t5cfg = load_t5_encoder(model_dir, device, "text_encoder_3")
+        lparams, lcfg = load_llama_encoder(llama_dir, device)
+        tok4 = os.path.join(model_dir, "tokenizer_4")
+        vcfg = vae_mod.VAEConfig.from_hf(
+            load_json(os.path.join(model_dir, "vae", "config.json")))
+        vparams = unet_mod.load_params(load_state_dict(model_dir, "vae"), dtype, device)
+        sp = os.path.join(model_dir, "scheduler", "scheduler_config.json")
+        scfg = (load_json(sp) if os.path.exists(sp)
+                else {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 3.0})
+        return cls(
+            transformer_params=tparams, transformer_config=tcfg,
+            clip_params=cparams, clip_config=ccfg,
+            clip_tokenizer=load_tokenizer(model_dir, "tokenizer"),
+            clip_params_2=cparams2, clip_config_2=ccfg2,
+            clip_tokenizer_2=load_tokenizer(model_dir, "tokenizer_2"),
+            t5_params=t5params, t5_config=t5cfg,
+            t5_tokenizer=load_t5_tokenizer(model_dir, "tokenizer_3"),
+            llama_params=lparams, llama_config=lcfg,
+            llama_tokenizer=load_llama_tokenizer(tok4 if os.path.isdir(tok4) else llama_dir),
+            vae_params=vparams, vae_config=vcfg, scheduler_config=scfg, dtype=dtype,
+            max_sequence_length=max_sequence_length, device=device, model_dir=model_dir)
+
+    def free_encoders(self) -> None:
+        """Drop the four text encoders' weights (CLIP-L/G, T5, Llama) and hand
+        their memory back to the card (``torch.cuda.empty_cache``); after
+        this only ``generate_from_embeddings`` works."""
+        on_card = self.device.type == "cuda"
+        if on_card:
+            before = cuda_allocated(self.device)
+        self.clip_params = self.clip_params_2 = self.t5_params = self.llama_params = None
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            print(f"free_encoders: {before} -> {cuda_allocated(self.device)} allocated "
+                  "on the card", flush=True)
+
+    def quantize_weights(self, mode: str = "w8") -> None:
+        raise NotImplementedError(
+            f"HiDream quantize_weights({mode!r}) (the depth-stacked DiT quantization) "
+            "is not ported yet (ROADMAP queue 1 item 17)")
+
+    def apply_mesh(self, mesh) -> None:
+        raise NotImplementedError("HiDream apply_mesh is not ported yet (ROADMAP queue 1 "
+                                  "item 4; one GPU for now)")
+
+    def _ensure_transformer(self) -> None:
+        if self.transformer_params is not None:
+            return
+        if self.model_dir is None:
+            raise RuntimeError("staged pipeline has no model_dir to load the DiT from")
+        self.transformer_params, self.transformer_config = load_transformer(
+            self.model_dir, self.dtype, self.device)
+        for path in self.pending_edits:
+            self.load_uce_edits(path)
+        self.pending_edits = []
+
+    def load_uce_edits(self, safetensors_path: str) -> None:
+        """Overlay UCE-edited caption projections (uce_hidream_edit.py's
+        artifacts: 'caption_projection.<i>.linear.weight'); index n_llama
+        is the T5 projection, a larger index or another shape raises, other
+        keys are skipped. A staged pipeline applies them when the DiT loads."""
+        if self.transformer_params is None:
+            self.pending_edits.append(safetensors_path)
+            return
+        n_llama = self.transformer_config.num_caption_projections - 1
+        for key, v in read_safetensors(safetensors_path).items():
+            m = _EDIT_KEY.match(key)
+            if m is None:
+                print(f"load_uce_edits: skipped unknown key {key}")
+                continue
+            i = int(m.group(1))
+            if i > n_llama:
+                # Llama and T5 projections share a shape here: an artifact of
+                # another config must not land on the T5 slot
+                raise ValueError(f"{key}: index {i} exceeds this model's {n_llama} "
+                                 "llama + 1 t5 caption projections")
+            old = self.transformer_params[key]
+            if tuple(v.shape) != tuple(old.shape):
+                raise ValueError(f"{key}: shape {tuple(v.shape)} does not match the "
+                                 f"model's caption projection {tuple(old.shape)}")
+            self.transformer_params[key] = v.float().to(device=old.device, dtype=self.dtype)
+
+    @torch.inference_mode()
+    def encode_prompts(self, prompts: Sequence[str]):
+        """(t5 [B, S, D], llama [num_blocks, B, S, D] at llama_layers, pooled
+        [B, 768 + 1280]) in the pipeline's dtype."""
+        if self.clip_params is None or self.t5_params is None or self.llama_params is None:
+            raise RuntimeError("encoders were freed (free_encoders); encode prompts "
+                               "before freeing, then use generate_from_embeddings")
+        prompts = list(prompts)
+        as_dev = lambda a: torch.as_tensor(a, device=self.device)
+        pooled = []
+        for params, cfg, tok in ((self.clip_params, self.clip_config, self.clip_tokenizer),
+                                 (self.clip_params_2, self.clip_config_2,
+                                  self.clip_tokenizer_2)):
+            ids, _ = emb.tokenize_batch(tok, prompts, cfg.max_position_embeddings)
+            pooled.append(clip_text.encode_tokens(params, as_dev(ids), cfg)[1])
+        pooled = torch.cat(pooled, dim=-1).to(self.dtype)
+        ids_t, mask_t = emb.tokenize_batch(self.t5_tokenizer, prompts,
+                                           self.max_sequence_length)
+        t5_out = t5_mod.encode_tokens(self.t5_params, as_dev(ids_t), as_dev(mask_t),
+                                      self.t5_config).to(self.dtype)
+        ids_l, mask_l = emb.tokenize_batch(self.llama_tokenizer, prompts,
+                                           self.max_sequence_length)
+        hidden = llama_mod.encode_tokens(self.llama_params, as_dev(ids_l), as_dev(mask_l),
+                                         self.llama_config)
+        layers = torch.as_tensor(self.transformer_config.llama_layers, device=self.device)
+        llama = hidden[1:][layers].to(self.dtype)  # HF hidden_states[1:]
+        return t5_out, llama, pooled
+
+    def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
+                 guidance_scale: float = 5.0, num_images_per_prompt: int = 1,
+                 seed: int | Sequence[int] = 0, height: int = 1024, width: int = 1024,
+                 negative_prompt: str | Sequence[str] | None = None,
+                 fast=None) -> np.ndarray:
+        """uint8 images [N, H, W, 3]."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        n_prompts = len(prompts)
+        prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
+        do_cfg = guidance_scale > 1.0
+        embeds = self.encode_prompts(prompts)
+        if do_cfg:
+            if negative_prompt is None:
+                negatives = [""] * len(prompts)
+            elif isinstance(negative_prompt, str):
+                negatives = [negative_prompt] * len(prompts)
+            else:
+                negatives = [n for n in negative_prompt for _ in range(num_images_per_prompt)]
+                if len(negatives) != len(prompts):
+                    raise ValueError("len(negative_prompt) must match len(prompt)")
+            embeds = cfg_embeddings(self.encode_prompts(negatives), embeds)
+        return self.generate_from_embeddings(
+            *embeds, do_cfg=do_cfg, n_prompts=n_prompts,
+            num_images_per_prompt=num_images_per_prompt,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            seed=seed, height=height, width=width, fast=fast)
+
+    @torch.inference_mode()
+    def generate_from_embeddings(self, t5_e, llama_e, pooled_e, do_cfg: bool = False,
+                                 n_prompts: int | None = None,
+                                 num_images_per_prompt: int = 1,
+                                 num_inference_steps: int = 50,
+                                 guidance_scale: float = 5.0,
+                                 seed: int | Sequence[int] = 0, height: int = 1024,
+                                 width: int = 1024, fast=None) -> np.ndarray:
+        """Generate from precomputed embeddings (under CFG the unconditional
+        rows first, as ``cfg_embeddings`` joins them), which may lie on the
+        host: the staged path (encode, ``free_encoders()``, then this loads
+        the DiT on its first call).
+
+        ``fast``: a ``sampler.FastConfig`` with a ``cfg_interval`` window;
+        outside it only the conditional rows run. ``cache_interval`` must be
+        1 (a DiT has no deep UNet levels to cache); without CFG or a window
+        it is ignored."""
+        if fast is not None:
+            if fast.cache_interval != 1:
+                raise ValueError("HiDream fast mode supports cfg_interval only "
+                                 "(a DiT has no deep UNet levels to cache)")
+            if fast.cfg_interval is None or not do_cfg:
+                fast = None
+        self._ensure_transformer()
+        rows = t5_e.shape[0]
+        bsz = rows // (2 if do_cfg else 1)
+        if n_prompts is None:
+            n_prompts = bsz // num_images_per_prompt
+        if (n_prompts * num_images_per_prompt * (2 if do_cfg else 1) != rows
+                or pooled_e.shape[0] != rows or llama_e.shape[1] != rows):
+            raise ValueError(
+                f"embedding rows (t5 {rows}, pooled {pooled_e.shape[0]}, llama "
+                f"{llama_e.shape[1]}) must equal n_prompts ({n_prompts}) x "
+                f"num_images_per_prompt ({num_images_per_prompt})"
+                + (" x 2 (CFG: uncond rows first)" if do_cfg else "")
+                + "; embeds must be pre-expanded per sample")
+        vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
+        gran = 2 * vae_scale  # VAE downsampling x the 2x2 patch pack
+        if height % gran or width % gran:
+            raise ValueError(f"height/width must be multiples of {gran} (got "
+                             f"{height}x{width}): VAE scale {vae_scale} x the 2x2 "
+                             "latent patchify")
+        lh, lw = height // vae_scale, width // vae_scale
+        latents = torch_rng.draw_prompt_latents(
+            (lh, lw, self.vae_config.latent_channels), seed, n_prompts,
+            num_images_per_prompt).to(self.device, self.dtype)
+        lat = pack_latents(latents)
+        scfg = self.scheduler_config
+        use_dyn = scfg.get("use_dynamic_shifting", False)
+        mu = compute_shift_mu(lat.shape[1], scfg.get("base_image_seq_len", 256),
+                              scfg.get("max_image_seq_len", 4096),
+                              scfg.get("base_shift", 0.5),
+                              scfg.get("max_shift", 1.15)) if use_dyn else None
+        plan = schedulers.flow_match_euler_plan(
+            num_inference_steps, shift=scfg.get("shift", 3.0),
+            use_dynamic_shifting=use_dyn, mu=mu)
+
+        img_ids = make_img_ids(lh, lw)
+        cfg = self.transformer_config
+        t5_e, llama_e, pooled_e = (e.to(self.device, self.dtype)
+                                   for e in (t5_e, llama_e, pooled_e))
+        segments = (fast.segments(plan.num_calls) if fast is not None
+                    else [(0, plan.num_calls, False)])
+        for start, end, cond_only in segments:
+            if cond_only:  # outside the CFG window: the cond rows alone
+                te, le, pe = t5_e[bsz:], llama_e[:, bsz:], pooled_e[bsz:]
+            else:
+                te, le, pe = t5_e, llama_e, pooled_e
+            for i in range(start, end):
+                lat_in = torch.cat([lat, lat]) if do_cfg and not cond_only else lat
+                t = torch.full((lat_in.shape[0],), float(plan.timesteps[i]),
+                               device=self.device)
+                v = -hd_mod.apply(self.transformer_params, lat_in, te, le, pe, t,
+                                  img_ids, cfg)  # HiDream predicts the negated flow
+                if do_cfg and not cond_only:
+                    unc, txt = v.chunk(2)
+                    v = unc.float() + float(guidance_scale) * (txt - unc).float()
+                lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+        lat = unpack_latents(lat, lh, lw).float()
+        lat = lat / self.vae_config.scaling_factor + self.vae_config.shift_factor
+        imgs = vae_mod.decode(self.vae_params, lat.to(self.dtype), self.vae_config)
+        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
+        imgs = torch.round(imgs * 255.0).to(torch.uint8)
+        return imgs.permute(0, 2, 3, 1).cpu().numpy()
+
+
+def cfg_embeddings(uncond, cond):
+    """Join (t5, llama, pooled) embeddings for CFG, the unconditional rows
+    first (llama's rows are its second dim)."""
+    return (torch.cat([uncond[0], cond[0]]), torch.cat([uncond[1], cond[1]], dim=1),
+            torch.cat([uncond[2], cond[2]]))

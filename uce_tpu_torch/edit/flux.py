@@ -60,25 +60,26 @@ def default_max_sequence_length(model_id: str) -> int:
     return 256 if "schnell" in model_id else 512
 
 
-def load_t5_tokenizer(model_dir: str) -> CLIPTokenizer:
-    """``tokenizer_2`` in the CLIP BPE format (vocab.json + merges.txt), the
-    format of the repository's FLUX snapshots; a real T5 SentencePiece
-    tokenizer (spiece.model / tokenizer.json alone) is not read yet."""
-    path = os.path.join(model_dir, "tokenizer_2")
+def load_t5_tokenizer(model_dir: str, subfolder: str = "tokenizer_2") -> CLIPTokenizer:
+    """The T5 tokenizer (FLUX's ``tokenizer_2``, HiDream's ``tokenizer_3``)
+    in the CLIP BPE format (vocab.json + merges.txt), the format of the
+    repository's snapshots; a real T5 SentencePiece tokenizer (spiece.model
+    / tokenizer.json alone) is not read yet."""
+    path = os.path.join(model_dir, subfolder)
     if not all(os.path.exists(os.path.join(path, f)) for f in ("vocab.json", "merges.txt")):
         raise NotImplementedError(
             f"{path} holds no vocab.json + merges.txt: the T5 Unigram tokenizer "
             "(spiece.model / tokenizer.json) is not ported yet (ROADMAP queue 1 "
             "item 13)")
-    return load_tokenizer(model_dir, "tokenizer_2")
+    return load_tokenizer(model_dir, subfolder)
 
 
-def load_t5_encoder(model_dir: str, device="cuda"):
-    """(params, config) of a snapshot's T5 encoder (text_encoder_2), fp32 on
-    ``device``."""
+def load_t5_encoder(model_dir: str, device="cuda", subfolder: str = "text_encoder_2"):
+    """(params, config) of a snapshot's T5 encoder (FLUX's text_encoder_2,
+    HiDream's text_encoder_3), fp32 on ``device``."""
     config = t5_mod.T5Config.from_hf(
-        load_json(os.path.join(model_dir, "text_encoder_2", "config.json")))
-    sd = load_state_dict(model_dir, "text_encoder_2", dtype=torch.float32, device=device)
+        load_json(os.path.join(model_dir, subfolder, "config.json")))
+    sd = load_state_dict(model_dir, subfolder, dtype=torch.float32, device=device)
     return t5_mod.convert_hf_state_dict(sd, config), config
 
 

@@ -1,8 +1,8 @@
 """Weight carry-over from uce_tpu's parameter trees to the port's layouts.
 
 uce_tpu keeps nested dicts of arrays with conv kernels HWIO and linear
-weights [in, out] (CLIP text, T5 and the FLUX blocks layer-stacked as
-[L, ...]); the port keeps
+weights [in, out] (CLIP text, T5, Llama and the FLUX and HiDream blocks
+layer-stacked as [L, ...]); the port keeps
 diffusers/HF layouts (conv OIHW, linear [out, in]). Inputs are anything
 ``numpy.asarray`` accepts (numpy or jax arrays). A quantized leaf of
 uce_tpu (``{"qint8"|"w8int": int8, "scale": [1, ..., out]}``) becomes the
@@ -12,6 +12,7 @@ and its scale as ``[out]``.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -19,6 +20,8 @@ import torch
 
 from uce_tpu_torch.models.clip_text import _LAYER_KEYS, CLIPTextConfig
 from uce_tpu_torch.models.flux import FluxConfig
+from uce_tpu_torch.models.hidream import HiDreamConfig
+from uce_tpu_torch.models.llama import LlamaConfig
 from uce_tpu_torch.models.t5 import T5Config
 from uce_tpu_torch.ops.quant import QKEY, WKEY
 
@@ -105,16 +108,65 @@ def flux_params(params: Mapping, config: FluxConfig) -> dict:
     return out
 
 
+def _text_encoder(params: Mapping, n_layers: int) -> dict:
+    """A layer-stacked text encoder of uce_tpu (linear weights [L, in, out],
+    norm scales [L, D]) -> the port's per-layer list, HF layouts."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    return {
+        "token_embedding": t(params["token_embedding"]),
+        "layers": [{name: t(np.asarray(v[i]).T if np.asarray(v).ndim == 3 else v[i])
+                    for name, v in params["layers"].items()}
+                   for i in range(n_layers)],
+        "final_ln": t(params["final_ln"]),
+    }
+
+
 def t5_params(params: Mapping, config: T5Config) -> dict:
     """uce_tpu's layer-stacked T5 params ([in, out], rel_bias [heads,
     buckets]) -> the port's (HF layouts)."""
-    t = lambda a: torch.tensor(np.asarray(a, np.float32))
-    layers = params["layers"]
-    return {
-        "token_embedding": t(params["token_embedding"]),
-        "rel_bias": t(np.asarray(params["rel_bias"]).T),
-        "layers": [{name: t(np.asarray(v[i]).T if np.asarray(v).ndim == 3 else v[i])
-                    for name, v in layers.items()}
-                   for i in range(config.num_layers)],
-        "final_ln": t(params["final_ln"]),
-    }
+    return {**_text_encoder(params, config.num_layers),
+            "rel_bias": torch.tensor(np.asarray(params["rel_bias"], np.float32).T)}
+
+
+def llama_params(params: Mapping, config: LlamaConfig) -> dict:
+    """uce_tpu's layer-stacked Llama params ([in, out]) -> the port's (HF
+    layouts)."""
+    return _text_encoder(params, config.num_hidden_layers)
+
+
+def hidream_params(params: Mapping, config: HiDreamConfig) -> dict:
+    """uce_tpu's HiDream DiT params (both block families layer-stacked, the
+    routed experts as [L, E, in, out], the Llama caption projections as one
+    [n, in, out] bank) -> the port's flat diffusers state dict. The MoE
+    gate stays [E, D], as diffusers stores it."""
+    t = lambda name, a: torch.tensor(_to_port_layout(name, np.asarray(a, np.float32)))
+    stacked = {"double_stream_blocks": config.num_layers,
+               "single_stream_blocks": config.num_single_layers}
+    out = {}
+    for key, v in _flatten(params).items():
+        family, _, rest = key.partition(".")
+        v = np.asarray(v, np.float32)
+        if family == "caption_projection":
+            if rest == "llama.weight":
+                for i in range(v.shape[0]):
+                    out[f"caption_projection.{i}.linear.weight"] = t("weight", v[i])
+            else:
+                n = config.num_caption_projections - 1
+                out[f"caption_projection.{n}.linear.weight"] = t("weight", v)
+        elif family in stacked:
+            assert v.shape[0] == stacked[family], key
+            for i in range(stacked[family]):
+                name = f"{family}.{i}.block.{rest}".replace(".ff_i.shared.",
+                                                             ".ff_i.shared_experts.")
+                expert = re.fullmatch(r"(.*)\.experts\.(w[123])\.weight", name)
+                if expert:
+                    for e in range(v.shape[1]):
+                        out[f"{expert.group(1)}.experts.{e}.{expert.group(2)}.weight"] = \
+                            t("weight", v[i, e])
+                elif name.endswith(".gate.weight"):
+                    out[name] = torch.tensor(v[i])
+                else:
+                    out[name] = t(name, v[i])
+        else:
+            out[key] = t(key, v)
+    return out

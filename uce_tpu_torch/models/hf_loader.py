@@ -35,28 +35,39 @@ def iter_safetensors(model_dir: str, subfolder: str | None = None) -> Iterable[s
     return [os.path.join(root, n) for n in names]
 
 
-def iter_safetensors_file(path: str, keys: Callable[[str], bool] | None = None
-                          ) -> Iterator[tuple[str, torch.Tensor]]:
+def iter_safetensors_file(path: str, keys: Callable[[str], bool] | None = None,
+                          reuse: bool = False) -> Iterator[tuple[str, torch.Tensor]]:
     """(name, CPU tensor) of one file (optionally filtered by name), one
-    tensor at a time, each copied out of a memory map of the file."""
+    tensor at a time, each read from the file into its own buffer. With
+    ``reuse``, every tensor is read into one buffer (pinned where CUDA is
+    available) and is a view of it that the next one overwrites: for a
+    caller that copies each tensor away before taking the next."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n) \
-        if os.path.getsize(path) > 8 + n else np.zeros(0, np.uint8)
-    for name, info in header.items():
-        if name == "__metadata__" or (keys is not None and not keys(name)):
-            continue
-        dtype = _DTYPES.get(info["dtype"])
-        if dtype is None:
-            raise ValueError(f"{path}: unsupported dtype {info['dtype']}")
-        begin, end = info["data_offsets"]
-        shape = tuple(info["shape"])
-        if end == begin:
-            yield name, torch.empty(shape, dtype=dtype)
-            continue
-        buf = bytearray(data[begin:end])
-        yield name, torch.frombuffer(buf, dtype=dtype).reshape(shape)
+        entries = [(name, info) for name, info in header.items()
+                   if name != "__metadata__" and (keys is None or keys(name))]
+        staging = None
+        if reuse and entries:
+            size = max(end - begin for _, info in entries
+                       for begin, end in [info["data_offsets"]])
+            staging = torch.empty(size, dtype=torch.uint8,
+                                  pin_memory=torch.cuda.is_available())
+        for name, info in entries:
+            dtype = _DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: unsupported dtype {info['dtype']}")
+            begin, end = info["data_offsets"]
+            shape = tuple(info["shape"])
+            if end == begin:
+                yield name, torch.empty(shape, dtype=dtype)
+                continue
+            buf = (staging[:end - begin] if staging is not None
+                   else torch.empty(end - begin, dtype=torch.uint8))
+            f.seek(8 + n + begin)
+            if f.readinto(buf.numpy()) != end - begin:
+                raise ValueError(f"{path}: {name} runs past the end of the file")
+            yield name, buf.view(dtype).reshape(shape)
 
 
 def read_safetensors(path: str, keys: Callable[[str], bool] | None = None
@@ -77,8 +88,11 @@ def load_state_dict(
     and placed: each tensor goes to ``device`` (and is cast there) as soon as
     it is read, so no more than one tensor at a time is held on the host."""
     out: dict[str, torch.Tensor] = {}
+    # a tensor bound for another device is copied there at once, so one
+    # buffer serves every read
+    reuse = device is not None and torch.device(device).type != "cpu"
     for path in iter_safetensors(model_dir, subfolder):
-        for k, t in iter_safetensors_file(path, keys):
+        for k, t in iter_safetensors_file(path, keys, reuse=reuse):
             if device is not None:
                 t = t.to(device)
             out[k] = t.to(dtype) if dtype is not None else t
@@ -109,4 +123,4 @@ def save_safetensors(tensors: Mapping[str, object], path: str) -> None:
         for name in sorted(tensors):
             t = as_tensor(tensors[name]).to("cpu").contiguous()
             raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
-            f.write(raw.numpy().tobytes())
+            f.write(raw.numpy())

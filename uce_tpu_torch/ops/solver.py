@@ -8,7 +8,9 @@ with edit concepts c_i, guide outputs v_i*, preserve pairs (c_p, v_p).
 When guide outputs come from the edited layer (v_i* = W g_i, true for every
 reference script) the edit collapses to one d x d matrix E with
 W_new = W @ E for every layer, E = A @ mat2^-1, which one Cholesky solve
-gives. ``uce_solve_layer`` and ``uce_solve_stacked`` are the general Eq.-7
+gives; ``uce_edit_matrix_batch`` gives one such E per module where each
+module sees its own embeddings (HiDream). ``uce_solve_layer`` and
+``uce_solve_stacked`` are the general Eq.-7
 solves with explicit guide outputs (``edit-sd --method general``): one
 factorization of the shared right Gram, batched right-hand sides.
 Everything runs in fp32 with TF32 off, like the reference's forced-fp32
@@ -97,6 +99,48 @@ def uce_edit_matrix(c_edit, c_guide, c_pres=None, erase_scale=1.0,
         mat2, mat_a = uce_gram_matrices(c_edit, c_pres, erase_scale,
                                         preserve_scale, lamb, c_guide=c_guide)
         return _solve_right(mat2, mat_a).contiguous()
+
+
+def uce_edit_matrix_batch(c_edit, c_guide, c_pres=None, erase_scale=1.0,
+                          preserve_scale=1.0, lamb=0.5) -> torch.Tensor:
+    """Per-module collapsed edits E [M, d, d] (W_new[m] = W_old[m] @ E[m])
+    from per-module stacks c_edit / c_guide [M, K, d] and c_pres [M, P, d]
+    or None: HiDream's caption projections, each fed by its own encoder
+    layer. One batched Cholesky factorization and solve for all M; a module
+    whose factor or solution is not finite takes an LU solve, as
+    ``uce_edit_matrix`` does. At most three [M, d, d] fp32 tensors are
+    alive at once (3.3 GB each at M=49, d=4096): A^T, the factor and the
+    solution, returned as the transposed view E."""
+    with full_fp32():
+        c_edit = c_edit.float()
+        m, k, d = c_edit.shape
+        dev = c_edit.device
+        c_guide = c_guide.float().to(dev)
+        if c_guide.shape != c_edit.shape:
+            raise ValueError(f"c_guide shape {tuple(c_guide.shape)} must match "
+                             f"c_edit {tuple(c_edit.shape)}")
+        c_pres = (torch.zeros((m, 0, d), device=dev) if c_pres is None
+                  else c_pres.float().to(dev))
+        s_e = _scale_vector(erase_scale, k, dev)
+        s_p = _scale_vector(preserve_scale, c_pres.shape[1], dev)
+        # A^T = lam I + sum s c g^T + sum p c_p c_p^T, mat2 = lam I + sum s c c^T
+        # + sum p c_p c_p^T, both built in place from the same start
+        mat_at = torch.diag_embed(torch.full((m, d), float(lamb), device=dev))
+        mat_at.baddbmm_((c_pres * s_p[:, None]).transpose(1, 2), c_pres)
+        mat2 = mat_at.clone()
+        edit_t = (c_edit * s_e[:, None]).transpose(1, 2)
+        mat2.baddbmm_(edit_t, c_edit)
+        mat_at.baddbmm_(edit_t, c_guide)
+        factor, info = torch.linalg.cholesky_ex(mat2)
+        del mat2
+        x = torch.cholesky_solve(mat_at, factor)  # E^T = mat2^-1 A^T
+        bad = (info != 0) | ~torch.isfinite(factor).flatten(1).all(1) \
+            | ~torch.isfinite(x).flatten(1).all(1)
+        del factor
+        for i in torch.nonzero(bad).flatten().tolist():
+            mat2_i, _ = uce_gram_matrices(c_edit[i], c_pres[i], s_e, s_p, lamb)
+            x[i] = torch.linalg.solve(mat2_i, mat_at[i])
+        return x.transpose(1, 2)
 
 
 def uce_solve_layer(w_old, c_edit, v_guide, c_pres=None, v_pres=None,

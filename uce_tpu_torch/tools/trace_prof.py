@@ -3,7 +3,7 @@ card, on the library path, on the kernel path
 (UCE_CONV_IMPL=UCE_GN_IMPL=pallas) and W8A8-quantized (``serve --quantize
 int8``: the library path on int8 weights), via torch.profiler.
 
-    python -m uce_tpu_torch.tools.trace_prof [--model sd14|sd21|sdxl|flux]
+    python -m uce_tpu_torch.tools.trace_prof [--model sd14|sd21|sdxl|flux|hidream]
         [--batch 4] [--runs 5]
 
 The model at full width with seeded random weights in bf16 (drawn on the
@@ -24,7 +24,10 @@ same inputs, the kernel that ``plan`` picks, its blocks and K splits.
 1024x1024 (the packed 128x128 latents and 256 random T5 tokens, batch
 ``--batch``, t = 1) with its joint attention on impl="auto" (the d=128
 kernel) and on "plain", and the 16-channel VAE decode at 1024x1024 on the
-library and the kernel paths, each reported as above.
+library and the kernel paths, each reported as above. ``--model hidream``
+does the same for HiDream-I1-Full: one MoE DiT forward at 1024x1024 (batch
+``--batch``, 2 for one prompt under CFG; 128 random T5 tokens and 48
+random 128-token Llama streams, t = 1000) and the same VAE decode.
 
     python -m uce_tpu_torch.tools.trace_prof --gn [--batch 8]
 
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion.pipeline_flux import make_img_ids
-from uce_tpu_torch.models import flux, quantize, unet, vae
+from uce_tpu_torch.models import flux, hidream, quantize, unet, vae
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.ops.kernels import conv3x3, group_norm, uce_solve
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng
@@ -325,35 +328,50 @@ def solve_chain(ke: int, kp: int, d: int, runs: int) -> None:
         print(f"[{what}]   {ms:.4f} ms {name[:100]}")
 
 
-def flux_profile(batch: int, runs: int) -> None:
-    """FLUX.1-schnell's DiT forward (attention on "auto" and "plain") and
-    VAE decode (library and kernel paths) at 1024x1024."""
-    cfg = flux.SCHNELL_CONFIG
-    params = flux.init_state_dict(cfg, seed=0, device="cuda")
+def dit_profile(model: str, batch: int, runs: int) -> None:
+    """FLUX.1-schnell's or HiDream-I1-Full's DiT forward (attention on "auto"
+    and "plain") and the 16-channel VAE decode (library and kernel paths)
+    at 1024x1024."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen).bfloat16()
+    img_ids = make_img_ids(128, 128)
+    if model == "flux":
+        cfg = flux.SCHNELL_CONFIG
+        params = flux.init_state_dict(cfg, seed=0, device="cuda")
+        lat, t5_embeds, pooled = rand(batch, 64 * 64, 64), rand(batch, 256, 4096), rand(
+            batch, 768)
+        t, txt_ids = torch.ones(batch, device="cuda"), np.zeros((256, 3))
+        forward = lambda impl: flux.apply(params, lat, t5_embeds, pooled, t, img_ids,
+                                          txt_ids, cfg, attn_impl=impl)
+    else:
+        cfg = hidream.I1_FULL_CONFIG
+        params = hidream.init_state_dict(cfg, seed=0, device="cuda")
+        lat, t5_embeds, pooled = rand(batch, 64 * 64, 64), rand(batch, 128, 4096), rand(
+            batch, 2048)
+        llama = rand(len(cfg.llama_layers), batch, 128, 4096)
+        t = torch.full((batch,), 1000.0, device="cuda")
+        forward = lambda impl: hidream.apply(params, lat, t5_embeds, llama, pooled, t,
+                                             img_ids, cfg, attn_impl=impl)
     rng = DeviceNormalRng(1, "cuda", torch.bfloat16)
     vparams = unet.load_params(vae.init_state_dict(vae.FLUX_VAE_CONFIG, rng),
                                torch.bfloat16, "cuda")
-    gen = torch.Generator("cuda").manual_seed(0)
-    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen).bfloat16()
-    lat, t5_embeds, pooled = rand(batch, 64 * 64, 64), rand(batch, 256, 4096), rand(batch, 768)
-    t, img_ids = torch.ones(batch, device="cuda"), make_img_ids(128, 128)
-    txt_ids = np.zeros((256, 3))
     dec_lat = rand(1, 16, 128, 128)
     with torch.inference_mode():
         select_path(False)
         for impl in ("auto", "plain"):
-            report(f"flux dit attention {impl} batch {batch}", profile(
-                lambda: flux.apply(params, lat, t5_embeds, pooled, t, img_ids, txt_ids,
-                                   cfg, attn_impl=impl), runs))
+            report(f"{model} dit attention {impl} batch {batch}",
+                   profile(lambda: forward(impl), runs))
+        del params
+        torch.cuda.empty_cache()
         for path in ("library", "kernels"):
             select_path(path == "kernels")
-            report(f"flux vae {path} batch 1", profile(
+            report(f"{model} vae {path} batch 1", profile(
                 lambda: vae.decode(vparams, dec_lat, vae.FLUX_VAE_CONFIG), runs))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=sorted(MODELS) + ["flux"], default="sd14")
+    ap.add_argument("--model", choices=sorted(MODELS) + ["flux", "hidream"], default="sd14")
     ap.add_argument("--batch", type=int, default=4, help="UNet batch (2 x prompts)")
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per model")
     ap.add_argument("--solve", action="store_true",
@@ -376,8 +394,8 @@ def main(argv=None) -> int:
             solve_chain(ke, kp, 768, args.runs)
         print(f"[card] {card}")
         return 0
-    if args.model == "flux":
-        flux_profile(args.batch, args.runs)
+    if args.model in ("flux", "hidream"):
+        dit_profile(args.model, args.batch, args.runs)
         print(f"[card] {card}")
         return 0
     ucfg, n, width, pooled = MODELS[args.model]
