@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card at the full
 widths of SD 1.4, SD 2.1 (768-v), SDXL base 1.0, FLUX.1-schnell and
-HiDream-I1-Full, and check them.
+HiDream-I1-Full, the comparison baselines and the eval metrics, and check
+them.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,8 @@ each phase's seconds and the total are printed):
      and HiDream's at CFG batch 2 (s=4480), the
      96x96, 128x128 and 1024x1024 conv and GroupNorm maps, FLUX's VAE
      conv_in (Cin = 16, mma.sync),
-     uce_solve at d=1024) and on the Pallas tests' cases (elementwise and
+     uce_solve at d=1024; the baselines' UNet batches 3, 5 and 10 and the
+     d=512 decode at batch 2) and on the Pallas tests' cases (elementwise and
      relative L2 bounds; the conv's split-K path at the shapes that split),
      and time the kernel, the plain version and one
      library call for the same function (CUDA events; the int8-QK^T
@@ -85,6 +87,27 @@ each phase's seconds and the total are printed):
      iteration's seconds of generation, classification and re-solve;
  18. ``eval-clip-classify`` over the PNGs of 7: one row per case, ratios
      summing to 1;
+ 18b. the comparison baselines on SD 1.4 (unedited) through their CLIs, on
+     the library and the kernel path: ``sld-generate --sld_type Medium`` (50
+     PNDM steps, UNet batch 3), ``concept-algebra`` (100 LMS steps) at
+     ``--num_samples 1`` (batch 5) and 2 (batch 10), ``debias-vl`` with the
+     80 default professions (100 LMS steps): folders and PNG names, launches
+     from the plan's calls, the first call of each kernel at each new shape
+     held to its plain version on the run's own inputs, seconds per image;
+     one captured ``sld_combine`` and ``concept_algebra_combine`` call held
+     to a float64 evaluation with uce_tpu's bf16 roundings; the two paths'
+     images against each other; then, on both paths, ``mode="debias_vl"``
+     with P = I equal to ``mode="cfg"`` (LMS) bit for bit, and SLD with its
+     warmup past the last call equal bit for bit to CFG over the same UNet
+     batch of 3 and within the paths bound of cfg at batch 2;
+ 18c. ``eval-lpips`` (AlexNet + the LPIPS lins), ``eval-styleloss`` (VGG19
+     at 512^2), ``eval-imageclassify`` (ResNet-50 at 224^2) and
+     ``eval-clip-score`` (the CLIP of 17) over those folders, with seeded
+     random weights at the published widths written as .pth files in the
+     lpips/torchvision layouts: each on the card held to the port's own CPU
+     run of the same command (every number within 1e-4 relative), the CSVs'
+     columns as uce_tpu writes them, LPIPS of a folder against itself
+     exactly 0, and no kernel launched;
  19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
      CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
      on the card (~33.8 GB, its bytes and seconds printed; the host's free
@@ -144,14 +167,15 @@ import torch.nn.functional as F
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline, make_img_ids, pack_latents
-from uce_tpu_torch.diffusion import pipeline_hidream
+from uce_tpu_torch.diffusion import guidance, pipeline_hidream, sampler
 from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline, cfg_embeddings
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
 from uce_tpu_torch.edit import debias as debias_mod, flux as edit_flux, hidream as edit_hd
 from uce_tpu_torch.edit import sd as edit_sd
+from uce_tpu_torch.eval import lpips as lpips_mod
 from uce_tpu_torch.models import clip as clip_mod, clip_text, flux, hidream, llama, quantize
-from uce_tpu_torch.models import t5, unet, vae
+from uce_tpu_torch.models import t5, unet, vae, vision_backbones
 from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
@@ -159,7 +183,7 @@ from uce_tpu_torch.ops import attention
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.serving import socket_api
-from uce_tpu_torch.utils.imaging import decode_png, encode_png
+from uce_tpu_torch.utils.imaging import decode_png, encode_png, load_image
 from uce_tpu_torch.utils.prompts import resolve_edit_request
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng, draw_prompt_latents
 
@@ -266,14 +290,19 @@ ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
               (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512),
               (1, 24, 4352, 4352, 128), (1, 24, 1280, 1280, 128),
-              (2, 20, 4480, 4480, 128)]
+              (2, 20, 4480, 4480, 128)] + [
+    # the baselines' UNet batches: SLD's 3, concept algebra's 5 and 10;
+    # concept algebra's decode of 2 images
+    (b, 8, s, s, d) for b in (3, 5, 10) for s, d in ((4096, 40), (1024, 80))] + [
+    (2, 1, 4096, 4096, 512)]
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512),
               (2, 2, 200, 200, 64)]
 # (shape NHWC, groups, eps, act); the last two cases are the UNet's 64x64
 # level at batch 8, which plan streams.
 GN_SLICE = [((4, 64, 64, 320), 32, 1e-5, "silu"), ((1, 512, 512, 128), 32, 1e-6, "silu"),
-            ((2, 128, 128, 320), 32, 1e-5, "silu"), ((1, 1024, 1024, 128), 32, 1e-6, "silu")]
+            ((2, 128, 128, 320), 32, 1e-5, "silu"), ((1, 1024, 1024, 128), 32, 1e-6, "silu")
+            ] + [((b, 64, 64, 320), 32, 1e-5, "silu") for b in (3, 5, 10)]  # baselines
 GN_CASES = [((4, 32, 32, 1920), 32, 1e-5, "silu"), ((4, 8, 8, 2560), 32, 1e-5, "silu"),
             ((4, 64, 64, 320), 32, 1e-6, "none"), ((1, 512, 512, 256), 32, 1e-6, "silu"),
             ((2, 8, 8, 64), 8, 1e-5, "none"), ((3, 4, 4, 320), 32, 1e-5, "silu"),
@@ -289,7 +318,8 @@ CONV_SLICE = [((4, 64, 64, 320), 320), ((8, 64, 64, 320), 320),
               ((8, 8, 8, 2560), 1280), ((1, 512, 512, 128), 128),
               ((2, 128, 128, 320), 320), ((2, 96, 96, 320), 320),
               ((2, 12, 12, 1280), 1280), ((1, 1024, 1024, 128), 128),
-              ((1, 128, 128, 16), 512)]
+              ((1, 128, 128, 16), 512)] + [
+    ((b, 64, 64, 320), 320) for b in (3, 5, 10)] + [((5, 8, 8, 2560), 1280)]  # baselines
 CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 640),
               ((4, 8, 8, 2560), 1280), ((1, 64, 64, 4), 512), ((1, 128, 128, 512), 512),
               ((1, 512, 512, 128), 3), ((2, 8, 8, 12), 20), ((1, 6, 6, 4), 20),
@@ -1808,6 +1838,477 @@ def phase_clip_classify(clip_snap: str, folder: str, cases: list) -> None:
           f"{time.perf_counter() - start:.2f} s (CLI wall, load included)", flush=True)
 
 
+# The comparison baselines on SD 1.4 (unedited, random weights at full
+# width) through their CLIs, each row one pipeline call: SLD (Medium, 50
+# PNDM steps, UNet batch 3), concept algebra (100 LMS steps, UNet batch 5 at
+# --num_samples 1 and 10 at 2) and debias-VL (the 80 default professions,
+# 100 LMS steps, UNet batch 2). Per row: the plan's calls x the UNet's
+# launches + one decode at batch num_samples (counted on meta tensors at
+# these batches in tests/test_torch_baselines.py: the same per forward as
+# at batch 2).
+SLD_STEPS = 50
+BASELINE_STEPS = 100
+# (CLI command, extra flags, scheduler of the plan, steps, images per row,
+# rows run, save folder under the run's directory)
+BASELINE_RUNS = [
+    ("sld-generate", ["--sld_type", "Medium"], None, SLD_STEPS, 1, 2, "SLD_Medium_None"),
+    ("concept-algebra", ["--num_samples", "1"], "lms", BASELINE_STEPS, 1, 2, "sd14_random"),
+    ("concept-algebra", ["--num_samples", "2", "--till_case", "0"], "lms", BASELINE_STEPS,
+     2, 1, "sd14_random"),
+    ("debias-vl", [], "lms", BASELINE_STEPS, 1, 2, "sd14_random"),
+]
+# SLD past its warmup is held bit for bit to CFG over the same UNet batch of
+# 3, and to cfg at UNet batch 2 only within the paths bound (REL_L2_MAX): on
+# this random-weight model a last-bit change of each step's eps moves a
+# 50-step image by uint8 levels, not fractions of one (the control printed
+# beside it: cfg with its branches' difference rounded to bf16, as uce_tpu's
+# cfg_combine rounds it; PERF.md §6, PR 12).
+# A guidance combine on the card against a float64 evaluation of the same
+# formula with uce_tpu's bf16 roundings: each bf16 step of the combine is a
+# correctly rounded operation of bf16 inputs, so only the fp32 steps differ
+# (~1e-7 relative); concept algebra's fp32 whole-tensor sums may also flip
+# the bf16 rounding of the projected text, one bf16 ulp (2^-7 relative at
+# most) times the guidance scale, on a few elements.
+COMBINE_REL = 1e-5
+COMBINE_FLIPS_MAX = 0.01
+# The calls captured for that check: SLD's 21st (active past Medium's
+# warmup of 10, momentum carried), concept algebra's 51st.
+SLD_CAPTURE_CALL, CA_CAPTURE_CALL = 20, 50
+# Eval metrics: the card's fp32 run (TF32 off) against the port's CPU run of
+# the same command, relative difference of every number in the CSV.
+EVAL_REL = 1e-4
+EVAL_DEVICES = (("card", "cuda"), ("host", "cpu"))
+EVAL_IMAGENET_LABELS = [207, 497]
+
+
+def baseline_dir(path: str, i: int) -> str:
+    """Where the ``i``-th run of ``BASELINE_RUNS`` on ``path`` writes."""
+    command, _, _, _, _, _, folder = BASELINE_RUNS[i]
+    return os.path.join(WORK, f"baselines_{path}", f"{i}_{command}", folder)
+
+
+@contextlib.contextmanager
+def pipe_calls(records: list):
+    """Record (seconds, images) of every SDPipeline call of the enclosed
+    calls (the CLIs' calls: seconds after the load)."""
+    call = SDPipeline.__call__
+
+    @functools.wraps(call)
+    def spy(self, *args, **kwargs):
+        start = time.perf_counter()
+        images = call(self, *args, **kwargs)
+        records.append((time.perf_counter() - start, images))
+        return images
+
+    SDPipeline.__call__ = spy
+    try:
+        yield
+    finally:
+        SDPipeline.__call__ = call
+
+
+@contextlib.contextmanager
+def nth_call(module, name: str, n: int, store: dict):
+    """Keep the arguments (cloned) and the result of the ``n``-th call of
+    ``module.name`` in the enclosed calls."""
+    fn, count = getattr(module, name), [0]
+
+    def spy(*args):
+        out = fn(*args)
+        if count[0] == n:
+            store["args"] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            store["out"] = out
+        count[0] += 1
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def bf16_round(x) -> np.ndarray:
+    return torch.as_tensor(np.asarray(x, np.float64)).to(torch.bfloat16).double().numpy()
+
+
+def f64(t: torch.Tensor) -> np.ndarray:
+    return t.double().cpu().numpy()
+
+
+def check_sld_combine(store: dict) -> str:
+    """The captured sld_combine call against float64 with uce_tpu's bf16
+    roundings (the branches, the guidance, diff, scale and the safety
+    guidance in bf16; the momentum and the combine in fp32)."""
+    eps, gs, i, mom, cfg = store["args"]
+    got_eps, got_mom = (f64(t) for t in store["out"])
+    u, t, s = np.split(f64(eps), 3)
+    m = f64(mom)
+    guidance = bf16_round(t - u)
+    diff = bf16_round(t - s)
+    scale = np.minimum(bf16_round(np.abs(diff) * bf16_round(cfg.sld_guidance_scale)), 1.0)
+    safety_scale = np.where(diff >= bf16_round(cfg.sld_threshold), 0.0, scale)
+    g_safe = bf16_round(bf16_round(s - u) * safety_scale) + cfg.sld_momentum_scale * m
+    want_mom = cfg.sld_mom_beta * m + (1.0 - cfg.sld_mom_beta) * g_safe
+    if i >= cfg.sld_warmup_steps:
+        guidance = guidance - g_safe
+    want_eps = u + gs * guidance
+    errs = []
+    for what, got, want in (("eps", got_eps, want_eps), ("momentum", got_mom, want_mom)):
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        if not err <= COMBINE_REL:
+            raise AssertionError(f"sld_combine call {i}: {what} rel max err {err} > "
+                                 f"{COMBINE_REL}")
+        errs.append(f"{what} {err:.2e}")
+    active = int((safety_scale != 0).sum())
+    return (f"sld_combine at call {i} (warmup {cfg.sld_warmup_steps}): rel max err "
+            f"{', '.join(errs)} (bound {COMBINE_REL}); safety scale non-zero on "
+            f"{active} of {safety_scale.size} elements")
+
+
+def check_concept_algebra_combine(store: dict) -> str:
+    """The captured concept_algebra_combine call against float64 with
+    uce_tpu's bf16 roundings: the whole-tensor norm and projection, the
+    projected text and (text - uncond) rounded to bf16."""
+    eps, gs = store["args"]
+    got = f64(store["out"])
+    u, t, p0, p1, p2 = np.split(f64(eps), 5)
+    noise = bf16_round(t - p2)
+    direction = bf16_round(p1 - p0)
+    direction = direction / np.sqrt((direction ** 2).sum())
+    proj = (noise * direction).sum()
+    text = bf16_round(t - proj * direction)
+    want = u + gs * bf16_round(text - u)
+    err = np.abs(got - want)
+    tol = COMBINE_REL * np.abs(want).max()
+    flips = err > tol
+    flip_bound = gs * 2.0 ** -7 * (2 * np.abs(text) + np.abs(u)) + tol
+    if (err > flip_bound).any() or flips.mean() > COMBINE_FLIPS_MAX:
+        raise AssertionError(f"concept_algebra_combine: max err {err.max()}, "
+                             f"{int(flips.sum())} elements beyond {tol}")
+    return (f"concept_algebra_combine (batch {u.shape[0]}, projection {proj:.6f}): max "
+            f"abs err {err.max():.3e}; {int(flips.sum())} of {err.size} elements beyond "
+            f"{COMBINE_REL} x max |ref| (one bf16 rounding of the projected text flipped "
+            "by the fp32 sums), each within its flip bound")
+
+
+def phase_baseline(snap: str, csv_path: str, path: str, i: int, rows: dict,
+                   captures: dict | None = None) -> tuple[dict, float]:
+    """The ``i``-th run of ``BASELINE_RUNS`` through the CLI on ``path``: its
+    folder and PNG names, finite decodes, every kernel's launches, the first
+    call of each kernel at each new shape held to its plain version on the
+    run's own inputs; with ``captures``, one sld_combine or
+    concept_algebra_combine call kept for ``check_*_combine``."""
+    command, extra, scheduler, steps, images, rows_n, _ = BASELINE_RUNS[i]
+    out = baseline_dir(path, i)
+    plan = (plan_from_hf(SD14.scheduler, steps) if scheduler is None
+            else plan_from_hf_as(scheduler, SD14.scheduler, steps))
+    per_call, per_decode = SD14.unet_launches, VAE_LAUNCHES
+    if path != "kernels":
+        per_call, per_decode = library_launches(per_call), VAE_LAUNCHES_LIBRARY
+    want = {k: rows_n * (plan.num_calls * per_call[k] + per_decode[k]) for k in per_call}
+    want["sd_attention_d512"] = rows_n
+    seen, gn_seen, attn_seen, records = (collections.Counter(), collections.Counter(),
+                                         collections.Counter(), [])
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(kernel_env(path == "kernels"))
+        for ctx in (conv_shapes(seen, rows["conv3x3"]),
+                    gn_shapes(gn_seen, rows["group_norm_act"]),
+                    attention_calls(attn_seen, rows), finite_decodes(), pipe_calls(records)):
+            stack.enter_context(ctx)
+        if captures is not None and command == "sld-generate":
+            stack.enter_context(nth_call(guidance, "sld_combine", SLD_CAPTURE_CALL,
+                                         captures))
+        if captures is not None and command == "concept-algebra":
+            stack.enter_context(nth_call(guidance, "concept_algebra_combine",
+                                         CA_CAPTURE_CALL, captures))
+        reset_launches()
+        start = time.perf_counter()
+        rc = cli_main([command, "--model_name", snap, "--prompts_path", csv_path,
+                       "--save_path", os.path.dirname(out), "--ddim_steps", str(steps),
+                       "--image_size", str(SD14.size), "--device", "cuda", *extra])
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+    if path == "kernels":
+        want["conv3x3_reduce"] = conv_split_sums(seen)
+    what = (f"{' '.join([command, *extra])} ({path}, {plan.kind}): {rows_n} rows x "
+            f"({plan.num_calls} UNet calls + 1 decode of {images})")
+    if rc != 0 or (captures is not None and "out" not in captures):
+        raise AssertionError(f"{what}: rc {rc}, combine captured "
+                             f"{captures is None or 'out' in captures}")
+    expect_launches(what, launches, want)
+    names = sorted(os.listdir(out))
+    want_names = sorted(f"{c}_{n}.png" for c in range(rows_n) for n in range(images))
+    if names != want_names or len(records) != rows_n:
+        raise AssertionError(f"{what}: {out} holds {names}, {len(records)} calls")
+    for name in names:
+        img = load_image(os.path.join(out, name))
+        if img.shape != (SD14.size, SD14.size, 3) or img.std() == 0:
+            raise AssertionError(f"{what}: {name} is {img.shape}, std {img.std()}")
+    # the last call's seconds: with two rows, after the first has held every
+    # new shape to its plain version; with one, those checks included
+    per_image = records[-1][0] / images
+    print(f"[baseline] {what}: {rows_n * images} PNGs in {os.path.relpath(out, WORK)}; "
+          f"{seconds:.2f} s CLI wall (load included), {per_image:.3f} s per image in the "
+          f"last of {rows_n} calls; launches {want}; {len(seen)} conv, {len(gn_seen)} "
+          f"group_norm_act and {len(attn_seen)} attention shapes held to the plain "
+          f"version ({sorted(attn_seen)})", flush=True)
+    return launches, per_image
+
+
+def image_distance(a: np.ndarray, b: np.ndarray) -> tuple[float, int]:
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return float(d.mean()), int(d.max())
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` in the enclosed calls."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def cfg_of_three(eps_branches, guidance_scale, step_index, momentum, cfg):
+    """uce_tpu's cfg_combine (the difference in the model dtype) on the
+    first two of SLD's three branches, in place of ``sld_combine``."""
+    uncond, text, _ = eps_branches.chunk(3)
+    return uncond.float() + guidance_scale * (text - uncond).float(), momentum
+
+
+def cfg_bf16_difference(eps_branches, guidance_scale):
+    """uce_tpu's cfg_combine on the port's fp32 view of bf16 branches: the
+    difference rounded to bf16 (the control of the identities)."""
+    uncond, cond = eps_branches.chunk(2)
+    return uncond + guidance_scale * (cond - uncond).to(torch.bfloat16).float()
+
+
+def phase_baseline_identities(pipe, path: str) -> dict:
+    """On ``path``: debias_vl with P = I equal to cfg (LMS) bit for bit; SLD
+    with its warmup past the last call equal, bit for bit, to CFG over the
+    same three-branch UNet batch (uce_tpu's cfg_combine on its first two
+    branches), and within the paths bound of cfg at UNet batch 2; the
+    seconds of the cfg and SLD calls."""
+    kw = dict(height=SD14.size, width=SD14.size, seed=[1], guidance_scale=7.5)
+    prompt = ["a painting by kelly mckernan"]
+    out = {}
+    with kernel_env(path == "kernels"):
+        cfg_lms = pipe(prompt, num_inference_steps=20, scheduler="lms", **kw)
+        dvl = pipe(prompt, num_inference_steps=20, scheduler="lms", mode="debias_vl",
+                   debias_projection=np.eye(pipe.text_config.hidden_size), **kw)
+        if not np.array_equal(cfg_lms, dvl):
+            raise AssertionError(f"debias_vl with P = I ({path}): not cfg bit for bit "
+                                 f"(mean, max |diff| {image_distance(cfg_lms, dvl)})")
+        calls = plan_from_hf(SD14.scheduler, SLD_STEPS).num_calls
+        sld = {"mode": "sld", "sld_config": dataclasses.replace(
+            guidance.SLDConfig.preset("Medium"), sld_warmup_steps=calls)}
+        times = {}
+        for mode in ("cfg", "sld"):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out[mode] = pipe(prompt, num_inference_steps=SLD_STEPS, **kw,
+                             **(sld if mode == "sld" else {}))
+            times[mode] = time.perf_counter() - start
+        with swapped(guidance, "sld_combine", cfg_of_three):
+            out["cfg3"] = pipe(prompt, num_inference_steps=SLD_STEPS, **kw, **sld)
+        with swapped(sampler, "cfg_combine", cfg_bf16_difference):
+            out["control"] = pipe(prompt, num_inference_steps=SLD_STEPS, **kw)
+    if not np.array_equal(out["sld"], out["cfg3"]):
+        raise AssertionError(f"SLD past its warmup ({path}): not CFG over the same batch "
+                             f"bit for bit ({image_distance(out['sld'], out['cfg3'])})")
+    rel = rel_l2(torch.from_numpy(out["sld"]).float(), torch.from_numpy(out["cfg"]).float())
+    mean, worst = image_distance(out["sld"], out["cfg"])
+    if rel > REL_L2_MAX:
+        raise AssertionError(f"SLD past its warmup ({path}) vs cfg: rel L2 {rel} > "
+                             f"{REL_L2_MAX}")
+    c_mean, c_worst = image_distance(out["control"], out["cfg"])
+    print(f"[baseline] identities ({path}): debias_vl with P = I equals cfg (LMS, 20 "
+          f"steps) bit for bit; SLD with warmup {calls} (past the last of {calls} PNDM "
+          f"calls) equals CFG over the same UNet batch of 3 bit for bit, and is rel L2 "
+          f"{rel:.3e} (bound {REL_L2_MAX}), mean |diff| {mean:.4f} uint8 levels, max "
+          f"{worst} from cfg at batch 2; control, cfg with its difference rounded to "
+          f"bf16: mean |diff| {c_mean:.4f}, max {c_worst}; one image, {SLD_STEPS} PNDM "
+          f"steps: cfg {times['cfg']:.3f} s (UNet batch 2), SLD {times['sld']:.3f} s "
+          "(batch 3)", flush=True)
+    return times
+
+
+def write_eval_weights(root: str) -> dict:
+    """LPIPS (AlexNet + lins), VGG19 and ResNet-50 at their published widths,
+    seeded random weights, as .pth files in the lpips/torchvision key
+    layouts."""
+    rng = np.random.default_rng(SEED + 12)
+    os.makedirs(root, exist_ok=True)
+    paths = {}
+    for name, sd in (("lpips", lpips_mod.init_lpips_state_dict(rng)),
+                     ("vgg19", vision_backbones.init_vgg19_state_dict(rng)),
+                     ("resnet50", vision_backbones.init_resnet50_state_dict(rng))):
+        paths[name] = os.path.join(root, f"{name}.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, paths[name])
+    return paths
+
+
+def read_table(path: str) -> list[list[str]]:
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def hold_card_to_cpu(what: str, card_rows: list, cpu_rows: list, header: list) -> float:
+    """Every number of the card's CSV within EVAL_REL of the CPU's, every
+    other cell equal; returns the largest relative difference."""
+    worst = 0.0
+    if len(card_rows) != len(cpu_rows):
+        raise AssertionError(f"{what}: {len(card_rows)} rows on the card, "
+                             f"{len(cpu_rows)} on the CPU")
+    for a_row, b_row in zip(card_rows, cpu_rows):
+        for name, a, b in zip(header, a_row, b_row):
+            try:
+                fa, fb = float(a), float(b)
+            except ValueError:
+                fa = fb = None
+            if fa is None or name in ("case_number", "num", "evaluation_seed") or (
+                    name.startswith("index_top")):
+                if a != b:
+                    raise AssertionError(f"{what}: {name} {a!r} on the card, {b!r} on "
+                                         "the CPU")
+                continue
+            rel = abs(fa - fb) / max(abs(fb), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= EVAL_REL:
+                raise AssertionError(f"{what}: {name} {fa} on the card, {fb} on the CPU "
+                                     f"(rel {rel} > {EVAL_REL})")
+    return worst
+
+
+def eval_cli(command: str, args: list, device: str) -> tuple[str, float]:
+    """One eval command through the CLI; (its standard output, seconds)."""
+    buf = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([command, *args, "--device", device])
+    seconds = time.perf_counter() - start
+    if rc != 0:
+        raise AssertionError(f"{command} --device {device}: rc {rc}")
+    return buf.getvalue(), seconds
+
+
+def phase_eval(original: str, folders: dict, csv_path: str, clip_snap: str) -> None:
+    """The four eval commands over the baselines' folders on the card, each
+    held to the port's own CPU run of the same command; LPIPS of a folder
+    against itself exactly 0; the CSVs' columns as uce_tpu writes them; no
+    kernel launch (the eval convs are fp32 ``F.conv2d``)."""
+    weights = write_eval_weights(os.path.join(WORK, "eval_weights"))
+    out = os.path.join(WORK, "eval")
+    os.makedirs(out, exist_ok=True)
+    prompt_header = read_table(csv_path)[0]
+    top5 = [f"{c}_top{i}" for i in range(1, 6) for c in ("category", "index", "scores")]
+    runs = [
+        ("eval-lpips", ["--original_path", original, "--edited_path", folders["sld"],
+                        "--weights", weights["lpips"], "--prompts_path", csv_path],
+         prompt_header + ["lpips_loss"]),
+        ("eval-styleloss", ["--original_path", original, "--edited_path", folders["ca"],
+                            "--weights", weights["vgg19"], "--prompts_path", csv_path],
+         prompt_header + ["style_loss", "content_loss", "total_loss"]),
+        ("eval-imageclassify", ["--image_folder", folders["ca2"], "--weights",
+                                weights["resnet50"], "--prompts_path", csv_path],
+         prompt_header + ["num"] + top5 + ["correct"]),
+    ]
+    with kernel_env(False):
+        reset_launches()
+        for command, args, header in runs:
+            tables, secs = {}, {}
+            for key, device in EVAL_DEVICES:
+                save = os.path.join(out, f"{command}_{key}.csv")
+                _, secs[key] = eval_cli(command, [*args, "--save_path", save], device)
+                tables[key] = read_table(save)
+            if tables["card"][0] != header:
+                raise AssertionError(f"{command}: columns {tables['card'][0]}, want {header}")
+            worst = hold_card_to_cpu(command, tables["card"][1:], tables["host"][1:], header)
+            print(f"[eval] {command}: {len(tables['card']) - 1} rows, columns as uce_tpu's; "
+                  f"card {secs['card']:.2f} s, CPU {secs['host']:.2f} s (CLI wall, load "
+                  f"included); card vs CPU rel max {worst:.3e} (bound {EVAL_REL}); "
+                  f"{tables['card'][1:]}", flush=True)
+        save = os.path.join(out, "lpips_self.csv")
+        eval_cli("eval-lpips", ["--original_path", original, "--edited_path", original,
+                                "--weights", weights["lpips"], "--save_path", save], "cuda")
+        self_rows = read_table(save)[1:]
+        if not self_rows or any(float(r[1]) != 0.0 for r in self_rows):
+            raise AssertionError(f"eval-lpips of a folder against itself: {self_rows}")
+        scores, secs = {}, {}
+        for key, device in EVAL_DEVICES:
+            text, secs[key] = eval_cli(
+                "eval-clip-score", ["--image_folder", folders["dvl"], "--prompts_path",
+                                    csv_path, "--clip_model_id", clip_snap], device)
+            scores[key] = float(text.split("mean CLIP score:")[-1])
+        rel = abs(scores["card"] - scores["host"]) / abs(scores["host"])
+        if not rel <= EVAL_REL:
+            raise AssertionError(f"eval-clip-score: {scores} (rel {rel} > {EVAL_REL})")
+        launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the eval commands launched kernels: {launches}")
+    print(f"[eval] eval-lpips of a folder against itself: {len(self_rows)} cases, all 0.0; "
+          f"eval-clip-score: card {scores['card']!r}, CPU {scores['host']!r} (rel "
+          f"{rel:.3e}, bound {EVAL_REL}; card {secs['card']:.2f} s, CPU {secs['host']:.2f} "
+          "s); no kernel launched", flush=True)
+
+
+def run_baselines(snap: str, clip_snap: str, cases: list, rows: dict,
+                  seconds: dict) -> None:
+    """The baselines on SD 1.4 through their CLIs on both paths, their
+    identities, the combines on the card's eps, the two paths' images, and
+    the eval commands over their folders."""
+    csv_path = os.path.join(WORK, "prompts_baselines.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["case_number", "prompt", "evaluation_seed", "label_idx"])
+        w.writerows([c + [label] for c, label in zip(cases, EVAL_IMAGENET_LABELS)])
+    captures = {"sld": {}, "ca": {}}
+    per_image = {}
+    for path in ("library", "kernels"):
+        with timed(f"SD 1.4 baselines ({path})", seconds):
+            for i in range(len(BASELINE_RUNS)):
+                store = None
+                if path == "kernels" and i < 2:
+                    store = captures["sld" if i == 0 else "ca"]
+                launches, per_image[i, path] = phase_baseline(snap, csv_path, path, i,
+                                                              rows, store)
+                if path == "kernels":
+                    add_launches(rows, launches)
+    print(f"[baseline] {check_sld_combine(captures['sld'])}", flush=True)
+    print(f"[baseline] {check_concept_algebra_combine(captures['ca'])}", flush=True)
+    for i, (command, extra, *_) in enumerate(BASELINE_RUNS):
+        lib, ker = (baseline_dir(p, i) for p in ("library", "kernels"))
+        for name in sorted(os.listdir(ker)):
+            a, b = load_image(os.path.join(ker, name)), load_image(os.path.join(lib, name))
+            rel = rel_l2(torch.from_numpy(a).float(), torch.from_numpy(b).float())
+            mean, worst = image_distance(a, b)
+            if rel > REL_L2_MAX:
+                raise AssertionError(f"{command} {name}: kernels vs library rel L2 {rel}")
+            print(f"[baseline] {' '.join([command, *extra])} {name}: kernels vs library "
+                  f"rel L2 {rel:.3e} (bound {REL_L2_MAX}), mean |diff| {mean:.3f} uint8 "
+                  f"levels, max {worst}", flush=True)
+    with timed("SD 1.4 baseline identities", seconds):
+        pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
+        cfg_seconds = {path: phase_baseline_identities(pipe, path)["cfg"]
+                       for path in ("library", "kernels")}
+        del pipe
+        torch.cuda.empty_cache()
+    for i, (command, extra, scheduler, steps, *_) in enumerate(BASELINE_RUNS):
+        print(f"[baseline] {' '.join([command, *extra])} ({scheduler or 'pndm'}, {steps} "
+              "steps): " + ", ".join(
+                  f"{path} {per_image[i, path]:.3f} s per image ({1 / per_image[i, path]:.4f}"
+                  f" img/s; cfg at {SLD_STEPS} PNDM steps {cfg_seconds[path]:.3f} s, "
+                  f"{per_image[i, path] / cfg_seconds[path]:.2f}x)"
+                  for path in ("library", "kernels")), flush=True)
+    with timed("eval metrics", seconds):
+        folders = {"sld": baseline_dir("kernels", 0), "ca": baseline_dir("kernels", 1),
+                   "ca2": baseline_dir("kernels", 2), "dvl": baseline_dir("kernels", 3)}
+        phase_eval(generate_dir(SD14, "kernels"), folders, csv_path, clip_snap)
+
+
 @contextlib.contextmanager
 def timed(what: str, seconds: dict):
     """Print the enclosed phase's wall seconds and keep them in ``seconds``."""
@@ -1829,7 +2330,8 @@ def add_launches(rows: dict, launches: dict) -> None:
 
 def run_sd14(rows: dict, seconds: dict) -> None:
     """SD 1.4: edit, UNet, VAE, generate on both paths (exact and fast), W8A8,
-    serving (exact and fast), img/s, debias-sd and eval-clip-classify."""
+    serving (exact and fast), img/s, debias-sd, eval-clip-classify, the
+    baselines and the eval metrics."""
     snap = os.path.join(WORK, "sd14_random")
     with timed("SD 1.4 snapshot", seconds):
         write_snapshot(snap, SD14)
@@ -1875,6 +2377,7 @@ def run_sd14(rows: dict, seconds: dict) -> None:
         phase_debias(snap, clip_snap, rows)
     with timed("eval-clip-classify", seconds):
         phase_clip_classify(clip_snap, generate_dir(SD14, "kernels"), cases)
+    run_baselines(snap, clip_snap, cases, rows, seconds)
     shutil.rmtree(snap)
 
 
@@ -2085,11 +2588,12 @@ def phase_flux_edit(snap: str) -> str:
 
 
 @contextlib.contextmanager
-def attention_calls(seen: collections.Counter, row: dict, every: bool = False):
+def attention_calls(seen: collections.Counter, rows: dict, every: bool = False):
     """Count the q shape of every sd_attention wrapper call in the enclosed
     calls, and hold the first call at each shape (``every``: each call) to
     the plain version on the call's own inputs (raises outside the
-    attention's bounds)."""
+    attention's bounds; the worst error goes into the row of its head dim's
+    kernel)."""
     launch = sdk.sd_attention
 
     def spy(q, k, v, scale, qk_int8=False):
@@ -2098,6 +2602,7 @@ def attention_calls(seen: collections.Counter, row: dict, every: bool = False):
         if every or key not in seen:
             max_err = check_bf16("sd_attention", f"sd_attention {key} on the path's own "
                                  "inputs", got, sdk.sd_attention_reference(q, k, v, scale))[0]
+            row = rows["sd_attention_d512" if key[-1] == 512 else "sd_attention"]
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
         seen[key] += 1
         return got
@@ -2127,7 +2632,7 @@ def phase_flux_dit(pipe, rows: dict) -> None:
                                      img_ids, txt_ids, cfg, attn_impl=impl)
             reset_launches()
             seen = collections.Counter()
-            with attention_calls(seen, rows["sd_attention"]):
+            with attention_calls(seen, rows):
                 outs[impl] = fwd().float()
             got = read_launches()
             want = FLUX_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0}
@@ -2539,7 +3044,7 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
             seen = collections.Counter()
             replay = run in ("plain", "plain, nudged")
             routes[run] = routes["auto"] if replay else []
-            with attention_calls(seen, rows["sd_attention"], every=True), moe_routes(
+            with attention_calls(seen, rows, every=True), moe_routes(
                     routes[run], replay=replay):
                 outs[run] = fwd().float()
             got = read_launches()

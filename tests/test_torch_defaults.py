@@ -170,3 +170,38 @@ def test_hidream_clis_default_to_cuda_and_do_not_fall_back(command, monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([command, *argv])
+
+
+def test_eval_entry_points_default_to_cuda():
+    """The eval metrics' library entry points: the weight loaders, the
+    preprocessing and the folder runs."""
+    from uce_tpu_torch.eval import imageclassify, lpips, styleloss
+    from uce_tpu_torch.models import vision_backbones
+
+    for fn in (lpips.load_lpips_weights, lpips.eval_folders, lpips.batch_prep,
+               styleloss.load_vgg_weights, styleloss.eval_folders, styleloss.batch_prep,
+               imageclassify.load_resnet_weights, imageclassify.classify_folder,
+               vision_backbones.preprocess_imagenet):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("command", ["sld-generate", "concept-algebra", "debias-vl",
+                                     "eval-lpips", "eval-styleloss", "eval-imageclassify",
+                                     "eval-clip-score"])
+def test_baseline_and_eval_clis_default_to_cuda_and_do_not_fall_back(
+        command, monkeypatch, tmp_path):
+    from uce_tpu_torch.cli.main import build_parser, main
+
+    weights = str(tmp_path / "w.pth")
+    folders = ["--original_path", str(tmp_path), "--edited_path", str(tmp_path),
+               "--weights", weights]
+    argv = {"eval-lpips": folders, "eval-styleloss": folders,
+            "eval-imageclassify": ["--image_folder", str(tmp_path), "--weights", weights],
+            "eval-clip-score": ["--image_folder", str(tmp_path), "--prompts_path",
+                                str(tmp_path / "p.csv"), "--clip_model_id", str(tmp_path)]
+            }.get(command, ["--model_name", str(tmp_path), "--prompts_path",
+                            str(tmp_path / "p.csv"), "--save_path", str(tmp_path)])
+    assert build_parser().parse_args([command, *argv]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, *argv])

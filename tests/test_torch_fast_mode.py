@@ -351,8 +351,12 @@ def test_pipeline_fast_rejects_other_modes(sd_pipes):
     with pytest.raises(ValueError, match="fast modes support only cfg"):
         pipe(["a cat"], num_inference_steps=2, height=32, width=32, mode="sld",
              fast=FastConfig(cache_interval=2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pipe(["a cat"], num_inference_steps=2, height=32, width=32, mode="sld")
+    with pytest.raises(ValueError, match="fast modes support only cfg"):
+        pipe(["a cat"], num_inference_steps=2, height=32, width=32,
+             mode="concept_algebra", concepts_to_project=["a", "b", "c"],
+             fast=FastConfig(cache_interval=2))
+    with pytest.raises(ValueError, match="unknown mode"):
+        pipe(["a cat"], num_inference_steps=2, height=32, width=32, mode="pag")
 
 
 @pytest.mark.parametrize("spec", ["cfg_interval=1:2,cache=2"])

@@ -35,6 +35,11 @@ HIDREAM = {{"uce_tpu_torch.models.llama", "uce_tpu_torch.models.hidream",
             "uce_tpu_torch.diffusion.pipeline_hidream", "uce_tpu_torch.edit.hidream",
             "uce_tpu_torch.cli.hidream_gen_cmd"}}
 assert HIDREAM <= set(names), HIDREAM - set(names)
+EVAL = {{"uce_tpu_torch.diffusion.guidance", "uce_tpu_torch.eval.baselines",
+         "uce_tpu_torch.models.vision_backbones", "uce_tpu_torch.eval.lpips",
+         "uce_tpu_torch.eval.styleloss", "uce_tpu_torch.eval.imageclassify",
+         "uce_tpu_torch.eval.clip_score", "uce_tpu_torch.eval.table"}}
+assert EVAL <= set(names), EVAL - set(names)
 for name in names:
     importlib.import_module(name)
 from uce_tpu_torch.cli.main import main
@@ -42,7 +47,10 @@ for argv in (["--help"], ["edit-sd", "--help"], ["edit-sdxl", "--help"],
              ["edit-flux", "--help"], ["generate", "--help"], ["generate-flux", "--help"],
              ["edit-hidream", "--help"], ["generate-hidream", "--help"],
              ["serve", "--help"], ["debias-sd", "--help"],
-             ["eval-clip-classify", "--help"]):
+             ["eval-clip-classify", "--help"], ["sld-generate", "--help"],
+             ["concept-algebra", "--help"], ["debias-vl", "--help"],
+             ["eval-lpips", "--help"], ["eval-styleloss", "--help"],
+             ["eval-imageclassify", "--help"], ["eval-clip-score", "--help"]):
     try:
         main(argv)
     except SystemExit as e:
@@ -57,7 +65,7 @@ def test_port_imports_without_reference_packages():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("imported")[-1]) >= 56
+    assert int(proc.stdout.split("imported")[-1]) >= 64
 
 
 def test_module_entry_point_help():
@@ -66,3 +74,6 @@ def test_module_entry_point_help():
     assert proc.returncode == 0 and "edit-sd" in proc.stdout
     assert "edit-flux" in proc.stdout and "generate-flux" in proc.stdout
     assert "edit-hidream" in proc.stdout and "generate-hidream" in proc.stdout
+    for command in ("sld-generate", "concept-algebra", "debias-vl", "eval-lpips",
+                    "eval-styleloss", "eval-imageclassify", "eval-clip-score"):
+        assert command in proc.stdout, command

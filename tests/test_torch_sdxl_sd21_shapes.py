@@ -22,7 +22,8 @@ from uce_tpu_torch.ops.kernels import sd_attention as port_sdk
 SMS = 132  # an H100 SXM
 META = dict(device="meta", dtype=torch.bfloat16)
 # (UNet config, latent size, text context width, added-cond input widths)
-MODELS = {"sd21": (unet.SD21_UNET_CONFIG, 96, 1024, None),
+MODELS = {"sd14": (unet.SD14_UNET_CONFIG, 64, 768, None),
+          "sd21": (unet.SD21_UNET_CONFIG, 96, 1024, None),
           "sdxl": (unet.SDXL_UNET_CONFIG, 128, 2048, (1280, 6))}
 
 

@@ -1,7 +1,8 @@
 """CLI of the port: ``python -m uce_tpu_torch <edit-sd|edit-sdxl|edit-flux|
 edit-hidream|debias-sd|generate|generate-flux|generate-hidream|serve|
-eval-clip-classify> ...`` with the flag names of the uce_tpu CLI (and of the
-reference scripts).
+sld-generate|concept-algebra|debias-vl|eval-clip-classify|eval-lpips|
+eval-styleloss|eval-imageclassify|eval-clip-score> ...`` with the flag names
+of the uce_tpu CLI (and of the reference scripts).
 
 ``--device`` defaults to ``cuda``; ``cpu`` runs only when asked for. A run
 that asks for cuda where there is none fails rather than use the CPU.
@@ -81,7 +82,8 @@ def cmd_edit_sd(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     from uce_tpu_torch.cli import (debias_cmd, edit_cmds, flux_gen_cmd, hidream_gen_cmd,
                                    serve_cmd)
-    from uce_tpu_torch.eval import clip_classify, generate
+    from uce_tpu_torch.eval import (baselines, clip_classify, clip_score, generate,
+                                    imageclassify, lpips, styleloss)
 
     parser = argparse.ArgumentParser(
         prog="python -m uce_tpu_torch",
@@ -100,7 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
     flux_gen_cmd.register_cli(sub, _add_device_flag)
     hidream_gen_cmd.register_cli(sub, _add_device_flag)
     serve_cmd.register_cli(sub, _add_device_flag)
+    baselines.register_cli(sub, _add_device_flag)
     clip_classify.register_cli(sub, _add_device_flag)
+    lpips.register_cli(sub, _add_device_flag)
+    styleloss.register_cli(sub, _add_device_flag)
+    imageclassify.register_cli(sub, _add_device_flag)
+    clip_score.register_cli(sub, _add_device_flag)
     return parser
 
 

@@ -1,6 +1,7 @@
 """Text-to-image pipeline for SD v1.x / v2.x and SDXL (two text encoders):
-tokenize -> CLIP encode -> CFG + scheduler loop over the UNet -> VAE decode
--> uint8 images."""
+tokenize -> CLIP encode -> guided scheduler loop over the UNet (CFG, or a
+comparison baseline's guidance: ``diffusion/guidance.py``) -> VAE decode ->
+uint8 images."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from uce_tpu_torch.diffusion import sampler, schedulers
+from uce_tpu_torch.diffusion import guidance, sampler, schedulers
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
 from uce_tpu_torch.models import clip_text, quantize, unet as unet_mod, vae as vae_mod
@@ -112,11 +113,12 @@ class SDPipeline:
         return torch.cat(parts, dim=-1).to(self.dtype), pooled.to(self.dtype)
 
     def _sdxl_added_cond(self, pooled_cond, pooled_uncond, height: int,
-                         width: int) -> dict[str, torch.Tensor]:
+                         width: int, n_branches: int = 2) -> dict[str, torch.Tensor]:
         """text_embeds (the negative prompt's pooled vector for the uncond
-        branch, first) and time_ids [h, w, 0, 0, h, w] (original size, crop
-        top-left, target size) for both CFG branches."""
-        text_embeds = torch.cat([pooled_uncond, pooled_cond])
+        branch, first; the extra guidance branches reuse the cond one) and
+        time_ids [h, w, 0, 0, h, w] (original size, crop top-left, target
+        size) for ``n_branches`` branches."""
+        text_embeds = torch.cat([pooled_uncond] + [pooled_cond] * (n_branches - 1))
         time_ids = torch.tensor([height, width, 0, 0, height, width],
                                 dtype=torch.float32, device=self.device)
         return {"text_embeds": text_embeds,
@@ -145,25 +147,32 @@ class SDPipeline:
     def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
                  guidance_scale: float = 7.5, num_images_per_prompt: int = 1,
                  seed: int | Sequence[int] = 0, height: int = 512, width: int = 512,
-                 scheduler: str | None = None,
+                 scheduler: str | None = None, mode: str = "cfg",
                  negative_prompt: str | Sequence[str] | None = None,
-                 mode: str = "cfg",
+                 concepts_to_project: Sequence[str] | None = None,
+                 safety_concept: str | None = None,
+                 sld_config: guidance.SLDConfig | None = None,
+                 debias_projection: np.ndarray | None = None,
                  fast: sampler.FastConfig | None = None) -> np.ndarray:
-        """Returns uint8 images [N, H, W, 3], classifier-free guidance
-        against ``negative_prompt`` (the empty prompt by default; a string
-        for every prompt or one per prompt, repeated per image).
+        """Returns uint8 images [N, H, W, 3], guided against
+        ``negative_prompt`` (the empty prompt by default; a string for every
+        prompt or one per prompt, repeated per image).
 
-        mode: only ``"cfg"`` is ported (uce_tpu's ``sld``,
-        ``concept_algebra`` and ``debias_vl`` raise NotImplementedError).
+        mode: ``"cfg"`` (default), ``"concept_algebra"`` (3
+        ``concepts_to_project``; context [uncond; cond; p0; p1; p2]),
+        ``"sld"`` (``safety_concept`` and an ``sld_config`` preset; context
+        [uncond; cond; safety]) or ``"debias_vl"`` (``debias_projection`` P
+        applied to the cond embeddings, then CFG). Each extra branch is
+        encoded once and repeated for every image.
         fast: an optional ``sampler.FastConfig`` (CFG window, DeepCache),
-        opt-in beyond the reference protocol; a no-op config takes the
-        exact path."""
+        opt-in beyond the reference protocol, for cfg and debias_vl only; a
+        no-op config takes the exact path."""
         if fast is not None and fast.is_noop:
             fast = None
+        if mode not in ("cfg", "concept_algebra", "sld", "debias_vl"):
+            raise ValueError(f"unknown mode: {mode}")
         if fast is not None and mode not in ("cfg", "debias_vl"):
             raise ValueError("fast modes support only cfg/debias_vl guidance")
-        if mode != "cfg":
-            raise NotImplementedError(f"mode={mode!r} is not ported (cfg only)")
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         n_prompts = len(prompts)
         prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
@@ -179,15 +188,36 @@ class SDPipeline:
                          for _ in range(num_images_per_prompt)]
             if len(negatives) != bsz:
                 raise ValueError("len(negative_prompt) must match len(prompt)")
-        added_cond = None
         if self.is_sdxl:  # encode once: the pooled vectors feed added_cond
             cond, pooled_cond = self.encode_prompts_sdxl(prompts)
             uncond, pooled_uncond = self.encode_prompts_sdxl(negatives)
-            added_cond = self._sdxl_added_cond(pooled_cond, pooled_uncond,
-                                               height, width)
         else:
             cond, uncond = self.encode_prompts(prompts), self.encode_prompts(negatives)
-        context = torch.cat([uncond, cond])
+
+        if mode == "concept_algebra":
+            if concepts_to_project is None or len(concepts_to_project) != 3:
+                raise ValueError("concept_algebra needs exactly 3 concepts_to_project")
+            extra = [self.encode_prompts([c]).repeat(bsz, 1, 1)
+                     for c in concepts_to_project]
+        elif mode == "sld":
+            safety = safety_concept or guidance.DEFAULT_SAFETY_CONCEPT
+            extra = [self.encode_prompts([safety]).repeat(bsz, 1, 1)]
+        else:
+            extra = []
+            if mode == "debias_vl":
+                if debias_projection is None:
+                    raise ValueError(
+                        "mode='debias_vl' needs a debias_projection matrix "
+                        "(guidance.debias_vl_calibration)")
+                proj = torch.as_tensor(np.asarray(debias_projection, np.float32),
+                                       device=self.device)
+                cond = (cond.float() @ proj.T).to(self.dtype)
+        context = torch.cat([uncond, cond, *extra])
+        n_branches = 2 + len(extra)
+        added_cond = None
+        if self.is_sdxl:
+            added_cond = self._sdxl_added_cond(pooled_cond, pooled_uncond, height,
+                                               width, n_branches)
 
         vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
         if height % vae_scale or width % vae_scale:
@@ -203,18 +233,32 @@ class SDPipeline:
                 if scheduler else
                 schedulers.plan_from_hf(self.scheduler_config, num_inference_steps))
 
-        if fast is None:
-            def model_fn(lat_in, t):
-                return unet_mod.apply(self.unet_params, lat_in, t, context,
-                                      self.unet_config, added_cond=added_cond)
+        def model_fn(lat_in, t):
+            return unet_mod.apply(self.unet_params, lat_in, t, context,
+                                  self.unet_config, added_cond=added_cond)
 
-            final = sampler.denoise(
-                model_fn, plan, latents,
-                guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
-        else:
+        if fast is not None:
             final = sampler.denoise_fast(
                 self._fast_model_factory(context, added_cond, bsz, fast), plan,
                 latents, guidance_scale=guidance_scale, fast=fast)
+        elif mode == "sld":
+            sld_cfg = sld_config or guidance.SLDConfig()
+            final = sampler.denoise(
+                model_fn, plan, latents,
+                guidance_fn=lambda e, i, m: guidance.sld_combine(
+                    e, guidance_scale, i, m, sld_cfg),
+                num_branches=3,
+                guidance_state=torch.zeros_like(latents, dtype=torch.float32))
+        elif mode == "concept_algebra":
+            final = sampler.denoise(
+                model_fn, plan, latents,
+                guidance_fn=lambda e: guidance.concept_algebra_combine(
+                    e, guidance_scale),
+                num_branches=5)
+        else:
+            final = sampler.denoise(
+                model_fn, plan, latents,
+                guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
         scaled = (final.float() / self.vae_config.scaling_factor).to(latents.dtype)
         imgs = vae_mod.decode(self.vae_params, scaled, self.vae_config)
         imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)

@@ -1,5 +1,6 @@
-"""Denoising loop: one batched model call over both CFG branches, the
-guidance combine, and the scheduler's table-driven step, per plan call.
+"""Denoising loop: one batched model call over the guidance branches (CFG's
+two, or a baseline's three or five), the guidance combine, and the
+scheduler's table-driven step, per plan call.
 ``denoise_fast`` adds uce_tpu's opt-in fast mode (``FastConfig``): CFG only
 inside a window of calls, and DeepCache's reuse of the deep UNet feature."""
 
@@ -99,22 +100,32 @@ def denoise(
     plan: Plan,
     latents: torch.Tensor,
     *,
-    guidance_fn: Callable[[torch.Tensor], torch.Tensor],
+    guidance_fn: Callable[..., torch.Tensor],
+    num_branches: int = 2,
+    guidance_state=None,
 ) -> torch.Tensor:
-    """Run every call of ``plan`` with two guidance branches.
+    """Run every call of ``plan`` with ``num_branches`` guidance branches.
 
-    model_fn(latents_in [2B, C, H, W], t) -> eps for [uncond; cond] (the
-    closure carries the text context and any added conditioning).
-    ``latents`` are the raw unit gaussians (init_noise_sigma applied here);
-    each call's UNet input is scaled by ``plan.scale_model_input``. The
-    scheduler arithmetic and its history run in fp32 whatever the latents'
-    dtype.
+    model_fn(latents_in [num_branches*B, C, H, W], t) -> eps of each branch
+    (the closure carries the text context and any added conditioning).
+    guidance_fn: ``eps_branches -> eps`` (stateless), or, when
+    ``guidance_state`` is given, ``(eps_branches, i, state) -> (eps,
+    state)`` with ``i`` the index of the plan's call (SLD's momentum and
+    warmup). ``latents`` are the raw unit gaussians (init_noise_sigma
+    applied here); each call's UNet input is scaled by
+    ``plan.scale_model_input``. The scheduler arithmetic and its history run
+    in fp32 whatever the latents' dtype.
     """
     lat = latents * plan.init_noise_sigma
     hist = plan.init_carry(lat)
+    state = guidance_state
     for i in range(plan.num_calls):
-        lat_in = plan.scale_model_input(torch.cat([lat, lat]), i)
-        eps = guidance_fn(model_fn(lat_in, float(plan.timesteps[i])))
+        lat_in = plan.scale_model_input(torch.cat([lat] * num_branches), i)
+        eps_branches = model_fn(lat_in, float(plan.timesteps[i]))
+        if guidance_state is None:
+            eps = guidance_fn(eps_branches)
+        else:
+            eps, state = guidance_fn(eps_branches, i, state)
         eps = eps.to(lat.dtype)
         new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
         lat = new_lat.to(lat.dtype)

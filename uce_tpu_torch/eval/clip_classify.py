@@ -6,22 +6,20 @@ mean attribute ratios, merged into the prompts CSV where one is given, and
 written as the CSV that uce_tpu's pandas code writes (``to_csv(index=False)``
 of ``prompts.merge(means, on="case_number", how="left")``), without pandas.
 Images go through the CLIP model in batches; the PNGs are read with the
-port's zlib decoder (8-bit RGB, filter 0: what ``generate`` writes). A
-batch holds images of one size: a folder of mixed sizes is classified at
-each image's own size (uce_tpu resizes stragglers to the first image's size
-with PIL first).
+port's zlib decoder (what PIL or the port writes), and a batch of mixed
+sizes is stacked at its first image's size (``stack_uniform``), as uce_tpu
+does.
 """
 
 from __future__ import annotations
 
-import csv
 import os
 import re
 
 import numpy as np
 
-from uce_tpu_torch.eval.generate import PANDAS_NA_STRINGS
-from uce_tpu_torch.utils.imaging import decode_png
+from uce_tpu_torch.eval import table
+from uce_tpu_torch.utils.imaging import load_image, stack_uniform
 
 
 def sorted_nicely(names):
@@ -30,38 +28,6 @@ def sorted_nicely(names):
         return [int(t) if t.isdigit() else t.lower() for t in re.split(r"(\d+)", s)]
 
     return sorted(names, key=key)
-
-
-def _pandas_column(cells: list[str]) -> list:
-    """One column of a CSV as ``pandas.read_csv`` types it: int, float (an
-    int column with an NA too), or text; NA cells become None."""
-    values = [None if c in PANDAS_NA_STRINGS else c for c in cells]
-    present = [v for v in values if v is not None]
-    for cast in (int, float):
-        try:
-            parsed = [cast(v) for v in present]
-        except ValueError:
-            continue
-        if cast is int and len(present) < len(values):
-            cast = float  # pandas stores an int column with NAs as float64
-        return [None if v is None else cast(v) for v in values]
-    return values
-
-
-def _read_csv_columns(path: str) -> tuple[list[str], list[list]]:
-    with open(path, newline="", encoding="utf-8") as f:
-        rows = list(csv.reader(f))
-    header, body = rows[0], rows[1:]
-    columns = [_pandas_column([r[j] if j < len(r) else "" for r in body])
-               for j in range(len(header))]
-    return header, [list(r) for r in zip(*columns)] if body else []
-
-
-def _cell(v) -> str:
-    """A value as pandas' to_csv writes it: NA empty, floats by repr."""
-    if v is None or (isinstance(v, float) and v != v):
-        return ""
-    return repr(v) if isinstance(v, float) else str(v)
 
 
 def classify_folder(clip_model, image_folder: str, attributes: list[str],
@@ -77,7 +43,7 @@ def classify_folder(clip_model, image_folder: str, attributes: list[str],
     def flush():
         if not batch:
             return
-        pred = clip_model.classify(np.stack(batch), attributes)
+        pred = clip_model.classify(stack_uniform(batch), attributes)
         for case, p in zip(meta, pred):
             one_hot = np.zeros(len(attributes))
             one_hot[int(p)] = 1.0
@@ -92,11 +58,7 @@ def classify_folder(clip_model, image_folder: str, attributes: list[str],
         case = int(m.group(1))
         if not from_case <= case <= till_case:
             continue
-        with open(os.path.join(image_folder, name), "rb") as f:
-            img = decode_png(f.read())
-        if batch and img.shape != batch[0].shape:
-            flush()
-        batch.append(img)
+        batch.append(load_image(os.path.join(image_folder, name)))
         meta.append(case)
         if len(batch) >= batch_size:
             flush()
@@ -109,7 +71,7 @@ def classify_folder(clip_model, image_folder: str, attributes: list[str],
              for case, v in votes.items()}
     if prompts_path:
         # a left merge: every prompts row, NA where the case has no images
-        header, prompt_rows = _read_csv_columns(prompts_path)
+        header, prompt_rows = table.read_csv(prompts_path)
         col = header.index("case_number")
         header = header + bias_cols
         rows = [r + means.get(r[col], [None] * len(attributes)) for r in prompt_rows]
@@ -117,10 +79,7 @@ def classify_folder(clip_model, image_folder: str, attributes: list[str],
         header = ["case_number"] + bias_cols
         rows = [[case] + means[case] for case in sorted(means)]
     if save_path:
-        with open(save_path, "w", newline="", encoding="utf-8") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow(header)
-            w.writerows([_cell(v) for v in r] for r in rows)
+        table.write_csv(save_path, header, rows)
     return header, rows
 
 

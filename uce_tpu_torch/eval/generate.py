@@ -13,19 +13,15 @@ import torch
 
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.sampler import FastConfig
+from uce_tpu_torch.eval.table import PANDAS_NA_STRINGS
 from uce_tpu_torch.utils.imaging import case_window, save_case_images, uce_output_folder
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-# The strings that pandas.read_csv reads as NA by default (pandas'
-# STR_NA_VALUES). uce_tpu reads the prompts CSV with pandas and passes
-# str(prompt), so such a prompt reaches its pipeline as the text "nan";
-# this reader does the same without pandas.
-PANDAS_NA_STRINGS = frozenset({
-    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
-    "nan", "null"})
+# uce_tpu reads the prompts CSV with pandas and passes str(prompt), so a
+# prompt that pandas reads as NA (``table.PANDAS_NA_STRINGS``) reaches its
+# pipeline as the text "nan"; this reader does the same without pandas.
 
 
 def read_prompts_csv(path: str) -> list[dict]:

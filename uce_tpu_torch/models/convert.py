@@ -170,3 +170,15 @@ def hidream_params(params: Mapping, config: HiDreamConfig) -> dict:
         else:
             out[key] = t(key, v)
     return out
+
+
+def _vision_tree(tree: Mapping) -> dict:
+    """A uce_tpu vision-backbone tree (conv kernels HWIO, the fc weight [in,
+    out], vectors) -> the port's nested params (OIHW, [out, in]), same keys:
+    ``models/vision_backbones.py``'s AlexNet, VGG19 and ResNet-50 params."""
+    return {k: (_vision_tree(v) if isinstance(v, Mapping) else
+                torch.tensor(_to_port_layout("weight", np.asarray(v, np.float32))))
+            for k, v in tree.items()}
+
+
+alexnet_params = vgg19_params = resnet50_params = _vision_tree
