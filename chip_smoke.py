@@ -108,6 +108,18 @@ each phase's seconds and the total are printed):
      run of the same command (every number within 1e-4 relative), the CSVs'
      columns as uce_tpu writes them, LPIPS of a folder against itself
      exactly 0, and no kernel launched;
+ 18d. ``eval-nudenet`` (NudeNet's YOLOv8-n at 320: seeded weights rescaled
+     to unit-variance activations on the folders' canvases, LSUV, with the
+     class head's bias set so a few anchors pass the 0.2 gate, in the
+     converter's safetensors format) over the four baseline folders at
+     batch 16, ``eval-dreamsim`` (three ViT-B/16 at 224, the converter's
+     format) original against edited, each on the card, on the CPU and in
+     a new process (torch's default TF32): the NudeNet CSVs equal cell for
+     cell, the raw detector output and the DreamSim CSV within 1e-4, a
+     folder against itself within 1e-6, seconds per image; the drawn
+     YOLOv8-n weights as they are, printed beside; ``eval-compare`` (a
+     grid per complete case, each panel its source) and ``info`` in a new
+     process (rc 0, the card, six libraries built); no kernel launched;
  19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
      CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
      on the card (~33.8 GB, its bytes and seconds printed; the host's free
@@ -151,6 +163,7 @@ import functools
 import io
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -173,9 +186,10 @@ from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
 from uce_tpu_torch.edit import debias as debias_mod, flux as edit_flux, hidream as edit_hd
 from uce_tpu_torch.edit import sd as edit_sd
-from uce_tpu_torch.eval import lpips as lpips_mod
+from uce_tpu_torch.eval import dreamsim as dreamsim_mod, lpips as lpips_mod
+from uce_tpu_torch.eval import nudenet as nudenet_mod
 from uce_tpu_torch.models import clip as clip_mod, clip_text, flux, hidream, llama, quantize
-from uce_tpu_torch.models import t5, unet, vae, vision_backbones
+from uce_tpu_torch.models import t5, unet, vae, vision_backbones, yolo
 from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
@@ -2255,6 +2269,312 @@ def phase_eval(original: str, folders: dict, csv_path: str, clip_snap: str) -> N
           "s); no kernel launched", flush=True)
 
 
+# NudeNet's detector: YOLOv8-n at 320 (nudenet 3.x's 320n.onnx), 18 classes
+NUDENET_SIZE = 320
+NUDENET_BATCH = 16
+# DreamSim's ensemble: three ViT-B/16 at 224, with tools/convert_dreamsim.py's
+# per-family normalizations
+VIT_B16 = dict(depth=12, dim=768, heads=12, patch=16, image=224, mlp_ratio=4)
+_IMAGENET_NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+_CLIP_NORM = ((0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711))
+DREAMSIM_MODELS = {"dino_vitb16": _IMAGENET_NORM, "clip_vitb16": _CLIP_NORM,
+                   "open_clip_vitb16": _CLIP_NORM}
+# DreamSim of a folder against itself (1 - cos of an embedding with itself)
+DREAMSIM_SELF_MAX = 1e-6
+
+
+# Class logits above the score gate per image: a trained detector passes a
+# few anchors of the 2100 x 18 (the random head's bias is set to this share)
+NUDENET_GATED_PER_IMAGE = 8
+
+
+def unit_variance_detector(sd: dict, canvases: np.ndarray) -> dict:
+    """YOLOv8-n weights with each conv rescaled, in forward order on
+    ``canvases``, to outputs of unit variance (LSUV, Mishkin and Matas
+    2015), and the class head's bias set so that about
+    NUDENET_GATED_PER_IMAGE class logits per canvas pass the score gate.
+    ``init_yolo_state``'s draws as they are give a degenerate detector:
+    its activations fade with depth, every anchor scores 0.51 +- 0.01 and
+    NMS orders some 2000 boxes by their last bits (``phase_nudenet`` prints
+    it beside)."""
+    params = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    key_of = {id(v): k.rsplit(".", 1)[0] for k, v in params.items()
+              if k.endswith("weight") and not k.startswith("model.22.dfl")}
+    done = set()
+
+    def conv2d(x, w, b=None, stride=1, padding=1):
+        y = F.conv2d(x, w, b, stride=stride, padding=padding)
+        name = key_of[id(w)]
+        if name not in done:
+            done.add(name)
+            scale = 1.0 / float(y.std())
+            w.mul_(scale)
+            b.mul_(scale)
+            y = y * scale
+        return y
+
+    with swapped(yolo, "conv2d", conv2d), torch.no_grad():
+        outs = yolo.yolo_raw(params, torch.from_numpy(canvases).permute(0, 3, 1, 2))
+    nc = len(yolo.NUDENET_LABELS)
+    logits = torch.cat([o[:, 4 * yolo.REG_MAX:].flatten(2) for o in outs], dim=2)
+    # the gate midway between two neighbouring logits, so no anchor of
+    # these canvases sits at it
+    ranked = logits.flatten().double().sort(descending=True).values
+    k = NUDENET_GATED_PER_IMAGE * logits.shape[0]
+    cut = float(ranked[k - 1] + ranked[k]) / 2
+    gate_logit = math.log(0.2 / 0.8)
+    for i in range(len(yolo.STRIDES)):
+        params[f"model.22.cv3.{i}.2.bias"] += gate_logit - cut
+    if len(done) != len(key_of) or params["model.22.cv3.0.2.bias"].numel() != nc:
+        raise AssertionError(f"{len(key_of) - len(done)} convs not calibrated")
+    return {k: v.numpy() for k, v in params.items()}
+
+
+def write_nudenet_weights(path: str, sd: dict) -> None:
+    """YOLOv8-n weights as tools/convert_nudenet.py writes them."""
+    save_safetensors(sd, path, metadata={
+        "labels": ",".join(yolo.NUDENET_LABELS), "source": "random",
+        "input_size": str(NUDENET_SIZE)})
+
+
+def write_dreamsim_weights(path: str) -> None:
+    """Seeded random ViT-B/16 ensemble as tools/convert_dreamsim.py writes it."""
+    rng = np.random.default_rng(SEED + 14)
+    tensors, meta = {}, {"models": ",".join(DREAMSIM_MODELS)}
+    for name, (mean, std) in DREAMSIM_MODELS.items():
+        sd = vision_backbones.init_vit_timm(rng, **VIT_B16)
+        tensors.update({f"{name}/{k}": v for k, v in sd.items()})
+        meta[f"{name}.num_heads"] = str(VIT_B16["heads"])
+        meta[f"{name}.mean"] = ",".join(map(str, mean))
+        meta[f"{name}.std"] = ",".join(map(str, std))
+    save_safetensors(tensors, path, metadata=meta)
+
+
+def fresh_cli(args: list) -> float:
+    """One command on the card in a new process (torch's default precision
+    settings, not this script's); its seconds."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "uce_tpu_torch", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} in a new process: rc {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    return time.perf_counter() - start
+
+
+def host_seconds(fn, reps: int = 3) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - start)
+    return float(np.median(times))
+
+
+def gate_stats(scores: np.ndarray, gate: float) -> tuple[int, float, int]:
+    """Per canvas [A] max class scores -> (most anchors of a canvas past the
+    gate, the smallest nonzero gap between a canvas's gated scores, exact
+    ties). NMS visits the boxes by score, so its result holds while two
+    sides' scores differ by less than that gap."""
+    gated = [np.sort(s[s >= gate]) for s in scores]
+    gaps = np.concatenate([np.diff(g) for g in gated])
+    gap = float(gaps[gaps > 0].min()) if (gaps > 0).any() else float("inf")
+    return max(len(g) for g in gated), gap, int((gaps == 0).sum())
+
+
+def label_lists(raw: np.ndarray) -> list[list[str]]:
+    """The classes NMS keeps on each canvas of a decoded output."""
+    return [[d["class"] for d in yolo.postprocess(r, 1.0, 0, 0)] for r in raw]
+
+
+def phase_nudenet(folders: dict, csv_path: str, root: str) -> None:
+    """eval-nudenet over the baselines' folders on the card, on the CPU and
+    in a new process on the card: the CSVs equal cell for cell; the raw
+    detector output on the same canvases within EVAL_REL; seconds per image
+    at batch 16; how near the gate and each other the scores come. Then the
+    same for ``init_yolo_state``'s draws as they are, printed only."""
+    paths = sorted(os.path.join(folders[k], n) for k in ("sld", "ca", "ca2", "dvl")
+                   for n in os.listdir(folders[k]) if n.endswith(".png"))
+    canvases = np.stack([yolo.letterbox(load_image(p), NUDENET_SIZE)[0] for p in paths])
+    drawn = yolo.init_yolo_state(seed=SEED + 13)
+    weights = os.path.join(root, "nudenet_320n.safetensors")
+    write_nudenet_weights(weights, unit_variance_detector(drawn, canvases))
+    dets = {k: nudenet_mod.NudeDetector(weights, device=d) for k, d in EVAL_DEVICES}
+    raw = {k: det.raw(canvases) for k, det in dets.items()}
+    want_shape = (len(paths), sum((NUDENET_SIZE // s) ** 2 for s in yolo.STRIDES),
+                  4 + len(yolo.NUDENET_LABELS))
+    if raw["card"].shape != want_shape or not np.isfinite(raw["card"]).all():
+        raise AssertionError(f"NudeNet raw output {raw['card'].shape}, want {want_shape}")
+    # the boxes' error as a share of the canvas, the scores' absolute (both
+    # in [0, 1]); beside it, each number's error relative to max(|x|, 1)
+    diff = np.abs(raw["card"] - raw["host"])
+    box_err = float(diff[..., :4].max()) / NUDENET_SIZE
+    score_diff = float(diff[..., 4:].max())
+    err = max(box_err, score_diff)
+    elementwise = float((diff / np.maximum(np.abs(raw["host"]), 1)).max())
+    gate = dets["card"].score_threshold
+    scores = raw["card"][..., 4:].max(-1)
+    gated, gap, ties = gate_stats(scores, gate)
+    near = float(np.abs(scores - gate).min())
+    batch = canvases[np.arange(NUDENET_BATCH) % len(canvases)]
+    card_s = median_ms(lambda: dets["card"].raw(batch), reps=5) / 1e3
+    cpu_s = host_seconds(lambda: dets["host"].raw(batch))
+    print(f"[eval] NudeNet YOLOv8-n raw output {raw['card'].shape} on {len(paths)} canvases: "
+          f"card vs CPU boxes {box_err:.3e} of the canvas, scores {score_diff:.3e} (bound "
+          f"{EVAL_REL}; each number relative to max(|x|, 1) {elementwise:.3e}); up to {gated} anchors a canvas past the {gate} gate, the "
+          f"nearest {near:.3e} from it, the smallest gap between a canvas's gated scores "
+          f"{gap:.3e} ({ties} exact ties); batch {NUDENET_BATCH}: card "
+          f"{card_s / NUDENET_BATCH * 1e3:.3f} ms per image ({card_s * 1e3:.2f} ms a batch, "
+          f"host copies included), CPU {cpu_s / NUDENET_BATCH * 1e3:.2f} ms per image "
+          f"({cpu_s:.3f} s a batch)", flush=True)
+    if not err <= EVAL_REL:
+        raise AssertionError(f"NudeNet raw output card vs CPU: {err} > {EVAL_REL}")
+
+    drawn_path = os.path.join(root, "nudenet_drawn.safetensors")
+    write_nudenet_weights(drawn_path, drawn)
+    drawn_dets = {k: nudenet_mod.NudeDetector(drawn_path, device=d) for k, d in EVAL_DEVICES}
+    drawn_raw = {k: det.raw(canvases) for k, det in drawn_dets.items()}
+    d_scores = drawn_raw["card"][..., 4:].max(-1)
+    d_gated, d_gap, d_ties = gate_stats(d_scores, gate)
+    d_labels = {k: label_lists(r) for k, r in drawn_raw.items()}
+    print(f"[eval] NudeNet with init_yolo_state's draws as they are (printed, not held): "
+          f"scores {d_scores.min():.5f}-{d_scores.max():.5f}, up to {d_gated} anchors a canvas "
+          f"past the gate, the smallest gap {d_gap:.3e} ({d_ties} exact ties), card vs CPU "
+          f"scores {np.abs(drawn_raw['card'][..., 4:] - drawn_raw['host'][..., 4:]).max():.3e}; "
+          f"kept boxes per canvas {[len(v) for v in d_labels['card']]}; the label lists differ "
+          f"card vs CPU on {sum(a != b for a, b in zip(d_labels['card'], d_labels['host']))} "
+          f"of {len(paths)} canvases", flush=True)
+
+    header = read_table(csv_path)[0] + ["NudeNet_label"]
+    mismatches = []
+    for key, samples in (("sld", 1), ("ca", 1), ("ca2", 2), ("dvl", 1)):
+        args = ["--image_folder", folders[key], "--prompts_path", csv_path, "--weights",
+                weights, "--num_samples", str(samples)]
+        tables, secs = {}, {}
+        for dev_key, device in EVAL_DEVICES:
+            save = os.path.join(root, f"nudenet_{key}_{dev_key}.csv")
+            _, secs[dev_key] = eval_cli("eval-nudenet", [*args, "--save_path", save], device)
+            tables[dev_key] = read_table(save)
+        save = os.path.join(root, f"nudenet_{key}_fresh.csv")
+        secs["fresh"] = fresh_cli(["eval-nudenet", *args, "--save_path", save])
+        tables["fresh"] = read_table(save)
+        if tables["card"][0] != header:
+            raise AssertionError(f"eval-nudenet: columns {tables['card'][0]}, want {header}")
+        mismatches += [(key, other) for other in ("host", "fresh")
+                       if tables["card"] != tables[other]]
+        found = [r[-1].split("-") if r[-1] else [] for r in tables["card"][1:]]
+        print(f"[eval] eval-nudenet {key}: {len(found)} rows, the card's CSV "
+              f"{'equal' if not mismatches else 'UNEQUAL'} to the CPU's and the new "
+              f"process's; card {secs['card']:.2f} s, CPU {secs['host']:.2f} s, new process "
+              f"{secs['fresh']:.2f} s (CLI wall); labels {[r[-1] for r in tables['card'][1:]]}",
+              flush=True)
+    if mismatches:
+        raise AssertionError(f"eval-nudenet: the card's CSV differs from {mismatches}")
+
+
+def phase_dreamsim(original: str, edited: str, csv_path: str, root: str) -> None:
+    """eval-dreamsim, original against edited, on the card, on the CPU and in
+    a new process on the card, within EVAL_REL; a folder against itself at
+    most DREAMSIM_SELF_MAX; seconds per image pair, card against CPU."""
+    weights = os.path.join(root, "dreamsim_ensemble.safetensors")
+    write_dreamsim_weights(weights)
+    header = read_table(csv_path)[0] + ["dream_loss"]
+    args = ["--original_path", original, "--edited_path", edited, "--weights", weights,
+            "--prompts_path", csv_path]
+    tables, secs = {}, {}
+    for key, device in EVAL_DEVICES:
+        save = os.path.join(root, f"dreamsim_{key}.csv")
+        _, secs[key] = eval_cli("eval-dreamsim", [*args, "--save_path", save], device)
+        tables[key] = read_table(save)
+    save = os.path.join(root, "dreamsim_fresh.csv")
+    secs["fresh"] = fresh_cli(["eval-dreamsim", *args, "--save_path", save])
+    tables["fresh"] = read_table(save)
+    if tables["card"][0] != header:
+        raise AssertionError(f"eval-dreamsim: columns {tables['card'][0]}, want {header}")
+    worst = hold_card_to_cpu("eval-dreamsim", tables["card"][1:], tables["host"][1:], header)
+    fresh = hold_card_to_cpu("eval-dreamsim (new process)", tables["fresh"][1:],
+                             tables["host"][1:], header)
+    save = os.path.join(root, "dreamsim_self.csv")
+    eval_cli("eval-dreamsim", ["--original_path", original, "--edited_path", original,
+                               "--weights", weights, "--save_path", save], "cuda")
+    self_rows = read_table(save)[1:]
+    if not self_rows or any(abs(float(r[1])) > DREAMSIM_SELF_MAX for r in self_rows):
+        raise AssertionError(f"eval-dreamsim of a folder against itself: {self_rows}")
+    pairs = sorted(n for n in os.listdir(original) if n.endswith(".png"))
+    timings = {}
+    for key, device in EVAL_DEVICES:
+        fn = dreamsim_mod.load_dreamsim(weights, device)
+        prep = lpips_mod.batch_prep(224, device)
+        a = prep(np.stack([load_image(os.path.join(original, n)) for n in pairs]))
+        b = prep(np.stack([load_image(os.path.join(edited, n)) for n in pairs]))
+        with torch.inference_mode():
+            timings[key] = (median_ms(lambda: fn(a, b), reps=5) / 1e3 if device == "cuda"
+                            else host_seconds(lambda: fn(a, b)))
+        del fn
+    print(f"[eval] eval-dreamsim (3 ViT-B/16): {len(tables['card']) - 1} rows "
+          f"{[r[-1] for r in tables['card'][1:]]}; card vs CPU rel max {worst:.3e}, new "
+          f"process vs CPU {fresh:.3e} (bound {EVAL_REL}); a folder against itself max "
+          f"{max(abs(float(r[1])) for r in self_rows):.3e} (bound {DREAMSIM_SELF_MAX}); CLI "
+          f"wall card {secs['card']:.2f} s, CPU {secs['host']:.2f} s, new process "
+          f"{secs['fresh']:.2f} s; per image pair at batch {len(pairs)}: card "
+          f"{timings['card'] / len(pairs) * 1e3:.2f} ms, CPU "
+          f"{timings['host'] / len(pairs) * 1e3:.1f} ms", flush=True)
+
+
+def phase_compare_info(original: str, folders: dict, root: str) -> None:
+    """eval-compare over the folders: a grid per case complete in every
+    folder, each panel its source image; ``info`` in a new process: rc 0, the
+    card named, every library built for the current sources."""
+    columns = [original, folders["sld"], folders["ca"], folders["dvl"]]
+    out = os.path.join(root, "grids")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["eval-compare", "--folders", *columns, "--save_path", out])
+    cases = sorted(set.intersection(*(
+        {int(n.split("_")[0]) for n in os.listdir(f) if re.fullmatch(r"\d+_0\.png", n)}
+        for f in columns)))
+    if rc != 0 or sorted(os.listdir(out)) != sorted(f"{c}.png" for c in cases) or (
+            f"wrote {len(cases)} comparison grids" not in buf.getvalue()):
+        raise AssertionError(f"eval-compare: rc {rc}, {sorted(os.listdir(out))}, want "
+                             f"{cases}: {buf.getvalue()}")
+    for c in cases:
+        grid = load_image(os.path.join(out, f"{c}.png"))
+        panels = [load_image(os.path.join(f, f"{c}_0.png")) for f in columns]
+        h, w = panels[0].shape[:2]
+        if grid.shape != (h, w * len(columns), 3) or any(
+                not np.array_equal(grid[:, i * w:(i + 1) * w], p) for i, p in enumerate(panels)):
+            raise AssertionError(f"eval-compare {c}.png: panels differ from their sources")
+    proc = subprocess.run([sys.executable, "-m", "uce_tpu_torch", "info"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    name = torch.cuda.get_device_name(0)
+    built = proc.stdout.count(": built ")
+    if proc.returncode != 0 or name not in proc.stdout or built != len(BUILDS):
+        raise AssertionError(f"info: rc {proc.returncode}, {built} libraries built\n"
+                             f"{proc.stdout}{proc.stderr[-2000:]}")
+    print(f"[eval] eval-compare: {len(cases)} grids of {len(columns)} columns, each panel "
+          f"its source image; info: rc 0, names {name}, {built} libraries built for the "
+          f"current sources", flush=True)
+    print("\n".join(f"[info] {line}" for line in proc.stdout.splitlines()), flush=True)
+
+
+def phase_eval_suite(original: str, folders: dict, csv_path: str) -> None:
+    """eval-nudenet, eval-dreamsim, eval-compare and info over the baselines'
+    folders; no kernel launch (fp32 convs and T=197 attention)."""
+    root = os.path.join(WORK, "eval_suite")
+    os.makedirs(root, exist_ok=True)
+    with kernel_env(False):
+        reset_launches()
+        phase_nudenet(folders, csv_path, root)
+        phase_dreamsim(original, folders["sld"], csv_path, root)
+        phase_compare_info(original, folders, root)
+        launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the eval suite launched kernels: {launches}")
+    print("[eval] eval-nudenet, eval-dreamsim, eval-compare, info: no kernel launched",
+          flush=True)
+
+
 def run_baselines(snap: str, clip_snap: str, cases: list, rows: dict,
                   seconds: dict) -> None:
     """The baselines on SD 1.4 through their CLIs on both paths, their
@@ -2307,6 +2627,8 @@ def run_baselines(snap: str, clip_snap: str, cases: list, rows: dict,
         folders = {"sld": baseline_dir("kernels", 0), "ca": baseline_dir("kernels", 1),
                    "ca2": baseline_dir("kernels", 2), "dvl": baseline_dir("kernels", 3)}
         phase_eval(generate_dir(SD14, "kernels"), folders, csv_path, clip_snap)
+    with timed("eval-nudenet, eval-dreamsim, eval-compare, info", seconds):
+        phase_eval_suite(generate_dir(SD14, "kernels"), folders, csv_path)
 
 
 @contextlib.contextmanager

@@ -16,6 +16,7 @@ import torch
 
 from tests.snapshot import make_sd_snapshot
 from tests.test_torch_sdxl_sd21_shapes import SMS, _calls, _kernel_attention
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.eval import baselines
 from uce_tpu_torch.ops.kernels import conv3x3 as port_conv

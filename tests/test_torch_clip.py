@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tests.snapshot import _write_tokenizer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import clip_text as jct
 from uce_tpu_torch.models import clip_text as tct
 from uce_tpu_torch.models.clip_tokenizer import CLIPTokenizer

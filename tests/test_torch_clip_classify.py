@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from tests.snapshot import make_clip_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.eval import clip_classify
 from uce_tpu_torch.utils.imaging import case_image_path, save_png
 

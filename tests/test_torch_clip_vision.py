@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tests.snapshot import make_clip_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import clip as jclip
 from uce_tpu_torch.models import clip as tclip
 

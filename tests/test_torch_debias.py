@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests.snapshot import make_clip_snapshot, make_sd_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.edit import debias
 from uce_tpu_torch.edit.debias import (DebiasSettings, DeviceDebiasApplier,

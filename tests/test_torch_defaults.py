@@ -7,6 +7,7 @@ import inspect
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.edit import embeddings, sd
 from uce_tpu_torch.models import unet

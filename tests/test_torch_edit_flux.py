@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.edit import flux as tflux_edit
 
 EDITS, GUIDES, PRESERVES = ["kelly mckernan", "tyler edlin"], ["art", "art"], ["van gogh"]
@@ -92,13 +93,17 @@ def test_erase_from_embeddings_matches_uce_tpu(resources):
         assert not np.allclose(got[k].numpy(), jres.targets[k])  # edited
 
 
-def test_edit_flux_cli_matches_uce_tpu(flux_snap, tmp_path):
+def test_edit_flux_cli_matches_uce_tpu(flux_snap, tmp_path, monkeypatch):
     """Both CLIs' edit-flux write the same two diffusers keys; the values
     agree to fp32 round-off."""
     from safetensors.numpy import load_file
 
     from uce_tpu.cli.main import main as jmain
     from uce_tpu_torch.cli.main import main as tmain
+
+    # uce_tpu's main() would point this worker's XLA cache at ~/.cache for
+    # the rest of the process (tests/test_compile_cache.py then misses)
+    monkeypatch.setenv("UCE_COMPILE_CACHE", "0")
 
     args = ["edit-flux", "--model_id", flux_snap, "--edit_concepts",
             "kelly mckernan; tyler edlin", "--concept_type", "art",

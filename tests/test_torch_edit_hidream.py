@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.edit import hidream as thd_edit
 from uce_tpu_torch.ops import solver as tsolver
 
@@ -158,13 +159,17 @@ def test_missing_llama_and_real_tokenizer_raise(tmp_path):
         thd_edit.load_llama_tokenizer(str(tmp_path))
 
 
-def test_edit_hidream_cli_matches_uce_tpu(hd_snap, tmp_path):
+def test_edit_hidream_cli_matches_uce_tpu(hd_snap, tmp_path, monkeypatch):
     """Both CLIs' edit-hidream write the same caption-projection keys; the
     values agree to fp32 round-off; --method pallas is refused."""
     from safetensors.numpy import load_file
 
     from uce_tpu.cli.main import main as jmain
     from uce_tpu_torch.cli.main import main as tmain
+
+    # uce_tpu's main() would point this worker's XLA cache at ~/.cache for
+    # the rest of the process (tests/test_compile_cache.py then misses)
+    monkeypatch.setenv("UCE_COMPILE_CACHE", "0")
 
     args = ["edit-hidream", "--model_id", hd_snap, "--edit_concepts",
             "kelly mckernan; tyler edlin", "--concept_type", "art",

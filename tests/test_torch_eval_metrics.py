@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from tests.snapshot import make_clip_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.utils.imaging import save_png as pil_save_png
 from uce_tpu_torch.eval import clip_score, imageclassify, lpips, styleloss, table
 from uce_tpu_torch.models import vision_backbones as tvb

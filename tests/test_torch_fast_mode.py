@@ -6,11 +6,15 @@ tests/test_torch_unet_vae.py for the UNet, 1e-4 for whole denoising runs,
 no-op config and a full-window config reproduce ``denoise`` bit for bit,
 and a same-step deep feature fed back reproduces the full forward."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.diffusion import sampler as jsampler, schedulers as jsched
 from uce_tpu.models import unet as junet
 from uce_tpu_torch.diffusion import sampler, schedulers
@@ -52,6 +56,12 @@ def _models(cfg_kw, seed=0):
     jparams = junet.nest_state_dict(
         junet.init_state_dict(jcfg, np.random.default_rng(seed), scale=0.1))
     return jcfg, tcfg, jparams, nested_to_state_dict(jparams)
+
+
+def _jit_unet(jcfg, **static):
+    """uce_tpu's UNet forward, jitted with the config and the static keywords
+    (cache level, return_deep) closed over."""
+    return jax.jit(lambda p, x, t, c, **kw: junet.apply(p, x, t, c, jcfg, **static, **kw))
 
 
 def _added_cond(rng, batch):
@@ -112,9 +122,8 @@ def test_deepcache_apply_matches_uce_tpu(topology, cache_level):
     ac = _added_cond(rng, 2) if topology == "xl" else None
     jac = None if ac is None else {k: jnp.asarray(v) for k, v in ac.items()}
     tac = None if ac is None else {k: torch.from_numpy(v) for k, v in ac.items()}
-    j_eps, j_deep = junet.apply(jparams, jnp.asarray(x), jnp.asarray(t),
-                                jnp.asarray(ctx), jcfg, added_cond=jac,
-                                return_deep=True, cache_level=cache_level)
+    j_eps, j_deep = _jit_unet(jcfg, return_deep=True, cache_level=cache_level)(
+        jparams, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx), added_cond=jac)
     t_eps, t_deep = tunet.apply(tparams, _nchw(x), torch.from_numpy(t),
                                 torch.from_numpy(ctx), tcfg, added_cond=tac,
                                 return_deep=True, cache_level=cache_level)
@@ -125,9 +134,9 @@ def test_deepcache_apply_matches_uce_tpu(topology, cache_level):
     assert tuple(t_deep.shape) == shape == (jshape[0], jshape[3], jshape[1], jshape[2])
     # the shallow path on another deep feature (the same for both)
     deep = (rng.standard_normal(jshape) * 0.5).astype(np.float32)
-    want = junet.apply(jparams, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
-                       jcfg, added_cond=jac, deep_feature=jnp.asarray(deep),
-                       cache_level=cache_level)
+    want = _jit_unet(jcfg, cache_level=cache_level)(
+        jparams, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx), added_cond=jac,
+        deep_feature=jnp.asarray(deep))
     got = tunet.apply(tparams, _nchw(x), torch.from_numpy(t), torch.from_numpy(ctx),
                       tcfg, added_cond=tac, deep_feature=_nchw(deep),
                       cache_level=cache_level)
@@ -210,15 +219,15 @@ def test_denoise_fast_matches_uce_tpu(fast, kind):
                                 cache_interval=fast.cache_interval,
                                 cache_level=fast.cache_level)
 
+    @functools.cache
+    def forward(want_deep):
+        return _jit_unet(jcfg, return_deep=want_deep, cache_level=fast.cache_level)
+
     def jfactory(cond_only, cached, want_deep):
         c = jctx[batch:] if cond_only else jctx
         if cached:
-            return lambda li, t, d: junet.apply(jparams, li, t, c, jcfg,
-                                                deep_feature=d,
-                                                cache_level=fast.cache_level)
-        return lambda li, t: junet.apply(jparams, li, t, c, jcfg,
-                                         return_deep=want_deep,
-                                         cache_level=fast.cache_level)
+            return lambda li, t, d: forward(False)(jparams, li, t, c, deep_feature=d)
+        return lambda li, t: forward(want_deep)(jparams, li, t, c)
 
     want = np.asarray(jsampler.denoise_fast(jfactory, jplan, jnp.asarray(lat),
                                             guidance_scale=7.5, fast=jfast))

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import convert, flux as tflux
 
 TINY = dict(in_channels=16, num_layers=1, num_single_layers=2, attention_head_dim=8,

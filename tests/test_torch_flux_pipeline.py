@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion import pipeline_flux as tpf, schedulers as tsched
 from uce_tpu_torch.models import vae as tvae
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.ops.pallas import group_norm as pallas_gn
 from uce_tpu_torch.models import layers, unet, vae
 from uce_tpu_torch.ops.kernels import group_norm as port_gn

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests.snapshot import make_sd_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.diffusion import guidance as jg
 from uce_tpu.diffusion import sampler as jsampler
 from uce_tpu.diffusion import schedulers as jsched

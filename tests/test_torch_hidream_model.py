@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import convert, hidream as thd
 
 TINY = dict(patch_size=2, in_channels=4, out_channels=4, num_layers=2,

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion import pipeline_hidream as tph
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.models.hf_loader import save_safetensors

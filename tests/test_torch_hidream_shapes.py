@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tests.test_torch_sdxl_sd21_shapes import _ShapeRng
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion import pipeline_flux
 from uce_tpu_torch.models import clip_text, hidream, llama, t5
 from uce_tpu_torch.ops import attention

@@ -1,12 +1,13 @@
 """uce_tpu_torch must run where jax, uce_tpu, safetensors, transformers,
-pandas, PIL and regex are absent (the CUDA machine has none of them): every
-module imports and the CLI answers --help with all of them blocked."""
+pandas, PIL, regex, onnx and matplotlib are absent (the CUDA machine has
+none of them): every module imports and the CLI answers --help with all of
+them blocked."""
 
 import subprocess
 import sys
 
 BLOCKED = ("jax", "jaxlib", "uce_tpu", "safetensors", "transformers", "pandas",
-           "PIL", "regex")
+           "PIL", "regex", "onnx", "matplotlib")
 
 SCRIPT = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -38,7 +39,11 @@ assert HIDREAM <= set(names), HIDREAM - set(names)
 EVAL = {{"uce_tpu_torch.diffusion.guidance", "uce_tpu_torch.eval.baselines",
          "uce_tpu_torch.models.vision_backbones", "uce_tpu_torch.eval.lpips",
          "uce_tpu_torch.eval.styleloss", "uce_tpu_torch.eval.imageclassify",
-         "uce_tpu_torch.eval.clip_score", "uce_tpu_torch.eval.table"}}
+         "uce_tpu_torch.eval.clip_score", "uce_tpu_torch.eval.table",
+         "uce_tpu_torch.utils.onnx_lite", "uce_tpu_torch.models.yolo",
+         "uce_tpu_torch.eval.nudenet", "uce_tpu_torch.tools.convert_nudenet",
+         "uce_tpu_torch.eval.dreamsim", "uce_tpu_torch.eval.compare_grids",
+         "uce_tpu_torch.cli.info_cmd"}}
 assert EVAL <= set(names), EVAL - set(names)
 for name in names:
     importlib.import_module(name)
@@ -50,7 +55,9 @@ for argv in (["--help"], ["edit-sd", "--help"], ["edit-sdxl", "--help"],
              ["eval-clip-classify", "--help"], ["sld-generate", "--help"],
              ["concept-algebra", "--help"], ["debias-vl", "--help"],
              ["eval-lpips", "--help"], ["eval-styleloss", "--help"],
-             ["eval-imageclassify", "--help"], ["eval-clip-score", "--help"]):
+             ["eval-imageclassify", "--help"], ["eval-clip-score", "--help"],
+             ["eval-nudenet", "--help"], ["eval-dreamsim", "--help"],
+             ["eval-compare", "--help"], ["info", "--help"]):
     try:
         main(argv)
     except SystemExit as e:
@@ -75,5 +82,6 @@ def test_module_entry_point_help():
     assert "edit-flux" in proc.stdout and "generate-flux" in proc.stdout
     assert "edit-hidream" in proc.stdout and "generate-hidream" in proc.stdout
     for command in ("sld-generate", "concept-algebra", "debias-vl", "eval-lpips",
-                    "eval-styleloss", "eval-imageclassify", "eval-clip-score"):
+                    "eval-styleloss", "eval-imageclassify", "eval-clip-score",
+                    "eval-nudenet", "eval-dreamsim", "eval-compare", "info"):
         assert command in proc.stdout, command

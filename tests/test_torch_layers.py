@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import layers as jl
 from uce_tpu_torch.models import layers as tl
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import convert, llama as tllama
 
 LLAMA3 = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tests.snapshot import make_sd_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

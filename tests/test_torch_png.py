@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.utils.imaging import save_png as pil_save_png
 from uce_tpu_torch.utils import imaging
 

@@ -9,6 +9,7 @@ import os
 import pandas as pd
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.utils.imaging import case_window
 from uce_tpu_torch.eval.generate import PANDAS_NA_STRINGS, read_prompts_csv
 

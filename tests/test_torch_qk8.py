@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.ops.attention import _xla_attention
 from uce_tpu.ops.pallas import sd_attention as pallas_sdk
 from uce_tpu_torch.models import quantize, unet as tunet, vae as tvae

@@ -2,11 +2,13 @@
 dispatch, the quantized UNet and VAE) against uce_tpu's on the same int8
 payloads, carried over by uce_tpu_torch.models.convert."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import quantize as jquantize, unet as junet, vae as jvae
 from uce_tpu.ops import quant as jquant
 from uce_tpu_torch.models import layers, quantize as tquantize, unet as tunet, vae as tvae
@@ -161,8 +163,9 @@ def test_quantize_params_matches_uce_tpu(model, cfg_kw, skip, mode):
     tmod = tunet if model == "unet" else tvae
     config = tunet.UNetConfig if model == "unet" else tvae.VAEConfig
     flat = tmod.init_state_dict(config(**cfg_kw), np.random.default_rng(5))
-    want = nested_to_state_dict(jquantize.quantize_params(
-        junet.nest_state_dict(flat), getattr(jquantize, skip), mode=mode))
+    jparams = jquantize.quantize_params(junet.nest_state_dict(flat),
+                                        getattr(jquantize, skip), mode=mode)
+    want = nested_to_state_dict(jparams)
     got = tquantize.quantize_params(tunet.load_params(flat, device="cpu"),
                                     getattr(tquantize, skip), mode=mode)
     is_q = lambda v: tquant.is_quantized(v) or tquant.is_weight_only(v)  # noqa: E731
@@ -171,9 +174,7 @@ def test_quantize_params_matches_uce_tpu(model, cfg_kw, skip, mode):
     for k in quantized:
         assert all(torch.equal(got[k][n], want[k][n]) for n in got[k])
     nq, nw = tquantize.count_quantized(got)
-    assert (nq, nw) == jquantize.count_quantized(
-        jquantize.quantize_params(junet.nest_state_dict(flat),
-                                  getattr(jquantize, skip), mode=mode))
+    assert (nq, nw) == jquantize.count_quantized(jparams)
     assert nq == len(quantized) > 10
 
 
@@ -192,8 +193,8 @@ def test_quantized_unet_matches_uce_tpu(mode):
     rng = np.random.default_rng(6)
     x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
     ctx = rng.standard_normal((2, 7, 32)).astype(np.float32)
-    want = np.asarray(junet.apply(jparams, jnp.asarray(x), jnp.asarray(500.0),
-                                  jnp.asarray(ctx), jcfg))
+    want = np.asarray(jax.jit(lambda p, x, t, c: junet.apply(p, x, t, c, jcfg))(
+        jparams, jnp.asarray(x), jnp.asarray(500.0), jnp.asarray(ctx)))
     got = tunet.apply(nested_to_state_dict(jparams), _nchw(x), 500.0,
                       torch.from_numpy(ctx), tcfg)
     assert _rel_l2(_nhwc(got), want) <= NET_REL_L2
@@ -206,7 +207,8 @@ def test_quantized_vae_decode_matches_uce_tpu(mode):
     jparams = jquantize.quantize_params(junet.nest_state_dict(flat),
                                         jquantize.VAE_SKIP, mode=mode)
     lat = np.random.default_rng(4).standard_normal((2, 8, 8, 4)).astype(np.float32)
-    want = np.asarray(jvae.decode(jparams, jnp.asarray(lat), jcfg))
+    want = np.asarray(jax.jit(lambda p, z: jvae.decode(p, z, jcfg))(jparams,
+                                                                    jnp.asarray(lat)))
     got = tvae.decode(nested_to_state_dict(jparams), _nchw(lat), tcfg)
     assert _rel_l2(_nhwc(got), want) <= NET_REL_L2
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tests.test_goldens import GOLDEN_PATH
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.diffusion import sampler as jsampler, schedulers as jsched
 from uce_tpu.utils import torch_rng as jrng
 from uce_tpu_torch.diffusion import sampler as tsampler, schedulers as tsched

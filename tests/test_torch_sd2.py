@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tests.test_sd2_pipeline import make_sd2_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 EDITS = ["--edit_concepts", "van gogh", "--concept_type", "art",
          "--preserve_concepts", "a house", "--erase_scale", "5"]

@@ -8,6 +8,7 @@ their parameter layouts are held to uce_tpu's too."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from tests.test_sdxl_pipeline import make_sdxl_snapshot
 from tests.test_torch_sdxl_sd21_shapes import _ShapeRng
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import clip_text as jct, unet as junet
 from uce_tpu_torch.models import clip_text as tct, unet as tunet
 from uce_tpu_torch.models.convert import nested_to_state_dict
@@ -89,10 +91,10 @@ def test_text_time_unet_matches_uce_tpu(snap):
     text_embeds = rng.standard_normal((2, 16)).astype(np.float32)
     time_ids = np.array([[32, 32, 0, 0, 32, 32], [64, 48, 8, 4, 64, 48]], np.float32)
     t = np.array([123.0, 801.0], np.float32)
-    want = np.asarray(junet.apply(
-        jparams, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx), jcfg,
-        added_cond={"text_embeds": jnp.asarray(text_embeds),
-                    "time_ids": jnp.asarray(time_ids)}))
+    want = np.asarray(jax.jit(lambda p, x, t, c, ac: junet.apply(p, x, t, c, jcfg,
+                                                                 added_cond=ac))(
+        jparams, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
+        {"text_embeds": jnp.asarray(text_embeds), "time_ids": jnp.asarray(time_ids)}))
     params = nested_to_state_dict(jparams)
     assert params["add_embedding.linear_1.weight"].shape == (
         tcfg.time_embed_dim, tcfg.projection_class_embeddings_input_dim)

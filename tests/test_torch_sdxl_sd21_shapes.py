@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import layers, unet, vae
 from uce_tpu_torch.ops import attention
 from uce_tpu_torch.ops.kernels import conv3x3 as port_conv

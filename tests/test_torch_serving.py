@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tests.snapshot import make_sd_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.serving import socket_api
 from uce_tpu_torch.serving.loadgen import run_load

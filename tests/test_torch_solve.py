@@ -7,6 +7,7 @@ bar of tests/test_pallas_solve.py (both refine once, but the fp32 Newton
 floor differs with the matmul order); the Cholesky solves ~1e-4 relative,
 fp32 round-off at these sizes."""
 
+import functools
 import subprocess
 import sys
 
@@ -17,6 +18,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.snapshot import make_sd_snapshot
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.edit import sd as jedit
 from uce_tpu.ops import solver as jsolver
 from uce_tpu.ops.pallas.uce_solve import uce_edit_matrix_pallas as jax_pallas
@@ -29,15 +31,26 @@ def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))
 
 
+def _solve_case(k, p, d):
+    rng = np.random.default_rng(0)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((k, d), (k, d), (p, d)))
+
+
+@functools.cache
+def _pallas_edit_matrix(k, p, d):
+    """The Pallas kernel's edit matrix (interpret mode) on ``_solve_case``,
+    computed once for the tests that share it."""
+    c_edit, c_guide, c_pres = _solve_case(k, p, d)
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(jax_pallas(jnp.asarray(c_edit), jnp.asarray(c_guide),
+                                     jnp.asarray(c_pres), 1.3, 0.7, 0.5))
+
+
 @pytest.mark.parametrize("k,p,d", [(4, 3, 256), (16, 0, 256)])
 def test_newton_schulz_matches_pallas_kernel(k, p, d):
-    rng = np.random.default_rng(0)
-    c_edit = rng.standard_normal((k, d)).astype(np.float32)
-    c_guide = rng.standard_normal((k, d)).astype(np.float32)
-    c_pres = rng.standard_normal((p, d)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jax_pallas(jnp.asarray(c_edit), jnp.asarray(c_guide),
-                                     jnp.asarray(c_pres), 1.3, 0.7, 0.5))
+    c_edit, c_guide, c_pres = _solve_case(k, p, d)
+    want = _pallas_edit_matrix(k, p, d)
     port_solve.launches = 0
     got = port_solve.uce_edit_matrix_pallas(_t(c_edit), _t(c_guide), _t(c_pres),
                                             1.3, 0.7, 0.5).numpy()
@@ -91,10 +104,7 @@ def test_newton_schulz_3xtf32_meets_the_fp32_bar(k, p, d, monkeypatch):
     """The 3xTF32 split of the uce_solve kernel's GEMMs, emulated here, stays
     within chip_smoke.py's 1e-3 of the fp32 plain version, and its edit
     matrix within this file's 5e-3 of the Pallas kernel."""
-    rng = np.random.default_rng(0)
-    c_edit = rng.standard_normal((k, d)).astype(np.float32)
-    c_guide = rng.standard_normal((k, d)).astype(np.float32)
-    c_pres = rng.standard_normal((p, d)).astype(np.float32)
+    c_edit, c_guide, c_pres = _solve_case(k, p, d)
     args = (_t(c_edit), _t(c_pres), 1.3, 0.7, 0.5)
     x = _newton_schulz_3xtf32(*args)
     ref = port_solve.newton_schulz_reference(*args)
@@ -107,9 +117,7 @@ def test_newton_schulz_3xtf32_meets_the_fp32_bar(k, p, d, monkeypatch):
         for _ in range(port_solve.NEWTON_ITERS):
             x1 = _tf32(x1) @ _tf32(2.0 * eye - _tf32(b) @ _tf32(x1))
     assert float((x1 - ref).abs().max() / ref.abs().max()) > 1e-3
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jax_pallas(jnp.asarray(c_edit), jnp.asarray(c_guide),
-                                     jnp.asarray(c_pres), 1.3, 0.7, 0.5))
+    want = _pallas_edit_matrix(k, p, d)
     monkeypatch.setattr(port_solve, "newton_schulz_inverse",
                         lambda *a: _newton_schulz_3xtf32(*a))
     got = port_solve.uce_edit_matrix_pallas(_t(c_edit), _t(c_guide), _t(c_pres),

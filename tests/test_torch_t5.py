@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import convert, t5 as tt5
 
 TOL = dict(rtol=2e-4, atol=2e-4)

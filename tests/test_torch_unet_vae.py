@@ -2,12 +2,14 @@
 over from uce_tpu's params by uce_tpu_torch.models.convert. Tolerances are
 those of tests/test_unet_cross_impl.py (fp32)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tests.test_goldens import GOLDEN_PATH
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import unet as junet, vae as jvae
 from uce_tpu_torch.models import unet as tunet, vae as tvae
 from uce_tpu_torch.models.convert import nested_to_state_dict
@@ -24,6 +26,15 @@ def _nchw(x):
 
 def _nhwc(t):
     return t.numpy().transpose(0, 2, 3, 1)
+
+
+def _jit_unet(jcfg):
+    """uce_tpu's UNet forward, jitted with the config closed over."""
+    return jax.jit(lambda p, x, t, c: junet.apply(p, x, t, c, jcfg))
+
+
+def _jit_decode(jcfg):
+    return jax.jit(lambda p, z: jvae.decode(p, z, jcfg))
 
 
 def test_unet_matches_golden():
@@ -53,8 +64,8 @@ def test_unet_matches_uce_tpu(use_linear):
     x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
     ctx = rng.standard_normal((2, 7, 24)).astype(np.float32)
     t = np.array([123.0, 801.0], np.float32)
-    want = np.asarray(junet.apply(jparams, jnp.asarray(x), jnp.asarray(t),
-                                  jnp.asarray(ctx), jcfg))
+    want = np.asarray(_jit_unet(jcfg)(jparams, jnp.asarray(x), jnp.asarray(t),
+                                      jnp.asarray(ctx)))
     got = tunet.apply(nested_to_state_dict(jparams), _nchw(x),
                       torch.from_numpy(t), torch.from_numpy(ctx), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=2e-4, atol=2e-4)
@@ -72,8 +83,8 @@ def test_unet_sd14_structure_matches_uce_tpu():
     rng = np.random.default_rng(6)
     x = rng.standard_normal((1, 32, 32, 4)).astype(np.float32)
     ctx = rng.standard_normal((1, 7, 24)).astype(np.float32)
-    want = np.asarray(junet.apply(junet.nest_state_dict(ref_flat), jnp.asarray(x),
-                                  jnp.asarray([500.0]), jnp.asarray(ctx), jcfg))
+    want = np.asarray(_jit_unet(jcfg)(junet.nest_state_dict(ref_flat), jnp.asarray(x),
+                                      jnp.asarray([500.0]), jnp.asarray(ctx)))
     got = tunet.apply(tunet.load_params(flat, device="cpu"), _nchw(x), 500.0,
                       torch.from_numpy(ctx), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=3e-4, atol=3e-4)
@@ -93,8 +104,8 @@ def test_overlay_edits_matches_uce_tpu():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((1, 8, 8, 4)).astype(np.float32)
     ctx = rng.standard_normal((1, 5, 24)).astype(np.float32)
-    want = np.asarray(junet.apply(jparams, jnp.asarray(x), jnp.asarray([10.0]),
-                                  jnp.asarray(ctx), jcfg))
+    want = np.asarray(_jit_unet(jcfg)(jparams, jnp.asarray(x), jnp.asarray([10.0]),
+                                      jnp.asarray(ctx)))
     got = tunet.apply(tparams, _nchw(x), 10.0, torch.from_numpy(ctx), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError):
@@ -110,7 +121,7 @@ def test_vae_decode_matches_uce_tpu():
     jparams = junet.nest_state_dict(jvae.init_state_dict(
         jcfg, np.random.default_rng(2), scale=0.1))
     lat = np.random.default_rng(4).standard_normal((2, 8, 8, 4)).astype(np.float32)
-    want = np.asarray(jvae.decode(jparams, jnp.asarray(lat), jcfg))
+    want = np.asarray(_jit_decode(jcfg)(jparams, jnp.asarray(lat)))
     got = tvae.decode(tunet.load_params(flat, device="cpu"), _nchw(lat), tcfg)
     np.testing.assert_allclose(_nhwc(got), want, rtol=2e-4, atol=2e-4)
 
@@ -173,9 +184,9 @@ def test_unet_kernel_path_bf16_matches_uce_tpu(kernel_path):
     x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
     ctx = rng.standard_normal((2, 7, 24)).astype(np.float32)
     jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in flat.items()}
-    want = np.asarray(junet.apply(junet.nest_state_dict(jp),
-                                  jnp.asarray(x, jnp.bfloat16), jnp.asarray([500.0]),
-                                  jnp.asarray(ctx, jnp.bfloat16), jcfg), np.float32)
+    want = np.asarray(_jit_unet(jcfg)(junet.nest_state_dict(jp),
+                                      jnp.asarray(x, jnp.bfloat16), jnp.asarray([500.0]),
+                                      jnp.asarray(ctx, jnp.bfloat16)), np.float32)
     got = tunet.apply(tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"),
                       _nchw(x).bfloat16(), 500.0,
                       torch.from_numpy(ctx).bfloat16(), tcfg)
@@ -197,8 +208,7 @@ def test_vae_kernel_path_bf16_matches_uce_tpu(kernel_path):
     lat = np.random.default_rng(4).standard_normal((1, 8, 8, 4)).astype(np.float32)
     jp = junet.nest_state_dict({k: jnp.asarray(v, jnp.bfloat16)
                                 for k, v in flat.items()})
-    want = np.asarray(jvae.decode(jp, jnp.asarray(lat, jnp.bfloat16), jcfg),
-                      np.float32)
+    want = np.asarray(_jit_decode(jcfg)(jp, jnp.asarray(lat, jnp.bfloat16)), np.float32)
     got = tvae.decode(tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"),
                       _nchw(lat).bfloat16(), tcfg)
     calls, copies = kernel_path

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.models import vision_backbones as jvb
 from uce_tpu_torch.models import convert
 from uce_tpu_torch.models import vision_backbones as tvb

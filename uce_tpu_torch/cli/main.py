@@ -1,8 +1,9 @@
 """CLI of the port: ``python -m uce_tpu_torch <edit-sd|edit-sdxl|edit-flux|
 edit-hidream|debias-sd|generate|generate-flux|generate-hidream|serve|
 sld-generate|concept-algebra|debias-vl|eval-clip-classify|eval-lpips|
-eval-styleloss|eval-imageclassify|eval-clip-score> ...`` with the flag names
-of the uce_tpu CLI (and of the reference scripts).
+eval-styleloss|eval-imageclassify|eval-clip-score|eval-nudenet|eval-dreamsim|
+eval-compare|info> ...`` with the flag names of the uce_tpu CLI (and of the
+reference scripts): every uce subcommand has its counterpart here.
 
 ``--device`` defaults to ``cuda``; ``cpu`` runs only when asked for. A run
 that asks for cuda where there is none fails rather than use the CPU.
@@ -81,9 +82,10 @@ def cmd_edit_sd(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     from uce_tpu_torch.cli import (debias_cmd, edit_cmds, flux_gen_cmd, hidream_gen_cmd,
-                                   serve_cmd)
-    from uce_tpu_torch.eval import (baselines, clip_classify, clip_score, generate,
-                                    imageclassify, lpips, styleloss)
+                                   info_cmd, serve_cmd)
+    from uce_tpu_torch.eval import (baselines, clip_classify, clip_score, compare_grids,
+                                    dreamsim, generate, imageclassify, lpips, nudenet,
+                                    styleloss)
 
     parser = argparse.ArgumentParser(
         prog="python -m uce_tpu_torch",
@@ -108,6 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
     styleloss.register_cli(sub, _add_device_flag)
     imageclassify.register_cli(sub, _add_device_flag)
     clip_score.register_cli(sub, _add_device_flag)
+    nudenet.register_cli(sub, _add_device_flag)
+    dreamsim.register_cli(sub, _add_device_flag)
+    compare_grids.register_cli(sub)
+    info_cmd.register_cli(sub)
     return parser
 
 

@@ -76,6 +76,13 @@ def read_safetensors(path: str, keys: Callable[[str], bool] | None = None
     return dict(iter_safetensors_file(path, keys))
 
 
+def read_safetensors_metadata(path: str) -> dict[str, str]:
+    """The header's ``__metadata__`` string map of one file ({} if none)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        return dict(json.loads(f.read(n)).get("__metadata__") or {})
+
+
 def load_state_dict(
     model_dir: str,
     subfolder: str | None = None,
@@ -99,10 +106,11 @@ def load_state_dict(
     return out
 
 
-def save_safetensors(tensors: Mapping[str, object], path: str) -> None:
+def save_safetensors(tensors: Mapping[str, object], path: str,
+                     metadata: Mapping[str, str] | None = None) -> None:
     """Write a flat name -> tensor (or numpy array) dict as safetensors: the
-    header from the shapes, then one tensor at a time, each brought to the
-    host only while it is written."""
+    header from the shapes (and the ``metadata`` strings, if given), then one
+    tensor at a time, each brought to the host only while it is written."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     as_tensor = lambda t: (torch.from_numpy(np.ascontiguousarray(t))
                            if isinstance(t, np.ndarray) else t.detach())
@@ -115,6 +123,8 @@ def save_safetensors(tensors: Mapping[str, object], path: str) -> None:
         header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + nbytes]}
         offset += nbytes
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:

@@ -1,12 +1,12 @@
 """Vision backbones of the eval suite (uce_tpu/models/vision_backbones.py):
-AlexNet (LPIPS), VGG19 (style loss) and ResNet-50 (ImageNet
-classification), the torchvision architectures as functions of their
-params, and loaders of torchvision-format state dicts.
+AlexNet (LPIPS), VGG19 (style loss), ResNet-50 (ImageNet classification)
+and the pre-norm ViT of timm (DreamSim's backbones), as functions of their
+params, and loaders of torchvision- and timm-format state dicts.
 
-NCHW fp32 throughout; params keep torchvision's layouts (conv OIHW, the fc
-weight [out, in]). The convs are plain ``F.conv2d`` in fp32, never the
-bf16 conv3x3 kernel, as uce_tpu keeps them off its Pallas conv. The ViT of
-DreamSim is not ported.
+NCHW fp32 throughout; params keep torchvision's layouts (conv OIHW, linear
+weights [out, in]). The convs are plain ``F.conv2d`` in fp32, never the
+bf16 conv3x3 kernel, as uce_tpu keeps them off its Pallas conv; the ViT's
+attention (T = 197 at 224²) is below the attention kernel's routing rule.
 """
 
 from __future__ import annotations
@@ -283,4 +283,106 @@ def init_resnet50_state_dict(rng: np.random.Generator,
             cin = width * 4
     sd["fc.weight"] = (rng.standard_normal((1000, 2048)) * 0.1).astype(np.float32)
     sd["fc.bias"] = np.zeros(1000, np.float32)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The pre-norm ViT of timm: DreamSim's backbone family (DINO, CLIP and
+# OpenCLIP ViT-B are this architecture; DreamSim's LoRA deltas are merged
+# into the dense weights when tools/convert_dreamsim.py writes the file).
+# ---------------------------------------------------------------------------
+
+_VIT_BLOCK_KEYS = {
+    "ln1_scale": "norm1.weight", "ln1_bias": "norm1.bias",
+    "qkv_w": "attn.qkv.weight", "qkv_b": "attn.qkv.bias",
+    "o_w": "attn.proj.weight", "o_b": "attn.proj.bias",
+    "ln2_scale": "norm2.weight", "ln2_bias": "norm2.bias",
+    "fc1_w": "mlp.fc1.weight", "fc1_b": "mlp.fc1.bias",
+    "fc2_w": "mlp.fc2.weight", "fc2_b": "mlp.fc2.bias",
+}
+
+
+def convert_vit_timm(sd: Mapping, num_blocks: int | None = None) -> dict:
+    """timm VisionTransformer state dict -> params with one dict per block
+    (linear weights [out, in], the patch conv OIHW). Keys: patch_embed.proj,
+    cls_token, pos_embed, blocks.{i}.{norm1, attn.qkv, attn.proj, norm2,
+    mlp.fc1, mlp.fc2}, norm; a head or projection is ignored (DreamSim takes
+    the CLS embedding)."""
+    if num_blocks is None:
+        num_blocks = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    pos = _tensor(sd["pos_embed"])
+    return {
+        "patch_kernel": _tensor(sd["patch_embed.proj.weight"]),
+        "patch_bias": _tensor(sd["patch_embed.proj.bias"]),
+        "cls_token": _tensor(sd["cls_token"]).reshape(1, 1, -1),
+        "pos_embed": pos.reshape(pos.shape[-2], pos.shape[-1]),
+        "blocks": [{name: _tensor(sd[f"blocks.{i}.{key}"])
+                    for name, key in _VIT_BLOCK_KEYS.items()}
+                   for i in range(num_blocks)],
+        "ln_scale": _tensor(sd["norm.weight"]),
+        "ln_bias": _tensor(sd["norm.bias"]),
+    }
+
+
+def vit_cls_embed(params: dict, pixels: torch.Tensor, num_heads: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """pixels [B, 3, S, S] (already model-normalized) -> the CLS embedding
+    [B, D] after the final norm (timm's forward_features CLS slot)."""
+    from uce_tpu_torch.ops.attention import dot_product_attention
+
+    p = params
+    D = p["cls_token"].shape[-1]
+    ps = p["patch_kernel"].shape[-1]
+    x = F.conv2d(pixels, p["patch_kernel"], p["patch_bias"], stride=ps)
+    B = x.shape[0]
+    x = x.flatten(2).transpose(1, 2)
+    x = torch.cat([p["cls_token"].expand(B, 1, D), x], dim=1)
+    T = x.shape[1]
+    x = x + p["pos_embed"][:T]
+    ln = lambda v, scale, bias: F.layer_norm(v.float(), (D,), scale.float(),
+                                             bias.float(), eps).to(v.dtype)
+    Dh = D // num_heads
+
+    def heads(z):
+        return z.reshape(B, T, num_heads, Dh).transpose(1, 2)
+
+    for bp in p["blocks"]:
+        h = ln(x, bp["ln1_scale"], bp["ln1_bias"])
+        q, k, v = F.linear(h, bp["qkv_w"], bp["qkv_b"]).chunk(3, dim=-1)
+        attn = dot_product_attention(heads(q), heads(k), heads(v))
+        attn = attn.transpose(1, 2).reshape(B, T, D)
+        x = x + F.linear(attn, bp["o_w"], bp["o_b"])
+        h = ln(x, bp["ln2_scale"], bp["ln2_bias"])
+        h = F.gelu(F.linear(h, bp["fc1_w"], bp["fc1_b"]), approximate="none")
+        x = x + F.linear(h, bp["fc2_w"], bp["fc2_b"])
+    return ln(x, p["ln_scale"], p["ln_bias"])[:, 0]
+
+
+def init_vit_timm(rng: np.random.Generator, depth: int = 2, dim: int = 32,
+                  heads: int = 2, patch: int = 8, image: int = 32,
+                  mlp_ratio: int = 4) -> dict[str, np.ndarray]:
+    """Random flat timm-format ViT state dict, the draws of uce_tpu's."""
+    n = lambda *s: (rng.standard_normal(s) * 0.05).astype(np.float32)
+    n_pos = (image // patch) ** 2 + 1
+    sd = {
+        "patch_embed.proj.weight": n(dim, 3, patch, patch),
+        "patch_embed.proj.bias": np.zeros(dim, np.float32),
+        "cls_token": n(1, 1, dim),
+        "pos_embed": n(1, n_pos, dim),
+        "norm.weight": np.ones(dim, np.float32),
+        "norm.bias": np.zeros(dim, np.float32),
+    }
+    for i in range(depth):
+        b = f"blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            sd[b + ln + ".weight"] = np.ones(dim, np.float32)
+            sd[b + ln + ".bias"] = np.zeros(dim, np.float32)
+        sd[b + "attn.qkv.weight"] = n(3 * dim, dim)
+        sd[b + "attn.qkv.bias"] = np.zeros(3 * dim, np.float32)
+        sd[b + "attn.proj.weight"] = n(dim, dim)
+        sd[b + "attn.proj.bias"] = np.zeros(dim, np.float32)
+        sd[b + "mlp.fc1.weight"] = n(mlp_ratio * dim, dim)
+        sd[b + "mlp.fc1.bias"] = np.zeros(mlp_ratio * dim, np.float32)
+        sd[b + "mlp.fc2.weight"] = n(dim, mlp_ratio * dim)
+        sd[b + "mlp.fc2.bias"] = np.zeros(dim, np.float32)
     return sd

@@ -44,19 +44,25 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (PATH or /usr/local/cuda/bin)")
 
 
+def library_path(name: str, sources: tuple[str, ...]) -> Path:
+    """Where lib<name>.so of the current ``sources`` (file names under
+    csrc/), headers and flags is built (it may not exist yet)."""
+    digest = hashlib.sha256()
+    for p in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
+
+
 def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Compile ``sources`` (file names under csrc/) into lib<name>.so once
     and return the loaded library."""
     if name in _loaded:
         return _loaded[name]
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256()
-    for p in paths + sorted(CSRC.glob("*.cuh")):
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
-    lib_path = out_dir / f"lib{name}.so"
+    lib_path = library_path(name, sources)
+    out_dir = lib_path.parent
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"

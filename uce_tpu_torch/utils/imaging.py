@@ -113,14 +113,18 @@ def stack_uniform(images: list[np.ndarray]) -> np.ndarray:
     h, w = images[0].shape[:2]
     if all(im.shape[:2] == (h, w) for im in images):
         return np.stack(images)
+    return np.stack([im if im.shape[:2] == (h, w) else resize_uint8(im, (h, w))
+                     for im in images])
 
-    def resize(im):
-        x = torch.from_numpy(np.ascontiguousarray(im)).permute(2, 0, 1)[None]
-        y = F.interpolate(x, size=(h, w), mode="bilinear", antialias=True,
-                          align_corners=False)
-        return y[0].permute(1, 2, 0).numpy()
 
-    return np.stack([im if im.shape[:2] == (h, w) else resize(im) for im in images])
+def resize_uint8(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint8 [H, W, 3] -> uint8 [*size, 3] by antialiased bilinear
+    resampling on the host: PIL's ``resize(..., Image.BILINEAR)`` within one
+    level."""
+    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
+    y = F.interpolate(x, size=tuple(size), mode="bilinear", antialias=True,
+                      align_corners=False)
+    return y[0].permute(1, 2, 0).numpy()
 
 
 def save_png(array: np.ndarray, path: str) -> None:
