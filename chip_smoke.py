@@ -28,7 +28,8 @@ each phase's seconds and the total are printed):
      for the attention also the exp unit; the conv at one shape per UNet
      level at batch 8 with its TFLOP/s and K splits; every kernel at its
      main-path shapes also back to back, beside its library call (the
-     int8-QK^T attention beside its yardsticks); ptxas must report no spills and no
+     int8-QK^T attention beside its yardsticks, also at d=64 at SD 2.1's and
+     SDXL's self-attention shapes); ptxas must report no spills and no
      serialized wgmma for the int8-QK^T kernel at any head dim and for the
      bf16 one at d=64 and d=128;
   3. SD 1.4: a seeded random-weight snapshot (UNet, CLIP text, VAE, PNDM
@@ -67,10 +68,13 @@ each phase's seconds and the total are printed):
      warning, no launch), each method held to a float64 solve;
  13. a UNet forward at UNet batch 2 (one prompt under CFG; SDXL with its
      text_time conditioning) on the three paths, and a VAE decode at 768^2
-     or 1024^2 on both, with launches;
+     or 1024^2 on both, with launches; both again with the UNet and VAE
+     quantized, int8 (W8A8: the d=64 self-attentions on the int8-QK^T
+     kernel, each call held to its plain version) and w8, held to bf16;
  14. ``generate`` at 768^2 (DDIM, v-prediction) or 1024^2 (Euler), 50 steps,
      CFG 7.5, with the edit overlay, on both paths (and on SD 2.1 a short
-     ``--scheduler lms`` run on the kernel path): PNGs and launches;
+     ``--scheduler lms`` run on the kernel path): PNGs and launches; SDXL
+     ``serve --quantize int8`` (8 steps, ladder 1,2, 3 requests);
  15. fast mode (CFG window + DeepCache): SD 1.4 ``generate --fast`` on both
      paths, a no-op spec and a CFG window over every call (cache 1) equal to
      the exact images bit for bit, bench.py's ``cfg_interval=3:25,cache=2``
@@ -131,7 +135,13 @@ each phase's seconds and the total are printed):
      overlay (PNGs, launches from the steps, seconds per image after the
      load, the two paths' image distance) and ``serve --family flux``
      (ladder 1,2, 4 Poisson requests): the JSON report, the served images
-     and launches. The snapshot is deleted at the end;
+     and launches; the DiT quantized w8 and int8 on the card (sampled
+     payloads and scales bit for bit against the CPU's quantization, bytes
+     against its shapes' reckoning, a forward held to its float emulation
+     and to bf16), ``generate-flux --staged`` (the whole load's image),
+     ``--quantize w8`` and ``--quantize int8`` on the kernel path, and
+     ``serve --family flux --quantize w8``. The snapshot is deleted at the
+     end;
  20. HiDream-I1-Full at full width and depth (the 16 + 32-block MoE DiT,
      Llama-3.1-8B, T5-XXL, CLIP-L and bigG, the 16-channel VAE): a seeded
      random-weight bf16 snapshot drawn on the card (~60.5 GB), ``edit-hidream``
@@ -144,7 +154,12 @@ each phase's seconds and the total are printed):
      run bit for bit and a 1:2 window finite and different, then
      ``generate-hidream --staged`` (2 steps, CFG 5.0) on both paths with
      the edit overlay: PNGs, launches from the steps, the seconds of the
-     load, encode, DiT load and image. FLUX's snapshot and HiDream's DiT
+     load, encode, DiT load and image; an int8 DiT forward on the bf16
+     forward's expert routing held to its float emulation and to bf16;
+     ``generate-hidream --staged --quantize w8``; ``serve --family hidream
+     --quantize w8`` loaded whole (the card's allocated bytes after the
+     load within 2% of its tensors', the w8 DiT's as its shapes reckon; 2
+     requests at 2 steps). FLUX's snapshot and HiDream's DiT
      keep their weight files in host memory (``write_weights``): the card's
      machine allows a run 45 GiB of disk writes, less than the two snapshots.
 The last two lines are the kernels' JSON record (launches summed over the
@@ -180,7 +195,7 @@ import torch.nn.functional as F
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline, make_img_ids, pack_latents
-from uce_tpu_torch.diffusion import guidance, pipeline_hidream, sampler
+from uce_tpu_torch.diffusion import guidance, pipeline_flux, pipeline_hidream, sampler
 from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline, cfg_embeddings
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
@@ -193,7 +208,7 @@ from uce_tpu_torch.models import t5, unet, vae, vision_backbones, yolo
 from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
-from uce_tpu_torch.ops import attention
+from uce_tpu_torch.ops import attention, quant
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.serving import socket_api
@@ -343,10 +358,13 @@ CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 
 SOLVE_SLICE = [(5, 3, 768), (5, 3, 1024)]
 SOLVE_CASES = [(4, 3, 256), (16, 0, 256), (100, 0, 768)]
 # int8-QK^T attention: the top serving rung (4 prompts under CFG) at 512²,
-# then tests/test_sd_attention.py::test_int8_qk_close_to_fp's cases, a
-# ragged Skv and one q tile, then the serving ladder's lower rungs (UNet
-# batch 2 and 4).
-QK8_SLICE = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80)]
+# then SDXL's (1024², latents 128²) and SD 2.1's (768², latents 96²) UNet
+# self-attentions at d=64 and UNet batch 2 (their W8A8 paths); then
+# tests/test_sd_attention.py::test_int8_qk_close_to_fp's cases, a ragged Skv
+# and one q tile, then the serving ladder's lower rungs (UNet batch 2 and 4).
+QK8_SLICE = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
+             (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64),
+             (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64)]
 QK8_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 200, 200, 40),
              (1, 2, 64, 64, 80), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80)]
@@ -1463,17 +1481,21 @@ def qk8_plain():
 
 
 @contextlib.contextmanager
-def qk8_checked(notes: list):
+def qk8_checked(notes: list, row: dict | None = None):
     """Hold every int8-QK^T kernel call of the enclosed calls to its plain
     version on the same inputs, the forward's own activations (raises
-    outside the kernel bounds); the kernel's output goes on."""
+    outside the kernel bounds; the worst error goes into ``row``); the
+    kernel's output goes on."""
     kernel = sdk.sd_attention_qk8
 
     def checked(q, ki, ks, v, scale):
         got = kernel(q, ki, ks, v, scale)
-        notes.append(check_bf16("sd_attention_qk8", f"sd_attention_qk8 in the "
-                                f"W8A8 forward {tuple(q.shape)}", got,
-                                sdk.sd_attention_qk8_reference(q, ki, ks, v, scale))[1])
+        err, note = check_bf16("sd_attention_qk8", f"sd_attention_qk8 in the W8A8 "
+                               f"forward {tuple(q.shape)}", got,
+                               sdk.sd_attention_qk8_reference(q, ki, ks, v, scale))
+        notes.append(note)
+        if row is not None:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
         return got
 
     sdk.sd_attention_qk8 = checked
@@ -1581,6 +1603,114 @@ def phase_quant_vae(pipe) -> None:
     print(f"[int8] VAE decode batch 1 at 512x512: rel L2 against bf16 {rel:.3e} "
           f"(gross-fault bound {INT8_VS_BF16_REL_L2}); launches {VAE_LAUNCHES_INT8}; "
           f"{int8_ms:.2f} ms (median of 3)", flush=True)
+
+
+def phase_quant_model(pipe, rows: dict, model: Model) -> None:
+    """SD 2.1 or SDXL quantized, ``int8`` (W8A8) and ``w8``: one UNet forward
+    at UNet batch 2 (one prompt under CFG) and one VAE decode at the model's
+    size, each held to the bf16 network within the W8A8 gross-fault bound.
+    W8A8 sends the UNet's long self-attentions (d=64: SD 2.1's 10, SDXL's
+    70, as counted on meta tensors in tests/test_torch_sdxl_sd21_shapes.py)
+    to the int8-QK^T kernel, each call held to its plain version on the
+    forward's own inputs; w8 sends them to the bf16 kernel."""
+    n_attn = model.unet_launches["sd_attention"]
+    with torch.inference_mode():
+        x, context, added_cond = unet_inputs(pipe, model, ["a painting by kelly mckernan"])
+        fwd = lambda params: unet.apply(params, x, 981.0, context, pipe.unet_config,
+                                        added_cond=added_cond)
+        n, vcfg = model.latent, pipe.vae_config
+        lat = draw_prompt_latents((n, n, vcfg.latent_channels), SEED + 1, 1, 1)
+        lat = (lat / vcfg.scaling_factor + vcfg.shift_factor).to("cuda", pipe.dtype)
+        dec = lambda params: vae.decode(params, lat, vcfg)
+        bf16, bf16_dec = fwd(pipe.unet_params).float(), dec(pipe.vae_params).float()
+        bf16_ms = median_ms(lambda: fwd(pipe.unet_params), reps=5)
+        for mode in ("int8", "w8"):
+            qunet = quantize.quantize_params(pipe.unet_params, quantize.UNET_SKIP, mode)
+            qvae = quantize.quantize_params(pipe.vae_params, quantize.VAE_SKIP, mode)
+            nq, nw = quantize.count_quantized(qunet)
+            notes = []
+            reset_launches()
+            with qk8_checked(notes, rows["sd_attention_qk8"]):
+                out = fwd(qunet).float()
+            int8 = mode == "int8"
+            expect_launches(f"{model.name} {mode} UNet forward", read_launches(),
+                            {"sd_attention_qk8": n_attn if int8 else 0,
+                             "sd_attention": 0 if int8 else n_attn})
+            reset_launches()
+            out_dec = dec(qvae).float()
+            expect_launches(f"{model.name} {mode} VAE decode", read_launches(),
+                            VAE_LAUNCHES_INT8)
+            ms = median_ms(lambda: fwd(qunet), reps=5)
+            dec_ms = median_ms(lambda: dec(qvae), reps=3, warmup=1)
+            del qunet, qvae
+            if len(notes) != (n_attn if int8 else 0):
+                raise AssertionError(f"{model.name} {mode} UNet: {len(notes)} qk8 calls "
+                                     "checked")
+            size = n * 2 ** (len(vcfg.block_out_channels) - 1)  # the model's size
+            if out_dec.shape != (1, 3, size, size):
+                raise AssertionError(f"{model.name} {mode} VAE decode: {out_dec.shape}")
+            if not all(bool(torch.isfinite(o).all()) for o in (out, out_dec)):
+                raise AssertionError(f"{model.name} {mode}: non-finite output")
+            rel, rel_dec = rel_l2(out, bf16), rel_l2(out_dec, bf16_dec)
+            for what, value in (("UNet", rel), ("VAE", rel_dec)):
+                if value > INT8_VS_BF16_REL_L2:
+                    raise AssertionError(f"{model.name} {mode} {what} vs bf16: rel L2 "
+                                         f"{value} > {INT8_VS_BF16_REL_L2}")
+            if notes:
+                print(f"[{mode}] {model.name} qk8 calls in the forward (first, last): "
+                      f"{notes[0]}; {notes[-1]}")
+            print(f"[{mode}] {model.name} UNet forward, batch 2 at {n}x{n} latents, {nq} "
+                  f"of {nw} weights int8: rel L2 against bf16 {rel:.3e}, VAE decode at "
+                  f"{size}x{size} {rel_dec:.3e} (gross-fault bound "
+                  f"{INT8_VS_BF16_REL_L2}); {n_attn} d=64 self-attentions on the "
+                  f"{'int8-QK^T' if int8 else 'bf16'} kernel; median of 5: UNet {ms:.2f} "
+                  f"ms (bf16 library path {bf16_ms:.2f} ms), decode {dec_ms:.2f} ms "
+                  "(median of 3)", flush=True)
+
+
+def phase_serve_model(snap: str, edit_path: str, model: Model, steps: int = 8,
+                      requests: int = 3) -> dict:
+    """``serve --quantize int8`` of SD 2.1 or SDXL with the edit overlay,
+    through the CLI at the model's size: warm-up of the ladder 1,2, then
+    ``requests`` Poisson requests at 1/s, ``steps`` steps of the model's
+    scheduler (cut from 50: a step costs the same at any count); the JSON
+    report, the served images and the int8-QK^T launches."""
+    argv = ["serve", "--model_id", snap, "--quantize", "int8", "--uce_model_path",
+            edit_path, "--batch_sizes", "1,2", "--bench", "1", "--bench_requests",
+            str(requests), "--num_inference_steps", str(steps), "--image_size",
+            str(model.size), "--device", "cuda"]
+    out, calls = io.StringIO(), []
+    reset_launches()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out), finite_decodes(), pipe_calls(calls):
+        rc = cli_main(argv)
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    reports = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    if rc != 0 or len(reports) != 1:
+        raise AssertionError(f"{model.name} serve: rc {rc}, output {out.getvalue()!r}")
+    rep = reports[0]
+    if not (rep["n_requests"] == requests and rep["throughput_rps"] > 0
+            and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
+        raise AssertionError(f"{model.name} serve report: {rep}")
+    batches = 2 + rep["batches"]  # one warm-up batch per rung
+    calls_per = plan_from_hf(model.scheduler, steps).num_calls
+    want = {"sd_attention_qk8": batches * calls_per * model.unet_launches["sd_attention"],
+            "sd_attention": batches, "sd_attention_d512": batches}
+    what = f"{model.name} serve --quantize int8, {batches} batches x {calls_per} calls"
+    expect_launches(what, launches, want)
+    served = [img for _, images in calls[2:] for img in images]
+    check_images(f"{model.name} serve --quantize int8", served, model.size)
+    print(f"[serve] {json.dumps(rep)}")
+    print(f"[serve] {model.name} --quantize int8 --batch_sizes 1,2 --bench 1, {steps} "
+          f"steps at {model.size}^2: {requests} requests in {rep['batches']} batches (+2 "
+          f"warm-up), throughput {rep['throughput_rps']} req/s, latency p50 "
+          f"{rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; {len(served)} served "
+          f"images (padding included), seconds per batch "
+          f"{[round(c[0], 3) for c in calls]}; {seconds:.1f} s CLI wall; launches {want}",
+          flush=True)
+    return launches
 
 
 def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
@@ -1902,23 +2032,24 @@ def baseline_dir(path: str, i: int) -> str:
 
 
 @contextlib.contextmanager
-def pipe_calls(records: list):
-    """Record (seconds, images) of every SDPipeline call of the enclosed
-    calls (the CLIs' calls: seconds after the load)."""
-    call = SDPipeline.__call__
+def pipe_calls(records: list, cls=SDPipeline, name: str = "__call__"):
+    """Record (seconds, images) of every call of a pipeline class's method
+    (SDPipeline's ``__call__`` by default) in the enclosed calls (the CLIs'
+    and the server's: seconds after the load)."""
+    call = getattr(cls, name)
 
-    @functools.wraps(call)
+    @functools.wraps(call)  # the server adapts to the call's signature
     def spy(self, *args, **kwargs):
         start = time.perf_counter()
         images = call(self, *args, **kwargs)
         records.append((time.perf_counter() - start, images))
         return images
 
-    SDPipeline.__call__ = spy
+    setattr(cls, name, spy)
     try:
         yield
     finally:
-        SDPipeline.__call__ = call
+        setattr(cls, name, call)
 
 
 @contextlib.contextmanager
@@ -2704,11 +2835,14 @@ def run_sd14(rows: dict, seconds: dict) -> None:
 
 
 def run_model(model: Model, rows: dict, seconds: dict,
-              lms_steps: int | None = None, fast: str | None = None) -> None:
+              lms_steps: int | None = None, fast: str | None = None,
+              serve: bool = False) -> None:
     """SD 2.1 or SDXL at full width: edit with every method, a UNet forward
-    at UNet batch 2, a VAE decode, and ``generate`` on both paths at 50
-    steps of the model's scheduler (and, given ``lms_steps``, an LMS run on
-    the kernel path; given ``fast``, a ``--fast`` run on the kernel path)."""
+    at UNet batch 2, a VAE decode, both quantized (int8 and w8), and
+    ``generate`` on both paths at 50 steps of the model's scheduler (and,
+    given ``lms_steps``, an LMS run on the kernel path; given ``fast``, a
+    ``--fast`` run on the kernel path; given ``serve``, ``serve --quantize
+    int8``)."""
     snap = os.path.join(WORK, f"{model.tag}_random")
     with timed(f"{model.name} snapshot", seconds):
         write_snapshot(snap, model)
@@ -2719,6 +2853,8 @@ def run_model(model: Model, rows: dict, seconds: dict,
     with timed(f"{model.name} UNet and VAE", seconds):
         phase_unet(pipe, rows, model, ["a painting by kelly mckernan"])
         phase_vae(pipe, rows, model)
+    with timed(f"{model.name} int8 and w8", seconds):
+        phase_quant_model(pipe, rows, model)
     del pipe
     torch.cuda.empty_cache()
     cases = [[0, "a painting by kelly mckernan", 1]]
@@ -2732,6 +2868,9 @@ def run_model(model: Model, rows: dict, seconds: dict,
     if fast:
         with timed(f"{model.name} generate --fast", seconds):
             phase_fast(snap, edit_path, "kernels", rows, model, cases, (fast,))
+    if serve:
+        with timed(f"{model.name} serve --quantize int8", seconds):
+            add_launches(rows, phase_serve_model(snap, edit_path, model))
     shutil.rmtree(snap)
     torch.cuda.empty_cache()
 
@@ -2981,28 +3120,10 @@ def phase_flux_dit(pipe, rows: dict) -> None:
           f"{wall_ms['plain']:.2f} ms (median of 3)", flush=True)
 
 
-@contextlib.contextmanager
-def flux_calls(records: list):
-    """Record (seconds, images) of every FluxPipeline call of the enclosed
-    calls (the CLIs' and the server's: seconds after the load)."""
-    call = FluxPipeline.__call__
-
-    @functools.wraps(call)  # the server adapts to the call's signature
-    def spy(self, *args, **kwargs):
-        start = time.perf_counter()
-        images = call(self, *args, **kwargs)
-        records.append((time.perf_counter() - start, images))
-        return images
-
-    FluxPipeline.__call__ = spy
-    try:
-        yield
-    finally:
-        FluxPipeline.__call__ = call
-
-
-def check_images(what: str, images, size: int = 1024) -> None:
-    """uint8 RGB of the size, not constant, and through a PNG and back."""
+def check_images(what: str, images, size: int | None = None) -> None:
+    """uint8 RGB of the size (the DiTs' by default), not constant, and
+    through a PNG and back."""
+    size = FLUX.size if size is None else size
     for img in images:
         if img.shape != (size, size, 3) or img.dtype != np.uint8 or img.std() == 0:
             raise AssertionError(f"{what}: image {img.shape} {img.dtype}, std "
@@ -3011,76 +3132,94 @@ def check_images(what: str, images, size: int = 1024) -> None:
             raise AssertionError(f"{what}: PNG round trip changed the image")
 
 
-def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict) -> tuple:
+def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
+                        flags: tuple = ()) -> tuple:
     """``generate-flux`` through the CLI, 1 prompt, 4 steps, guidance 0, at
-    1024^2 with the edit overlay, on ``path``: the PNG, the launches derived
-    from the steps (57 d=128 attentions each) and one decode, and the
-    seconds of the image after the load."""
+    1024^2 with the edit overlay, on ``path`` (with ``flags``: --staged,
+    --quantize MODE): the PNG, the launches derived from the steps (57 d=128
+    attentions each, quantized or not) and one decode, and the seconds of
+    the image after the load (of the generation from the embeddings, staged;
+    the DiT's staged load not included)."""
     csv_path = os.path.join(WORK, "prompts_flux.csv")
     with open(csv_path, "w", newline="") as f:
         csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
                                  [0, FLUX_PROMPT, 1]])
-    out = os.path.join(WORK, f"images_flux_{path}")
+    tag = re.sub(r"[^0-9a-z]+", "_", "".join(flags))
+    out = os.path.join(WORK, f"images_flux_{path}{tag}")
+    staged = "--staged" in flags
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
     want = {**per_decode, "sd_attention_d128": FLUX_STEPS * FLUX_DIT_LAUNCHES[
         "sd_attention_d128"], "sd_attention_d512": 1}
     want["sd_attention"] = want["sd_attention_d128"] + 1
     seen, gn_seen, calls = collections.Counter(), collections.Counter(), []
+    spied = "generate_from_embeddings" if staged else "__call__"
+    loads = []
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
-                gn_seen, rows["group_norm_act"]), finite_decodes(), flux_calls(calls):
+                gn_seen, rows["group_norm_act"]), finite_decodes(), pipe_calls(
+                calls, FluxPipeline, spied), dit_loads(loads, pipeline_flux):
             rc = cli_main(["generate-flux", "--model_name", snap, "--prompts_path",
                            csv_path, "--save_path", out, "--uce_model_path", edit_path,
-                           "--device", "cuda"])
+                           "--image_size", str(FLUX.size), "--device", "cuda", *flags])
         launches = read_launches()
         seconds = time.perf_counter() - start
     if path == "kernels":
         want["conv3x3_reduce"] = conv_split_sums(seen)
-    if rc != 0 or len(calls) != 1:
-        raise AssertionError(f"generate-flux ({path}): rc {rc}, {len(calls)} calls")
-    what = f"FLUX.1-schnell generate-flux ({path}), 1 row x ({FLUX_STEPS} steps + 1 decode)"
+    if rc != 0 or len(calls) != 1 or len(loads) != 1:
+        raise AssertionError(f"generate-flux ({path} {flags}): rc {rc}, {len(calls)} "
+                             f"calls, {len(loads)} DiT loads")
+    what = (f"FLUX.1-schnell generate-flux {' '.join(flags)} ({path}), 1 row x "
+            f"({FLUX_STEPS} steps + 1 decode)").replace("  ", " ")
     expect_launches(what, launches, want)
     image = read_case_images(os.path.join(out, "erase_art"), [[0, None, None]])[0]
     check_images(what, [image])
+    image_s = calls[0][0] - (loads[0]["s"] if staged else 0.0)
     print(f"[generate] {what}: 1 PNG 1024x1024x3 uint8 in {seconds:.2f} s (CLI wall, "
-          f"load included), {calls[0][0]:.3f} s for the image after the load; launches "
-          f"{launches} (want {want})", flush=True)
+          f"load included), {image_s:.3f} s for the image after the load; the DiT "
+          f"{loads[0]['gb']:.2f} GB on the card, loaded in {loads[0]['s']:.1f} s; "
+          f"launches {launches} (want {want})", flush=True)
     return launches, image
 
 
-def phase_flux_serve(snap: str, edit_path: str) -> dict:
-    """``serve --family flux`` with the edit overlay through the CLI: warm-up
-    of the ladder 1,2, then 4 Poisson requests at 1/s, at 1024^2, 4 steps,
-    guidance 0; the JSON report, the served images' checks and launches."""
+def phase_flux_serve(snap: str, edit_path: str, quantize: str | None = None) -> dict:
+    """``serve --family flux`` (given ``quantize``, the DiT quantized as it
+    loads) with the edit overlay through the CLI: warm-up of the ladder 1,2,
+    then 4 Poisson requests at 1/s, at 1024^2, 4 steps, guidance 0; the JSON
+    report, the served images' checks and launches."""
     argv = ["serve", "--model_id", snap, "--family", "flux", "--uce_model_path",
             edit_path, "--num_inference_steps", str(FLUX_STEPS), "--guidance_scale", "0",
-            "--image_size", "1024", "--batch_sizes", "1,2", "--bench", "1",
-            "--bench_requests", "4", "--device", "cuda"]
-    out, calls = io.StringIO(), []
+            "--image_size", str(FLUX.size), "--batch_sizes", "1,2", "--bench", "1",
+            "--bench_requests", "4", "--device", "cuda"] + (
+                ["--quantize", quantize] if quantize else [])
+    mode = f" --quantize {quantize}" if quantize else ""
+    out, calls, loads = io.StringIO(), [], []
     reset_launches()
     start = time.perf_counter()
-    with contextlib.redirect_stdout(out), flux_calls(calls):
+    with contextlib.redirect_stdout(out), pipe_calls(calls, FluxPipeline), dit_loads(
+            loads, pipeline_flux):
         rc = cli_main(argv)
     launches = read_launches()
     seconds = time.perf_counter() - start
     reports = [json.loads(line) for line in out.getvalue().splitlines()
                if line.startswith("{")]
     if rc != 0 or len(reports) != 1:
-        raise AssertionError(f"serve --family flux: rc {rc}, output {out.getvalue()!r}")
+        raise AssertionError(f"serve --family flux{mode}: rc {rc}, output "
+                             f"{out.getvalue()!r}")
     rep = reports[0]
     if not (rep["n_requests"] == 4 and rep["throughput_rps"] > 0
             and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
-        raise AssertionError(f"serve --family flux report: {rep}")
+        raise AssertionError(f"serve --family flux{mode} report: {rep}")
     batches = 2 + rep["batches"]  # one warm-up batch per rung
     want = {"sd_attention_d128": batches * FLUX_STEPS * FLUX_DIT_LAUNCHES[
-        "sd_attention_d128"], "sd_attention_d512": batches}
-    expect_launches(f"serve --family flux, {batches} batches", launches, want)
+        "sd_attention_d128"], "sd_attention_d512": batches, "sd_attention_qk8": 0}
+    expect_launches(f"serve --family flux{mode}, {batches} batches", launches, want)
     served = [img for _, images in calls[2:] for img in images]
-    check_images("serve --family flux", served)
+    check_images(f"serve --family flux{mode}", served)
     print(f"[serve] {json.dumps(rep)}")
-    print(f"[serve] --family flux --batch_sizes 1,2 --bench 1: 4 requests in "
+    print(f"[serve] --family flux{mode} --batch_sizes 1,2 --bench 1 (the DiT "
+          f"{loads[0]['gb']:.2f} GB on the card): 4 requests in "
           f"{rep['batches']} batches (+2 warm-up), throughput {rep['throughput_rps']} "
           f"req/s, latency p50 {rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; "
           f"{len(served)} served images (padding included) 1024x1024x3 uint8, PNG round "
@@ -3090,10 +3229,177 @@ def phase_flux_serve(snap: str, edit_path: str) -> dict:
     return launches
 
 
+def tensor_bytes(obj, seen: set | None = None) -> int:
+    """The bytes of the distinct tensors in nested dicts, lists and tuples
+    (a quantized weight's payload and scale included)."""
+    seen = set() if seen is None else seen
+    if torch.is_tensor(obj):
+        key = (obj.data_ptr(), obj.nbytes)
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.nbytes
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v, seen) for v in obj)
+    return 0
+
+
+def dit_bytes_from_shapes(shapes: dict, skip, mode: str | None) -> int:
+    """A DiT's bytes on the card as its shapes reckon them: bf16, or with
+    ``mode`` one int8 byte per quantized weight element and an fp32 scale
+    per output row (the skipped and 1-D tensors bf16)."""
+    fn = quantize.quantizer(skip, mode or "w8")
+    total = 0
+    for key, shape in shapes.items():
+        n = int(np.prod(shape))
+        quantized = mode and isinstance(fn(key, torch.empty(shape, device="meta")), dict)
+        total += n + 4 * shape[0] if quantized else 2 * n
+    return total
+
+
+@contextlib.contextmanager
+def dit_loads(records: list, module):
+    """Record the seconds, the bytes on the card and the card's allocated
+    bytes after each ``module.load_transformer`` (the DiT's load, quantized
+    as it loads or not) of the enclosed calls."""
+    load = module.load_transformer
+
+    def spy(*args, **kwargs):
+        start = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        records.append({"s": time.perf_counter() - start, "bytes": tensor_bytes(out[0]),
+                        "gb": tensor_bytes(out[0]) / 1e9,
+                        "allocated": torch.cuda.memory_allocated()})
+        return out
+
+    module.load_transformer = spy
+    try:
+        yield
+    finally:
+        module.load_transformer = load
+
+
+@contextlib.contextmanager
+def float_emulation(mode: str):
+    """The control of a quantized forward: the same quantized weights and
+    arithmetic in float operands. ``w8``: each weight-only product on the
+    weight dequantized into the float path (``bf16(q * scale)``); ``int8``:
+    each W8A8 product on the same per-token int8 activations and int8 weights
+    as fp32 operands of an fp32 GEMM (the int32 sums rounded to fp32), then
+    the same scales."""
+    name = "wlinear" if mode == "w8" else "qlinear"
+    saved = getattr(quant, name)
+
+    def w8(x, qw, b=None):
+        w = qw[quant.WKEY].float() * qw["scale"][:, None]
+        return F.linear(x, w.to(x.dtype), b)
+
+    def int8(x, qw, b=None):
+        xq, xs = quant._quant_act(x, (-1,))
+        y = F.linear(xq.float(), qw[quant.QKEY].float()) * (xs * qw["scale"])
+        return (y if b is None else y + b.float()).to(x.dtype)
+
+    setattr(quant, name, w8 if mode == "w8" else int8)
+    try:
+        yield
+    finally:
+        setattr(quant, name, saved)
+
+
+def hold_quantized(what: str, out, control, bf16) -> str:
+    """A quantized DiT forward against its float emulation (``float_emulation``:
+    the same function in another arithmetic order, within the paths' bound
+    REL_L2_MAX) and against the bf16 forward (within the W8A8 gross-fault
+    bound, which the emulation's own distance from bf16 shows to be the
+    quantization's share). Returns the reading."""
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    rel_c, rel_b, rel_cb = rel_l2(out, control), rel_l2(out, bf16), rel_l2(control, bf16)
+    if rel_c > REL_L2_MAX or rel_b > INT8_VS_BF16_REL_L2:
+        raise AssertionError(f"{what}: rel L2 {rel_c} against its float emulation "
+                             f"(bound {REL_L2_MAX}), {rel_b} against bf16 (bound "
+                             f"{INT8_VS_BF16_REL_L2})")
+    return (f"rel L2 against its float emulation {rel_c:.3e} (bound {REL_L2_MAX}), "
+            f"against bf16 {rel_b:.3e} (bound {INT8_VS_BF16_REL_L2}; the emulation's "
+            f"own {rel_cb:.3e})")
+
+
+# A sample of FLUX DiT weights whose card quantization is held bit for bit to
+# the CPU's: attention, AdaLN, MLP and the single blocks' fused projections,
+# first and last blocks.
+FLUX_QUANT_SAMPLE = ("transformer_blocks.0.attn.to_q.weight",
+                     "transformer_blocks.18.norm1_context.linear.weight",
+                     "transformer_blocks.9.ff.net.2.weight",
+                     "single_transformer_blocks.0.proj_mlp.weight",
+                     "single_transformer_blocks.37.proj_out.weight")
+
+
+def phase_flux_quant(pipe, rows: dict) -> None:
+    """The DiT quantized on the card, ``w8`` and ``int8`` (FLUX_SKIP), from
+    the pipeline's bf16 weights: a sample of weights' payloads and scales
+    held bit for bit to the CPU's quantization of the same bf16 tensors; the
+    DiT's bytes on the card against the shapes' reckoning; one forward at
+    batch 1 and 1024^2 (57 d=128 kernel launches, no int8-QK^T: the DiT's
+    attention stays bf16 in every mode, as in uce_tpu) held to its float
+    emulation and to the bf16 forward (``hold_quantized``); device ms of each
+    against bf16's. The encoders are freed first."""
+    cfg, lh = pipe.transformer_config, FLUX.latent
+    shapes = flux.state_dict_shapes(cfg)
+    with torch.inference_mode():
+        t5_embeds, pooled = pipe.encode_prompts([FLUX_PROMPT])
+        pipe.free_encoders()
+        lat = draw_prompt_latents((lh, lh, FLUX_VAE.latent_channels), SEED, 1, 1)
+        lat = pack_latents(lat.to("cuda", pipe.dtype))
+        img_ids, txt_ids = make_img_ids(lh, lh), np.zeros((t5_embeds.shape[1], 3))
+        t = torch.ones(1, device="cuda")
+        fwd = lambda params: flux.apply(params, lat, t5_embeds, pooled, t, img_ids,
+                                        txt_ids, cfg)
+        bf16 = fwd(pipe.transformer_params).float()
+        bf16_ms = median_ms(lambda: fwd(pipe.transformer_params), reps=3, warmup=1)
+        bf16_gb = tensor_bytes(pipe.transformer_params) / 1e9
+        for mode in ("w8", "int8"):
+            qparams = quantize.quantize_params(pipe.transformer_params,
+                                               quantize.FLUX_SKIP, mode)
+            nbytes = tensor_bytes(qparams)
+            want_bytes = dit_bytes_from_shapes(shapes, quantize.FLUX_SKIP, mode)
+            if nbytes != want_bytes:
+                raise AssertionError(f"FLUX {mode} DiT: {nbytes} bytes, the shapes "
+                                     f"reckon {want_bytes}")
+            for key in FLUX_QUANT_SAMPLE:
+                host = quant.quantize_weight(pipe.transformer_params[key].cpu(),
+                                             weight_only=mode == "w8")
+                same = {k: torch.equal(qparams[key][k].cpu(), host[k]) for k in host}
+                if not all(same.values()):
+                    raise AssertionError(f"FLUX {mode} {key}: the card's quantization "
+                                         f"differs from the CPU's (equal: {same})")
+            reset_launches()
+            out = fwd(qparams).float()
+            expect_launches(f"FLUX {mode} DiT forward", read_launches(),
+                            {**FLUX_DIT_LAUNCHES, "sd_attention_qk8": 0})
+            ms = median_ms(lambda: fwd(qparams), reps=3, warmup=1)
+            with float_emulation(mode):
+                control = fwd(qparams).float()
+            reading = hold_quantized(f"FLUX {mode} DiT forward", out, control, bf16)
+            del qparams
+            torch.cuda.empty_cache()
+            print(f"[{mode}] FLUX.1-schnell DiT, {nbytes / 1e9:.2f} GB on the card (bf16 "
+                  f"{bf16_gb:.2f} GB; the shapes reckon the same bytes), "
+                  f"{len(FLUX_QUANT_SAMPLE)} sampled weights quantized on the card equal "
+                  f"to the CPU's bit for bit; forward at batch 1, 1024^2: {reading}; "
+                  f"device {ms:.2f} ms against bf16 {bf16_ms:.2f} ms (median of 3, one "
+                  f"call); {FLUX_DIT_LAUNCHES['sd_attention_d128']} d=128 launches",
+                  flush=True)
+
+
 def run_flux(rows: dict, seconds: dict) -> None:
     """FLUX.1-schnell at full width and depth: snapshot, edit-flux, a DiT
-    forward on both paths, a VAE decode, generate-flux on both paths and
-    serve --family flux."""
+    forward on both paths, a VAE decode, the DiT quantized w8 and int8,
+    generate-flux on both paths, and with --quantize w8, --quantize int8 and
+    --staged on the kernel path, serve --family flux and serve --family flux
+    --quantize w8."""
     snap, fds = os.path.join(WORK, "flux_random"), []
     print(f"[host] {host_memory()}", flush=True)
     try:
@@ -3111,6 +3417,8 @@ def run_flux(rows: dict, seconds: dict) -> None:
                   f"{time.perf_counter() - start:.1f} s", flush=True)
             phase_flux_dit(pipe, rows)
             phase_vae(pipe, rows, FLUX)
+        with timed("FLUX DiT w8 and int8", seconds):
+            phase_flux_quant(pipe, rows)
             del pipe
             torch.cuda.empty_cache()
         with timed("FLUX generate", seconds):
@@ -3122,8 +3430,22 @@ def run_flux(rows: dict, seconds: dict) -> None:
             diff = np.abs(kernel_image.astype(int) - library_image.astype(int))
             print(f"[generate] FLUX kernels vs library path: mean |diff| "
                   f"{diff.mean():.3f} uint8 levels, max {int(diff.max())}", flush=True)
+        with timed("FLUX generate --staged, --quantize", seconds):
+            for flags in (("--staged",), ("--quantize", "w8"), ("--quantize", "int8")):
+                launches, image = phase_flux_generate(snap, edit_path, "kernels", rows,
+                                                      flags)
+                add_launches(rows, launches)
+                diff = np.abs(image.astype(int) - kernel_image.astype(int))
+                if flags == ("--staged",) and diff.max() > 1:
+                    raise AssertionError(f"generate-flux --staged: {int(diff.max())} "
+                                         "uint8 levels from the whole load's image")
+                print(f"[generate] FLUX {' '.join(flags)} vs the bf16 kernel path: mean "
+                      f"|diff| {diff.mean():.3f} uint8 levels, max {int(diff.max())}",
+                      flush=True)
         with timed("FLUX serve", seconds):
             add_launches(rows, phase_flux_serve(snap, edit_path))
+        with timed("FLUX serve --quantize w8", seconds):
+            add_launches(rows, phase_flux_serve(snap, edit_path, "w8"))
     finally:
         shutil.rmtree(snap, ignore_errors=True)
         close_files(fds)
@@ -3406,8 +3728,35 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
           f"{device_ms['plain']:.2f} ms, wall {wall_ms['plain']:.2f} ms (median of 3)",
           flush=True)
 
+    # W8A8: the DiT quantized on the card, routed to auto's experts
+    with torch.inference_mode():
+        qparams = quantize.quantize_params(pipe.transformer_params, quantize.HIDREAM_SKIP,
+                                           "int8")
+        nbytes = tensor_bytes(qparams)
+        want_bytes = dit_bytes_from_shapes(hidream.state_dict_shapes(cfg),
+                                           quantize.HIDREAM_SKIP, "int8")
+        if nbytes != want_bytes:
+            raise AssertionError(f"HiDream int8 DiT: {nbytes} bytes, the shapes reckon "
+                                 f"{want_bytes}")
+        fwd = lambda: hidream.apply(qparams, lat, t5_e, llama_e, pooled_e, t, img_ids, cfg)
+        reset_launches()
+        with moe_routes(routes["auto"], replay=True):
+            out = fwd().float()
+        expect_launches("HiDream int8 DiT forward", read_launches(),
+                        {**HIDREAM_DIT_LAUNCHES, "sd_attention_qk8": 0})
+        int8_ms = median_ms(fwd, reps=3, warmup=1)  # on its own routing
+        with moe_routes(routes["auto"], replay=True), float_emulation("int8"):
+            control = fwd().float()
+        reading = hold_quantized("HiDream int8 DiT forward", out, control, outs["auto"])
+        del qparams, control
+        torch.cuda.empty_cache()
+    print(f"[int8] HiDream-I1 DiT, {nbytes / 1e9:.2f} GB on the card (the shapes reckon "
+          f"the same bytes), forward at CFG batch 2 and 1024^2 on auto's expert routing: "
+          f"{reading}; device {int8_ms:.2f} ms against bf16 {device_ms['auto']:.2f} ms "
+          f"(median of 3); 48 d=128 launches", flush=True)
+
     kw = dict(do_cfg=True, num_inference_steps=HIDREAM_STEPS,
-              guidance_scale=HIDREAM_GUIDANCE, seed=1, height=1024, width=1024)
+              guidance_scale=HIDREAM_GUIDANCE, seed=1, height=FLUX.size, width=FLUX.size)
     images, launches = {}, None
     for name, fast in (("exact", None), ("window 0:2", FastConfig(cfg_interval=(0, 2))),
                        ("window 1:2", FastConfig(cfg_interval=(1, 2)))):
@@ -3439,54 +3788,142 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict) -> tuple:
-    """``generate-hidream --staged`` through the CLI, 1 prompt, 2 steps, CFG
-    5.0, at 1024^2 with the edit overlay, on ``path``: the PNG, the launches
-    derived from the steps (48 d=128 attentions per forward at batch 2) and
-    one decode, the seconds of the encoders' load, the encode phase, the DiT
-    load and the image after it, and the HBM around free_encoders."""
+def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict,
+                           flags: tuple = ()) -> tuple:
+    """``generate-hidream --staged`` (with ``flags``: --quantize MODE, the DiT
+    quantized as it loads) through the CLI, 1 prompt, 2 steps, CFG 5.0, at
+    1024^2 with the edit overlay, on ``path``: the PNG, the launches derived
+    from the steps (48 d=128 attentions per forward at batch 2) and one
+    decode, the seconds of the encoders' load, the encode phase, the DiT
+    load and the image after it, the HBM around free_encoders and the DiT's
+    bytes on the card."""
     csv_path = os.path.join(WORK, "prompts_hidream.csv")
     with open(csv_path, "w", newline="") as f:
         csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
                                  [0, FLUX_PROMPT, 1]])
-    out = os.path.join(WORK, f"images_hidream_{path}")
+    tag = re.sub(r"[^0-9a-z]+", "_", "".join(flags))
+    out = os.path.join(WORK, f"images_hidream_{path}{tag}")
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
     want = {**per_decode, "sd_attention_d128": HIDREAM_STEPS * HIDREAM_DIT_LAUNCHES[
         "sd_attention_d128"], "sd_attention_d512": 1}
     want["sd_attention"] = want["sd_attention_d128"] + 1
-    seen, gn_seen, record = collections.Counter(), collections.Counter(), {}
+    seen, gn_seen, record, loads = collections.Counter(), collections.Counter(), {}, []
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
-                gn_seen, rows["group_norm_act"]), finite_decodes(), hidream_stages(record):
+                gn_seen, rows["group_norm_act"]), finite_decodes(), hidream_stages(
+                record), dit_loads(loads, pipeline_hidream):
             rc = cli_main(["generate-hidream", "--model_name", snap, "--prompts_path",
                            csv_path, "--save_path", out, "--uce_model_path", edit_path,
                            "--num_inference_steps", str(HIDREAM_STEPS), "--staged",
-                           "--device", "cuda"])
+                           "--image_size", str(FLUX.size), "--device", "cuda", *flags])
         launches = read_launches()
         seconds = time.perf_counter() - start
     if path == "kernels":
         want["conv3x3_reduce"] = conv_split_sums(seen)
-    if rc != 0:
-        raise AssertionError(f"generate-hidream ({path}): rc {rc}")
-    what = (f"HiDream-I1 generate-hidream --staged ({path}), 1 row x ({HIDREAM_STEPS} "
-            "steps at CFG batch 2 + 1 decode)")
+    if rc != 0 or len(loads) != 1:
+        raise AssertionError(f"generate-hidream ({path} {flags}): rc {rc}, "
+                             f"{len(loads)} DiT loads")
+    what = (f"HiDream-I1 generate-hidream --staged {' '.join(flags)} ({path}), 1 row x "
+            f"({HIDREAM_STEPS} steps at CFG batch 2 + 1 decode)").replace("  ", " ")
     expect_launches(what, launches, want)
     image = read_case_images(os.path.join(out, "erase_art"), [[0, None, None]])[0]
     check_images(what, [image])
     print(f"[generate] {what}: 1 PNG 1024x1024x3 uint8 in {seconds:.2f} s (CLI wall); "
           f"encoders loaded in {record['load']:.1f} s, encode phase "
           f"{record['encode']:.2f} s, {check_free_encoders(what, record)}, DiT loaded in "
-          f"{record['dit_load']:.1f} s, {record['image']:.3f} s for the image after the "
-          f"load; launches {launches} (want {want})", flush=True)
+          f"{record['dit_load']:.1f} s ({loads[0]['gb']:.2f} GB on the card, "
+          f"{loads[0]['allocated'] / 1e9:.2f} GB allocated after it), "
+          f"{record['image']:.3f} s for the image after the load; launches {launches} "
+          f"(want {want})", flush=True)
     return launches, image
+
+
+# The memory a load may take beyond its tensors' bytes (allocator rounding,
+# nothing held over from the load).
+LOAD_OVERSHOOT_MAX = 0.02
+
+
+def phase_hidream_serve(snap: str, edit_path: str) -> dict:
+    """``serve --family hidream --quantize w8`` with the edit overlay through
+    the CLI, loaded whole (unstaged: 52.3 GB of fp32 encoders and the w8 DiT
+    on one card), 2 steps, CFG 5.0, 1024^2: the card's allocated bytes after
+    the load held to the reckoning (the pipeline's tensors; the DiT's to its
+    shapes) within LOAD_OVERSHOOT_MAX; warm-up of the ladder 1,2, then 2
+    Poisson requests at 1/s: the JSON report, the served images, launches."""
+    argv = ["serve", "--model_id", snap, "--family", "hidream", "--quantize", "w8",
+            "--uce_model_path", edit_path, "--num_inference_steps", str(HIDREAM_STEPS),
+            "--guidance_scale", str(HIDREAM_GUIDANCE), "--image_size", str(FLUX.size),
+            "--batch_sizes", "1,2", "--bench", "1", "--bench_requests", "2",
+            "--device", "cuda"]
+    load, loaded = HiDreamPipeline.__dict__["from_pretrained"].__func__, {}
+
+    def spy(cls, *args, **kwargs):
+        pipe = load(cls, *args, **kwargs)
+        torch.cuda.synchronize()
+        loaded["allocated"] = torch.cuda.memory_allocated()
+        loaded["dit"] = tensor_bytes(pipe.transformer_params)
+        loaded["config"] = pipe.transformer_config
+        loaded["all"] = tensor_bytes([getattr(pipe, f.name) for f in dataclasses.fields(
+            pipe) if "_params" in f.name])
+        return pipe
+
+    out, calls = io.StringIO(), []
+    reset_launches()
+    start = time.perf_counter()
+    HiDreamPipeline.from_pretrained = classmethod(spy)
+    try:
+        with contextlib.redirect_stdout(out), finite_decodes(), pipe_calls(
+                calls, HiDreamPipeline):
+            rc = cli_main(argv)
+    finally:
+        HiDreamPipeline.from_pretrained = classmethod(load)
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    reports = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    if rc != 0 or len(reports) != 1:
+        raise AssertionError(f"serve --family hidream: rc {rc}, output {out.getvalue()!r}")
+    rep = reports[0]
+    if not (rep["n_requests"] == 2 and rep["throughput_rps"] > 0
+            and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
+        raise AssertionError(f"serve --family hidream report: {rep}")
+    want_dit = dit_bytes_from_shapes(hidream.state_dict_shapes(loaded["config"]),
+                                     quantize.HIDREAM_SKIP, "w8")
+    over = loaded["allocated"] / loaded["all"] - 1
+    if loaded["dit"] != want_dit or over > LOAD_OVERSHOOT_MAX:
+        raise AssertionError(f"serve --family hidream load: DiT {loaded['dit']} bytes "
+                             f"(the shapes reckon {want_dit}), {loaded['allocated']} "
+                             f"allocated for {loaded['all']} bytes of tensors")
+    batches = 2 + rep["batches"]  # one warm-up batch per rung
+    want = {"sd_attention_d128": batches * HIDREAM_STEPS * HIDREAM_DIT_LAUNCHES[
+        "sd_attention_d128"], "sd_attention_d512": batches, "sd_attention_qk8": 0}
+    expect_launches(f"serve --family hidream --quantize w8, {batches} batches", launches,
+                    want)
+    served = [img for _, images in calls[2:] for img in images]
+    check_images("serve --family hidream --quantize w8", served)
+    print(f"[serve] {json.dumps(rep)}")
+    print(f"[serve] --family hidream --quantize w8 --batch_sizes 1,2 --bench 1, "
+          f"{HIDREAM_STEPS} steps, CFG {HIDREAM_GUIDANCE}: after the load "
+          f"{loaded['allocated'] / 1e9:.2f} GB allocated on the card for "
+          f"{loaded['all'] / 1e9:.2f} GB of tensors ({over:+.3%}; bound "
+          f"+{LOAD_OVERSHOOT_MAX:.0%}): encoders and VAE "
+          f"{(loaded['all'] - loaded['dit']) / 1e9:.2f} GB, w8 DiT "
+          f"{loaded['dit'] / 1e9:.2f} GB (as its shapes reckon); 2 requests in "
+          f"{rep['batches']} batches (+2 warm-up), throughput {rep['throughput_rps']} "
+          f"req/s, latency p50 {rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; "
+          f"{len(served)} served images 1024x1024x3 uint8; seconds per batch "
+          f"{[round(c[0], 3) for c in calls]}; {seconds:.1f} s CLI wall; launches "
+          f"{want}", flush=True)
+    return launches
 
 
 def run_hidream(rows: dict, seconds: dict) -> None:
     """HiDream-I1-Full at full width and depth: snapshot, edit-hidream, the
-    staged pipeline's DiT forward on both paths and its CFG window, and
-    generate-hidream --staged on both paths."""
+    staged pipeline's DiT forward on both paths and in int8, its CFG window,
+    generate-hidream --staged on both paths and with --quantize w8, and
+    serve --family hidream --quantize w8."""
     snap, fds = os.path.join(WORK, "hidream_random"), []
     print(f"[host] {host_memory()}", flush=True)
     try:
@@ -3509,6 +3946,16 @@ def run_hidream(rows: dict, seconds: dict) -> None:
             diff = np.abs(kernel_image.astype(int) - library_image.astype(int))
             print(f"[generate] HiDream kernels vs library path: mean |diff| "
                   f"{diff.mean():.3f} uint8 levels, max {int(diff.max())}", flush=True)
+        with timed("HiDream generate --quantize w8", seconds):
+            launches, image = phase_hidream_generate(snap, edit_path, "kernels", rows,
+                                                     ("--quantize", "w8"))
+            add_launches(rows, launches)
+            diff = np.abs(image.astype(int) - kernel_image.astype(int))
+            print(f"[generate] HiDream --staged --quantize w8 vs the bf16 kernel path: "
+                  f"mean |diff| {diff.mean():.3f} uint8 levels, max {int(diff.max())}",
+                  flush=True)
+        with timed("HiDream serve --quantize w8", seconds):
+            add_launches(rows, phase_hidream_serve(snap, edit_path))
     finally:
         shutil.rmtree(snap, ignore_errors=True)
         close_files(fds)
@@ -3549,7 +3996,7 @@ def main() -> int:
     try:
         run_sd14(rows, seconds)
         run_model(SD21, rows, seconds, lms_steps=LMS_STEPS)
-        run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC)
+        run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC, serve=True)
         run_flux(rows, seconds)
         run_hidream(rows, seconds)
     finally:

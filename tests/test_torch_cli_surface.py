@@ -54,6 +54,31 @@ def test_not_taken_list_is_current():
         assert flag in _flags(UCE[command]) and flag not in _flags(PORT[command])
 
 
+@pytest.mark.parametrize("command", sorted(UCE))
+def test_only_mesh_options_are_not_ported(command):
+    """Every flag the port takes runs: only the mesh flags (one GPU, ROADMAP
+    queue 1 item 4) say they are not ported; --quantize and --staged of the
+    DiT commands and serve's families run."""
+    for action in PORT[command]._actions:
+        if "not ported" in (action.help or ""):
+            assert action.option_strings == ["--mesh"], (command, action.option_strings)
+    choices = {a.dest: a.choices for a in PORT[command]._actions}
+    if command == "serve":
+        assert choices["family"] == ["sd", "flux", "hidream"]
+        assert "ported" not in PORT[command]._option_string_actions["--family"].help
+
+
+def test_dit_commands_take_quantize_and_staged():
+    from uce_tpu_torch.cli import flux_gen_cmd, hidream_gen_cmd
+
+    assert set(flux_gen_cmd.NOT_PORTED) == set(hidream_gen_cmd.NOT_PORTED) == {"mesh"}
+    parser = port_parser()
+    for command in ("generate-flux", "generate-hidream"):
+        args = parser.parse_args([command, "--model_name", "m", "--prompts_path", "p",
+                                  "--save_path", "s", "--quantize", "int8", "--staged"])
+        assert args.quantize == "int8" and args.staged
+
+
 @pytest.mark.parametrize("command", ["eval-nudenet", "eval-dreamsim"])
 def test_jax_weights_is_an_alias_of_weights(command):
     parser = port_parser()

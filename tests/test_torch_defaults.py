@@ -113,7 +113,7 @@ def test_flux_entry_points_default_to_cuda():
     """FLUX's library entry points: the pipeline (its device field and
     from_pretrained), the edit's resources and solve, the T5 loader, and
     the random-weight draws of the DiT and T5."""
-    from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline
+    from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline, load_transformer
     from uce_tpu_torch.edit import flux as edit_flux
     from uce_tpu_torch.models import flux, t5
 
@@ -121,7 +121,7 @@ def test_flux_entry_points_default_to_cuda():
     assert field.default == torch.device("cuda")
     field = {f.name: f for f in dataclasses.fields(edit_flux.FluxEditResources)}["device"]
     assert field.default == torch.device("cuda")
-    for fn in (FluxPipeline.from_pretrained, edit_flux.load_resources,
+    for fn in (FluxPipeline.from_pretrained, load_transformer, edit_flux.load_resources,
                edit_flux.load_t5_encoder, edit_flux.erase_from_embeddings,
                flux.init_state_dict, t5.init_state_dict):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
@@ -156,6 +156,19 @@ def test_hidream_entry_points_default_to_cuda():
                edit_hd.load_llama_encoder, edit_hd.erase_from_embeddings,
                hidream.init_state_dict, llama.init_state_dict):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("family", ["flux", "hidream"])
+def test_dit_serve_defaults_to_cuda_and_does_not_fall_back(family, monkeypatch, tmp_path):
+    """``serve --family flux|hidream`` (with --quantize, which loads the DiT
+    quantized on the device) defaults to cuda and fails without it."""
+    from uce_tpu_torch.cli.main import build_parser, main
+
+    argv = ["serve", "--model_id", str(tmp_path), "--family", family, "--quantize", "w8"]
+    assert build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
 
 
 @pytest.mark.parametrize("command", ["edit-hidream", "generate-hidream"])

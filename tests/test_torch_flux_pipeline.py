@@ -4,7 +4,10 @@ packing, the position ids, the dynamic-shift mu, the FlowMatchEuler plans,
 and whole generations from tests/snapshot.py's tiny FLUX snapshot in fp32
 at 16x16, 2 steps, within 1 uint8 level of uce_tpu's images (the bar of
 tests/test_pipeline_parity.py), also with a UCE edit overlay and with
-per-prompt seeds. And the generate-flux CLI's file contract."""
+per-prompt seeds, and with the DiT quantized as it loads (w8, int8); the
+staged load equal to the whole one, with the edits and quantization asked
+for before it deferred to it. And the generate-flux CLI's file contract,
+with --staged and --quantize."""
 
 import csv
 import os
@@ -15,6 +18,7 @@ import torch
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion import pipeline_flux as tpf, schedulers as tsched
+from uce_tpu_torch.models.hf_loader import read_safetensors
 from uce_tpu_torch.models import vae as tvae
 
 GEN = dict(num_inference_steps=2, height=16, width=16)
@@ -184,10 +188,72 @@ def test_generate_from_embeddings_validates_rows(pipes):
                                        width=16)
 
 
+@pytest.mark.parametrize("mode", ["w8", "int8"])
+def test_quantized_load_matches_uce_tpu(flux_snap, mode):
+    """from_pretrained(quantize=): the DiT quantized tensor by tensor as it
+    loads (FLUX_SKIP), its images within 1 uint8 level of uce_tpu's
+    host-side quantized pipeline (fp32); the encoders and VAE stay float."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_flux import FluxPipeline as JaxFlux
+    from uce_tpu_torch.ops import quant
+
+    jpipe = JaxFlux.from_pretrained(flux_snap, dtype=jnp.float32, max_sequence_length=16,
+                                    quantize=mode)
+    tpipe = tpf.FluxPipeline.from_pretrained(flux_snap, dtype=torch.float32,
+                                             max_sequence_length=16, quantize=mode,
+                                             device="cpu")
+    tp = tpipe.transformer_params
+    is_q = quant.is_quantized if mode == "int8" else quant.is_weight_only
+    assert is_q(tp["transformer_blocks.0.attn.to_q.weight"])
+    assert not is_q(tp["context_embedder.weight"]) and not is_q(tp["proj_out.weight"])
+    kw = dict(GEN, seed=4)
+    got = tpipe("a cat on mars", **kw)
+    assert _max_diff(got, np.asarray(jpipe("a cat on mars", **kw))) <= 1
+
+
+def test_staged_matches_eager_and_defers_edits_and_quantize(flux_snap, pipes, edit_path):
+    """from_pretrained(staged=True): encode, free_encoders, then the DiT loads
+    on the first generate_from_embeddings call: the whole load's images bit
+    for bit. Edits and quantize_weights asked for before the DiT exists apply
+    at its load, and the edit targets stay float (FLUX_SKIP)."""
+    from uce_tpu_torch.ops import quant
+
+    load = dict(dtype=torch.float32, max_sequence_length=16, device="cpu")
+    kw = dict(GEN, seed=4)
+    pipe = tpf.FluxPipeline.from_pretrained(flux_snap, staged=True, **load)
+    assert pipe.transformer_params is None
+    t5, pooled = pipe.encode_prompts(["a cat"])
+    pipe.free_encoders()
+    with pytest.raises(RuntimeError, match="freed"):
+        pipe.encode_prompts(["a dog"])
+    np.testing.assert_array_equal(pipe.generate_from_embeddings(t5, pooled, **kw),
+                                  pipes[1]("a cat", **kw))
+
+    pipe = tpf.FluxPipeline.from_pretrained(flux_snap, staged=True, **load)
+    pipe.load_uce_edits(edit_path)
+    pipe.quantize_weights("w8")
+    assert pipe.pending_edits == [edit_path] and pipe.pending_quantize == "w8"
+    t5, pooled = pipe.encode_prompts(["a cat"])
+    pipe.free_encoders()
+    got = pipe.generate_from_embeddings(t5, pooled, **kw)
+    tp = pipe.transformer_params
+    assert pipe.pending_edits == []
+    assert quant.is_weight_only(tp["single_transformer_blocks.0.proj_out.weight"])
+    assert torch.equal(tp["context_embedder.weight"],
+                       read_safetensors(edit_path)["context_embedder.weight"])
+    whole = tpf.FluxPipeline.from_pretrained(flux_snap, quantize="w8", **load)
+    whole.load_uce_edits(edit_path)
+    np.testing.assert_array_equal(got, whole("a cat", **kw))
+    with pytest.raises(ValueError, match="mode"):
+        pipe.quantize_weights("int4")
+
+
 def test_generate_flux_cli(flux_snap, edit_path, tmp_path):
     """``generate-flux`` writes {case}_{num}.png under the edit's stem for
-    the CSV's case window, with the pipeline's images; the options this
-    port has not taken yet exit with their ROADMAP item."""
+    the CSV's case window, with the pipeline's images, also with --staged
+    (the same images) and --quantize (the quantized pipeline's); --mesh, not
+    taken yet, exits with its ROADMAP item."""
     from uce_tpu_torch.cli.main import main
     from uce_tpu_torch.utils.imaging import decode_png
 
@@ -209,7 +275,18 @@ def test_generate_flux_cli(flux_snap, edit_path, tmp_path):
     for num in range(2):
         img = decode_png((folder / f"1_{num}.png").read_bytes())
         np.testing.assert_array_equal(img, want[num])
-    for flag, item in [(["--quantize", "w8"], "item 17"), (["--staged"], "item 17"),
-                       (["--mesh", "data=2"], "item 4")]:
-        with pytest.raises(SystemExit, match=item):
-            main(base + flag)
+    one = base + ["--from_case", "1", "--till_case", "1", "--num_samples", "2"]
+    assert main([*one, "--staged", "--save_path", str(tmp_path / "staged")]) == 0
+    for num in range(2):
+        img = decode_png((tmp_path / "staged" / "edit" / f"1_{num}.png").read_bytes())
+        np.testing.assert_array_equal(img, want[num])
+    assert main([*one, "--quantize", "int8", "--save_path", str(tmp_path / "q")]) == 0
+    qpipe = tpf.FluxPipeline.from_pretrained(flux_snap, quantize="int8", device="cpu")
+    qpipe.load_uce_edits(edit_path)
+    want = qpipe("a dog", num_inference_steps=2, seed=6, num_images_per_prompt=2,
+                 height=16, width=16)
+    for num in range(2):
+        img = decode_png((tmp_path / "q" / "edit" / f"1_{num}.png").read_bytes())
+        np.testing.assert_array_equal(img, want[num])
+    with pytest.raises(SystemExit, match="item 4"):
+        main(base + ["--mesh", "data=2"])

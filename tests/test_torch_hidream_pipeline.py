@@ -3,8 +3,9 @@ against uce_tpu's: the pixel-major latent packing, whole generations from
 tests/snapshot.py's tiny HiDream snapshot in fp32 at 16x16, 2 steps, CFG
 5.0, within 1 uint8 level of uce_tpu's images (the bar of
 tests/test_pipeline_parity.py), also with a UCE edit overlay; the staged
-load equal to the whole one; the CFG window; and the generate-hidream CLI
-with --staged."""
+load equal to the whole one; the CFG window; the staged load with the DiT
+quantized as it loads (w8) against uce_tpu's; and the generate-hidream CLI
+with --staged and --quantize."""
 
 import csv
 import os
@@ -167,18 +168,53 @@ def test_fast_cfg_window(tpipe):
 
 
 def test_quantize_and_mesh_raise_with_their_items(hd_snap, tpipe):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tph.HiDreamPipeline.from_pretrained(hd_snap, quantize="w8", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tpipe.quantize_weights("w8")
+    """An unknown quantization mode raises, at load and after it; the mesh
+    waits for its ROADMAP item."""
+    with pytest.raises(ValueError, match="mode"):
+        tph.HiDreamPipeline.from_pretrained(hd_snap, quantize="int4", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        tpipe.quantize_weights("int4")
     with pytest.raises(NotImplementedError, match="item 4"):
         tpipe.apply_mesh(None)
 
 
+def test_staged_w8_matches_uce_tpu(hd_snap, edit_path):
+    """tests/test_hidream_pipeline.py::test_staged_w8_close_to_eager's path
+    on both packages (fp32, no CFG): the staged DiT quantized w8 as it loads
+    (per layer and per routed expert), the caption projections and the MoE
+    router float, a pending edit applied at the load; images within 1 uint8
+    level of uce_tpu's."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_hidream import HiDreamPipeline as JaxHiDream
+    from uce_tpu_torch.ops import quant
+
+    kw = dict(num_inference_steps=2, guidance_scale=0.0, seed=3, height=16, width=16)
+    images = []
+    for pipe in (JaxHiDream.from_pretrained(hd_snap, dtype=jnp.float32,
+                                            max_sequence_length=16, staged=True,
+                                            quantize="w8"),
+                 tph.HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                                     max_sequence_length=16, staged=True,
+                                                     quantize="w8", device="cpu")):
+        pipe.load_uce_edits(edit_path)
+        embeds = pipe.encode_prompts(["a cat"])
+        pipe.free_encoders()
+        images.append(np.asarray(pipe.generate_from_embeddings(*embeds, **kw)))
+    tp = pipe.transformer_params
+    assert quant.is_weight_only(tp["double_stream_blocks.0.block.attn1.to_q.weight"])
+    assert quant.is_weight_only(tp["double_stream_blocks.0.block.ff_i.experts.0.w2.weight"])
+    for key in ("caption_projection.0.linear.weight",
+                "double_stream_blocks.0.block.ff_i.gate.weight"):
+        assert not quant.is_weight_only(tp[key])
+    assert images[1].shape == (1, 16, 16, 3) and _max_diff(*images) <= 1
+
+
 def test_generate_hidream_cli_staged(hd_snap, tpipe, edit_path, tmp_path):
     """``generate-hidream --staged`` writes {case}_{num}.png under the
-    edit's stem for the CSV's case window, with the pipeline's images; the
-    options this port has not taken yet exit with their ROADMAP item."""
+    edit's stem for the CSV's case window, with the pipeline's images, also
+    with --quantize int8 (the quantized pipeline's); --mesh, not taken yet,
+    exits with its ROADMAP item, and --fast cache=N is refused."""
     from uce_tpu_torch.cli.main import main
     from uce_tpu_torch.utils.imaging import decode_png
 
@@ -202,7 +238,15 @@ def test_generate_hidream_cli_staged(hd_snap, tpipe, edit_path, tmp_path):
     for num in range(2):
         img = decode_png((folder / f"1_{num}.png").read_bytes())
         np.testing.assert_array_equal(img, want[num])
-    for flag, item in [(["--quantize", "w8"], "item 17"), (["--mesh", "data=2"], "item 4"),
+    assert main(base + ["--from_case", "1", "--till_case", "1", "--staged", "--quantize",
+                        "int8", "--save_path", str(tmp_path / "q")]) == 0
+    qpipe = tph.HiDreamPipeline.from_pretrained(hd_snap, max_sequence_length=16,
+                                                quantize="int8", device="cpu")
+    qpipe.load_uce_edits(edit_path)
+    img = decode_png((tmp_path / "q" / "edit" / "1_0.png").read_bytes())
+    np.testing.assert_array_equal(img, qpipe("a dog", num_inference_steps=2, seed=6,
+                                             height=16, width=16)[0])
+    for flag, item in [(["--mesh", "data=2"], "item 4"),
                        (["--fast", "cache=2"], "cfg_interval only")]:
         with pytest.raises(SystemExit, match=item):
             main(base + flag)

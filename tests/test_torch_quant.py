@@ -1,6 +1,9 @@
 """The port's int8 quantization (ops/quant.py, models/quantize.py, the layer
 dispatch, the quantized UNet and VAE) against uce_tpu's on the same int8
-payloads, carried over by uce_tpu_torch.models.convert."""
+payloads, carried over by uce_tpu_torch.models.convert; also on SD 2.1's and
+SDXL's tiny UNet topologies (linear projections, per-level heads, SDXL's
+transformer depths and text_time conditioning). Their VAEs are SD's
+topology, which the VAE cases cover."""
 
 import jax
 import jax.numpy as jnp
@@ -176,6 +179,67 @@ def test_quantize_params_matches_uce_tpu(model, cfg_kw, skip, mode):
     nq, nw = tquantize.count_quantized(got)
     assert (nq, nw) == jquantize.count_quantized(jparams)
     assert nq == len(quantized) > 10
+
+
+# tests/test_sd2_pipeline.py's and tests/test_sdxl_pipeline.py's tiny UNets
+SD21_TOPOLOGY = dict(TINY_UNET, use_linear_projection=True, attention_head_dim=(2, 4))
+SDXL_TOPOLOGY = dict(block_out_channels=(8, 16),
+                     down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+                     up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+                     layers_per_block=1, cross_attention_dim=40, attention_head_dim=(2, 4),
+                     transformer_layers_per_block=(1, 2), use_linear_projection=True,
+                     norm_num_groups=4, addition_embed_type="text_time",
+                     addition_time_embed_dim=8, projection_class_embeddings_input_dim=64)
+SD2X = {"sd21": SD21_TOPOLOGY, "sdxl": SDXL_TOPOLOGY}
+
+
+@pytest.mark.parametrize("model", ["sd21", "sdxl"])
+@pytest.mark.parametrize("mode", ["int8", "w8"])
+def test_quantize_params_sd21_sdxl_match_uce_tpu(model, mode):
+    """As test_quantize_params_matches_uce_tpu on SD 2.1's and SDXL's
+    topologies; SDXL's add_embedding stays float (UNET_SKIP)."""
+    flat = tunet.init_state_dict(tunet.UNetConfig(**SD2X[model]),
+                                 np.random.default_rng(5))
+    jparams = jquantize.quantize_params(junet.nest_state_dict(flat), jquantize.UNET_SKIP,
+                                        mode=mode)
+    want = nested_to_state_dict(jparams)
+    got = tquantize.quantize_params(tunet.load_params(flat, device="cpu"),
+                                    tquantize.UNET_SKIP, mode=mode)
+    is_q = lambda v: tquant.is_quantized(v) or tquant.is_weight_only(v)  # noqa: E731
+    quantized = sorted(k for k, v in got.items() if is_q(v))
+    assert quantized == sorted(k for k, v in want.items() if is_q(v))
+    for k in quantized:
+        assert all(torch.equal(got[k][n], want[k][n]) for n in got[k])
+    assert tquantize.count_quantized(got) == jquantize.count_quantized(jparams)
+    assert any("proj_in" in k for k in quantized)  # the linear projections
+    assert (model == "sdxl") == any(k.startswith("add_embedding") for k in got)
+    assert not any(k.startswith("add_embedding") for k in quantized)
+
+
+@pytest.mark.parametrize("model", ["sd21", "sdxl"])
+@pytest.mark.parametrize("mode", ["int8", "w8"])
+def test_quantized_unet_sd21_sdxl_match_uce_tpu(model, mode):
+    """uce_tpu's quantized UNet on SD 2.1's and SDXL's topologies (SDXL with
+    its text_time conditioning), carried over, against its forward (fp32)."""
+    jcfg, tcfg = junet.UNetConfig(**SD2X[model]), tunet.UNetConfig(**SD2X[model])
+    jparams = jquantize.quantize_params(junet.nest_state_dict(
+        junet.init_state_dict(jcfg, np.random.default_rng(42), scale=0.1)), mode=mode)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    ctx = rng.standard_normal((2, 7, tcfg.cross_attention_dim)).astype(np.float32)
+    added = None
+    if model == "sdxl":
+        added = {"text_embeds": rng.standard_normal((2, 16)).astype(np.float32),
+                 "time_ids": np.array([[32, 32, 0, 0, 32, 32]] * 2, np.float32)}
+    want = np.asarray(jax.jit(lambda p, x, c, a: junet.apply(
+        p, x, jnp.asarray(500.0), c, jcfg, added_cond=a))(
+        jparams, jnp.asarray(x), jnp.asarray(ctx),
+        None if added is None else {k: jnp.asarray(v) for k, v in added.items()}))
+    got = tunet.apply(nested_to_state_dict(jparams), _nchw(x), 500.0,
+                      torch.from_numpy(ctx), tcfg,
+                      added_cond=None if added is None else {
+                          k: torch.from_numpy(v) for k, v in added.items()})
+    assert _rel_l2(_nhwc(got), want) <= NET_REL_L2
 
 
 def test_quantize_params_rejects_unknown_mode():

@@ -193,3 +193,37 @@ def test_edit_sdxl_cli_matches_uce_tpu(snap, tmp_path, method):
     for k, v in want.items():
         assert ours[k].shape[-1] == 40
         np.testing.assert_allclose(ours[k], np.asarray(v), rtol=1e-3, atol=1e-5)
+
+
+def test_sdxl_debias_loop_matches_uce_tpu(pipes, tmp_path):
+    """tests/test_sdxl_pipeline.py::test_sdxl_debias_loop on both packages
+    (fp32): run_debias takes its dual-encoder resources from the SDXL
+    pipeline; every edited weight has the joined input width (24 + 16),
+    and the port's weights and observed ratios equal uce_tpu's within the
+    solver tolerance of tests/test_torch_debias.py."""
+    from uce_tpu.edit.debias import DebiasSettings as JaxSettings, run_debias as jrun
+    from uce_tpu_torch.edit.debias import DebiasSettings, run_debias
+
+    class StubClip:
+        def classify(self, images, labels):
+            return np.arange(images.shape[0]) % len(labels)
+
+    jpipe, pipe = pipes
+    kw = dict(num_images_per_prompt=2, num_inference_steps=2, max_iterations=1)
+    common = dict(save_dir=str(tmp_path), image_size=32, verbose=False)
+    saved = jpipe.unet_params, pipe.unet_params
+    try:
+        jw, jacc, jhist = jrun(jpipe, StubClip(), ["doctor"], ["male", "female"],
+                               settings=JaxSettings(**kw), exp_name="jxdl", **common)
+        w, acc, hist = run_debias(pipe, StubClip(), ["doctor"], ["male", "female"],
+                                  settings=DebiasSettings(**kw), exp_name="xdl", **common)
+    finally:
+        jpipe.unet_params, pipe.unet_params = saved
+    assert list(w) == list(jw) and len(w) > 0
+    for k, v in w.items():
+        assert v.shape[-1] == 40, k
+        np.testing.assert_allclose(v.numpy(), np.asarray(jw[k]), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(acc, jacc)
+    assert len(hist) == len(jhist)
+    for h, j in zip(hist, jhist):
+        np.testing.assert_array_equal(h["observed"], j["observed"])

@@ -118,6 +118,37 @@ def test_launches_per_call(model, part, convs, norms, kernel_attn):
     assert all(q[0] == batch for q, _ in routed)
 
 
+@pytest.mark.parametrize("model,routed", [("sd21", 10), ("sdxl", 70)])
+@pytest.mark.parametrize("mode", ["int8", "w8"])
+def test_quantized_unet_attention_routing(model, routed, mode):
+    """A UNet forward at batch 2 on int8 (W8A8) weights sends every call the
+    kernel takes to its int8-QK^T variant: SD 2.1's 10 and SDXL's 70
+    self-attentions at d=64, chip_smoke.py's W8A8 launches; on w8 weights
+    none (the bf16 kernel)."""
+    from uce_tpu_torch.models import quantize
+
+    cfg, size, ctx, added = MODELS[model]
+    params = quantize.quantize_params(
+        {k: torch.empty(v.shape, **META)
+         for k, v in unet.init_state_dict(cfg, _ShapeRng()).items()},
+        quantize.UNET_SKIP, mode)
+    calls = collections.Counter()
+
+    def attn_spy(q, k, v, qk_int8=False, **kw):
+        if attention.routes_to_kernel(q.shape, k.shape, torch.bfloat16, "cuda"):
+            calls[(q.shape[-1], qk_int8)] += 1
+        return torch.empty(q.shape, device="meta", dtype=q.dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(unet, "dot_product_attention", attn_spy)
+        unet.apply(params, torch.empty(2, 4, size, size, **META), 981.0,
+                   torch.empty(2, 77, ctx, **META), cfg,
+                   added_cond=None if added is None else {
+                       "text_embeds": torch.empty(2, added[0], **META),
+                       "time_ids": torch.empty(2, added[1], device="meta")})
+    assert calls == {(64, mode == "int8"): routed}
+
+
 @pytest.mark.parametrize("model", ["sd21", "sdxl"])
 def test_unrouted_attention_stays_plain(model):
     """Cross-attention (77 keys) and SD 2.1's 24x24 and 12x12 levels (s=576,

@@ -1,7 +1,9 @@
 """The port's serving layer (uce_tpu_torch/serving, ``serve`` CLI): the cases
 of tests/test_serving.py that need no FLUX or mesh, on the port's SD
 pipeline (fp32, 2 steps, 32x32), and a W8A8 (``--quantize int8``) server's
-image against uce_tpu's; fast specs served, int8 among them."""
+image against uce_tpu's, also on SDXL; fast specs served, int8 among them;
+FLUX and HiDream servers (their DiTs quantized as they load) against
+uce_tpu's pipelines."""
 
 import base64
 import json
@@ -314,7 +316,7 @@ def test_serve_cli_bench_mode_with_ladder(snap, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--family", "hidream"], "--quantize w8 \\(ROADMAP queue 1 item 17\\)"),
+    (["--family", "flux", "--mesh", "data=2"], "item 4"),
     (["--mesh", "data=2"], "not ported"),
 ])
 def test_serve_cli_rejects_what_is_not_ported(snap, argv, match):
@@ -470,18 +472,110 @@ def test_flux_server_matches_uce_tpu(flux_snap):
 
 
 def test_serve_cli_flux_bench(flux_snap, capsys):
-    """``serve --family flux`` through the CLI: one JSON load report; its
-    --quantize waits for ROADMAP item 17."""
+    """``serve --family flux --quantize w8`` through the CLI: one JSON load
+    report (the DiT quantized as it loads)."""
     from uce_tpu_torch.cli.main import main as cli_main
 
     base = ["serve", "--model_id", flux_snap, "--family", "flux", "--device", "cpu"]
     rc = cli_main(base + ["--bench", "5", "--bench_requests", "2", "--batch_sizes", "1,2",
                           "--image_size", "16", "--num_inference_steps", "2",
-                          "--guidance_scale", "0", "--max_wait_ms", "30"])
+                          "--guidance_scale", "0", "--max_wait_ms", "30",
+                          "--quantize", "w8"])
     assert rc == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
     assert len(lines) == 1 and lines[0]["n_requests"] == 2
     assert lines[0]["throughput_rps"] > 0
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli_main(base + ["--quantize", "int8"])
+
+
+# ---------------------------------------------------------------------------
+# HiDream (``serve --family hidream``) on tests/snapshot.py's tiny snapshot
+# ---------------------------------------------------------------------------
+
+HD_CFG = dict(num_inference_steps=2, guidance_scale=5.0, height=16, width=16)
+
+
+@pytest.fixture(scope="module")
+def hd_snap(tmp_path_factory):
+    from tests.snapshot import make_hidream_snapshot
+
+    return make_hidream_snapshot(tmp_path_factory.mktemp("torch_serving_hd_snap"))
+
+
+def test_hidream_server_matches_uce_tpu(hd_snap):
+    """A HiDreamPipeline loaded whole with its DiT quantized w8 as it loads,
+    served through the batch ladder with CFG and a negative prompt: each
+    served image within 1 uint8 level of uce_tpu's w8 pipeline on the same
+    snapshot (fp32). It takes no scheduler override (refused at start), and
+    a fast spec with a cache interval fails the warm-up, as in uce_tpu."""
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline_hidream import HiDreamPipeline as JaxHiDream
+    from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline
+
+    pipe = HiDreamPipeline.from_pretrained(hd_snap, dtype=torch.float32,
+                                           max_sequence_length=16, quantize="w8",
+                                           device="cpu")
+    cfg = ServerConfig(batch_sizes=(1, 2), max_wait_ms=500, **HD_CFG)
+    with GenerationServer(pipe, cfg) as srv:
+        futures = [srv.submit("a cat", seed=3, negative_prompt="blurry"),
+                   srv.submit("a dog", seed=4)]
+        served = [f.result(timeout=600) for f in futures]
+        assert srv.stats.batches == 1
+    jpipe = JaxHiDream.from_pretrained(hd_snap, dtype=jnp.float32, max_sequence_length=16,
+                                       quantize="w8")
+    want = np.asarray(jpipe(["a cat", "a dog"], seed=[3, 4],
+                            negative_prompt=["blurry", ""], **HD_CFG))
+    for img, ref in zip(served, want):
+        assert img.shape == (16, 16, 3) and img.dtype == np.uint8
+        assert np.abs(img.astype(int) - ref.astype(int)).max() <= 1
+    with pytest.raises(ValueError, match="takes no scheduler"):
+        GenerationServer(pipe, ServerConfig(warmup=False, scheduler="ddim",
+                                            **HD_CFG)).start()
+    with pytest.raises(ValueError, match="cfg_interval only"):
+        GenerationServer(pipe, ServerConfig(batch_size=1, fast="cache=2",
+                                            **HD_CFG)).start()
+
+
+def test_serve_cli_hidream_bench(hd_snap, capsys):
+    """``serve --family hidream --quantize int8`` through the CLI, its Llama
+    read from the snapshot's text_encoder_4: one JSON load report."""
+    from uce_tpu_torch.cli.main import main as cli_main
+
+    rc = cli_main(["serve", "--model_id", hd_snap, "--family", "hidream", "--quantize",
+                   "int8", "--bench", "5", "--bench_requests", "2", "--batch_sizes", "1,2",
+                   "--image_size", "16", "--num_inference_steps", "2",
+                   "--guidance_scale", "5", "--max_wait_ms", "30", "--device", "cpu"])
+    assert rc == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1 and lines[0]["n_requests"] == 2
+    assert lines[0]["throughput_rps"] > 0
+
+
+def test_sdxl_int8_server_matches_uce_tpu(tmp_path_factory):
+    """``serve --quantize int8`` of an SDXL pipeline (its two encoders and
+    text_time conditioning through the server): the port's W8A8 server and
+    uce_tpu's serve the same (prompt, seed, negative prompt) within one
+    uint8 level (tests/test_sdxl_pipeline.py's tiny snapshot, fp32)."""
+    import jax.numpy as jnp
+
+    from tests.test_sdxl_pipeline import make_sdxl_snapshot
+    from uce_tpu.diffusion.pipeline import SDPipeline as JaxPipeline
+    from uce_tpu.serving.server import (GenerationServer as JaxServer,
+                                        ServerConfig as JaxConfig)
+
+    snap = make_sdxl_snapshot(tmp_path_factory.mktemp("torch_serving_sdxl"))
+    port = SDPipeline.from_pretrained(snap, dtype=torch.float32, device="cpu")
+    jpipe = JaxPipeline.from_pretrained(snap, dtype=jnp.float32)
+    assert port.is_sdxl and jpipe.is_sdxl
+    port.quantize_weights("int8")
+    jpipe.quantize_weights("int8")
+    images = []
+    for server_cls, config_cls, p in ((GenerationServer, ServerConfig, port),
+                                      (JaxServer, JaxConfig, jpipe)):
+        with server_cls(p, config_cls(batch_size=2, max_wait_ms=1, scheduler="euler",
+                                      **CFG)) as srv:
+            images.append(srv.generate("a cat", seed=7, negative_prompt="a dog"))
+    diff = np.abs(images[0].astype(np.int16) - images[1].astype(np.int16))
+    assert images[0].shape == (32, 32, 3) and diff.max() <= 1, diff.max()

@@ -1,17 +1,17 @@
 """``python -m uce_tpu_torch generate-flux``: FLUX.1 batch generation over a
 prompts CSV (uce_tpu/cli/flux_gen_cmd.py; the eval protocol's
 {case}_{num}.png naming and case windows; schnell's defaults of 4 steps and
-guidance 0, as notebooks/inference_flux.ipynb)."""
+guidance 0, as notebooks/inference_flux.ipynb).
+
+``--quantize w8|int8`` quantizes the DiT as it loads; ``--staged`` encodes
+every row first, keeps the embeddings on the host, frees the encoders and
+then loads the DiT."""
 
 from __future__ import annotations
 
 # The options of uce_tpu's generate-flux that this port does not take yet,
 # each with the ROADMAP queue 1 item that holds it.
 NOT_PORTED = {
-    "quantize": "--quantize (the DiT in w8/int8) is not ported yet (ROADMAP queue 1 "
-                "item 17)",
-    "staged": "--staged (encode, free the encoders, then load the DiT) is not "
-              "ported yet (ROADMAP queue 1 item 17)",
     "mesh": "--mesh is not ported yet (ROADMAP queue 1 item 4; one GPU for now)",
 }
 
@@ -30,10 +30,13 @@ def register_cli(sub, add_device_flag) -> None:
     p.add_argument("--num_samples", type=int, default=1)
     p.add_argument("--max_sequence_length", type=int, default=None)
     p.add_argument("--quantize", type=str, default=None, choices=["w8", "int8"],
-                   help="not ported yet")
-    p.add_argument("--staged", action="store_true", help="not ported yet")
+                   help="quantize the DiT as it loads: w8 = weight-only int8 (half "
+                        "the weight memory), int8 = W8A8")
+    p.add_argument("--staged", action="store_true",
+                   help="encode every prompt first, free the T5 and CLIP encoders, "
+                        "then load the DiT into the freed memory")
     p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                   help="not ported yet")
+                   help="not ported yet (one GPU)")
     p.add_argument("--from_case", type=int, default=0)
     p.add_argument("--till_case", type=int, default=1_000_000)
     p.set_defaults(func=_cmd)
@@ -50,18 +53,30 @@ def _cmd(args) -> int:
             raise SystemExit(why)
     pipe = FluxPipeline.from_pretrained(args.model_name,
                                         max_sequence_length=args.max_sequence_length,
+                                        staged=args.staged, quantize=args.quantize,
                                         device=resolve_device(args.device))
     if args.uce_model_path:
         pipe.load_uce_edits(args.uce_model_path)
     folder = uce_output_folder(args.save_path, args.uce_model_path)
     rows = case_window(read_prompts_csv(args.prompts_path), args.from_case,
                        args.till_case)
-    for row in rows:
-        images = pipe(row["prompt"], num_inference_steps=args.num_inference_steps,
-                      guidance_scale=args.guidance_scale,
-                      num_images_per_prompt=args.num_samples,
-                      seed=row["evaluation_seed"], height=args.image_size,
-                      width=args.image_size)
-        save_case_images(images, folder, row["case_number"])
+    kw = dict(num_inference_steps=args.num_inference_steps,
+              guidance_scale=args.guidance_scale, num_images_per_prompt=args.num_samples,
+              height=args.image_size, width=args.image_size)
+    if args.staged:
+        # phase 1: every row's embeddings, kept on the host while the DiT
+        # takes the card's memory
+        embeds = [tuple(t.cpu() for t in pipe.encode_prompts([row["prompt"]]
+                                                             * args.num_samples))
+                  for row in rows]
+        pipe.free_encoders()
+        for row, (t5_embeds, pooled) in zip(rows, embeds):
+            images = pipe.generate_from_embeddings(t5_embeds, pooled, n_prompts=1,
+                                                   seed=row["evaluation_seed"], **kw)
+            save_case_images(images, folder, row["case_number"])
+    else:
+        for row in rows:
+            images = pipe(row["prompt"], seed=row["evaluation_seed"], **kw)
+            save_case_images(images, folder, row["case_number"])
     print(f"generated {len(rows)} cases")
     return 0

@@ -5,16 +5,15 @@ guidance 5.0 and 128 text tokens, as trainscripts/uce_hidream_edit.py).
 
 ``--staged`` encodes every row first (the unconditional batch once), keeps
 the embeddings on the host, frees the encoders and then loads the DiT: the
-way HiDream-I1-Full fits one 80 GB card (52 GB of fp32 encoders, then 34 GB
-of bf16 DiT)."""
+way HiDream-I1-Full fits one 80 GB card in bf16 (52 GB of fp32 encoders,
+then 34 GB of DiT). ``--quantize w8|int8`` quantizes the DiT as it loads
+(about 17 GB in w8: the whole pipeline fits unstaged)."""
 
 from __future__ import annotations
 
 # The options of uce_tpu's generate-hidream that this port does not take
 # yet, each with the ROADMAP queue 1 item that holds it.
 NOT_PORTED = {
-    "quantize": "--quantize (the MoE DiT in w8/int8) is not ported yet (ROADMAP "
-                "queue 1 item 17)",
     "mesh": "--mesh is not ported yet (ROADMAP queue 1 item 4; one GPU for now)",
 }
 
@@ -36,12 +35,13 @@ def register_cli(sub, add_device_flag) -> None:
     p.add_argument("--num_samples", type=int, default=1)
     p.add_argument("--max_sequence_length", type=int, default=128)
     p.add_argument("--quantize", type=str, default=None, choices=["w8", "int8"],
-                   help="not ported yet")
+                   help="quantize the MoE DiT as it loads: w8 = weight-only int8 "
+                        "(half the weight memory), int8 = W8A8")
     p.add_argument("--staged", action="store_true",
                    help="encode every prompt with the four encoders first, free "
                         "them, then load the DiT into the freed memory")
     p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                   help="not ported yet")
+                   help="not ported yet (one GPU)")
     p.add_argument("--fast", type=str, default=None, metavar="SPEC",
                    help="CFG-interval window 'cfg_interval=lo:hi': the DiT runs the "
                         "cond rows alone outside it; cache=N is UNet-only and refused")
@@ -70,7 +70,7 @@ def _cmd(args) -> int:
     pipe = HiDreamPipeline.from_pretrained(
         args.model_name, llama_dir=args.llama_path,
         max_sequence_length=args.max_sequence_length, staged=args.staged,
-        device=resolve_device(args.device))
+        quantize=args.quantize, device=resolve_device(args.device))
     if args.uce_model_path:
         pipe.load_uce_edits(args.uce_model_path)
     folder = uce_output_folder(args.save_path, args.uce_model_path)

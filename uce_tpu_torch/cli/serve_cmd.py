@@ -1,10 +1,14 @@
 """``python -m uce_tpu_torch serve``: generation server over a Unix socket
-(uce_tpu/cli/serve_cmd.py for the SD and FLUX families).
+(uce_tpu/cli/serve_cmd.py).
 
-Loads an SDPipeline (``--family sd``) or a FluxPipeline (``--family flux``)
-once, quantizes an SD one (``--quantize int8|w8``), overlays a UCE edit,
-warms every batch size of the ladder, and serves JSON-line requests with
-dynamic batching (``uce_tpu_torch/serving/``). The reference has no
+Loads an SDPipeline (``--family sd``), a FluxPipeline (``--family flux``) or
+a HiDreamPipeline (``--family hidream``, its Llama from ``--llama_dir`` or
+the snapshot's ``text_encoder_4``) once, quantizes it (``--quantize
+int8|w8``: the SD UNet and VAE after the load; a DiT as it loads, since a
+full-size bf16 DiT may not fit beside its encoders, as HiDream-I1-Full's
+does not on one 80 GB card), overlays a UCE edit, warms every batch size of
+the ladder, and serves JSON-line requests with dynamic batching
+(``uce_tpu_torch/serving/``). The reference has no
 serving path: its eval scripts reload the pipeline per process
 (evalscripts/generate-images-sd.py:13-15).
 
@@ -30,19 +34,20 @@ def register_cli(sub, add_device_flag) -> None:
                    help="local HF snapshot directory")
     p.add_argument("--family", type=str, default="sd",
                    choices=["sd", "flux", "hidream"],
-                   help="pipeline family (sd and flux are ported)")
+                   help="pipeline family")
     p.add_argument("--llama_dir", type=str, default=None,
-                   help="Llama snapshot for --family hidream")
+                   help="Llama snapshot for --family hidream (default: "
+                        "<model_id>/text_encoder_4)")
     p.add_argument("--socket", type=str,
                    default=os.path.join(tempfile.gettempdir(), "uce.sock"))
     p.add_argument("--uce_model_path", type=str, default=None,
                    help="safetensors edit overlay to serve")
     p.add_argument("--quantize", type=str, default=None,
                    choices=["w8", "int8"],
-                   help="quantize the UNet and VAE weights: int8 = W8A8 "
-                        "(int8 products and the int8-QK^T attention kernel), "
-                        "w8 = weight-only int8 (half the weight memory); "
-                        "SD only")
+                   help="quantize the UNet and VAE (sd) or the DiT (flux, hidream; "
+                        "as it loads): int8 = W8A8 (int8 products; on the UNet "
+                        "also the int8-QK^T attention kernel), w8 = weight-only "
+                        "int8 (half the weight memory)")
     p.add_argument("--batch_size", type=int, default=4,
                    help="serving batch (requests pad into it)")
     p.add_argument("--batch_sizes", type=str, default=None,
@@ -87,22 +92,20 @@ def _cmd(args) -> int:
     from uce_tpu_torch.serving.server import GenerationServer, ServerConfig
     from uce_tpu_torch.serving.socket_api import SocketFrontend
 
-    if args.family == "hidream":
-        raise NotImplementedError(
-            "serve --family hidream is not ported yet: the server loads the pipeline "
-            "whole (unstaged), and HiDream-I1's 52 GB of fp32 encoders and 34 GB bf16 "
-            "DiT fit one 80 GB card only with --quantize w8 (ROADMAP queue 1 item 17)")
     if args.mesh:
         raise NotImplementedError("serve --mesh is not ported yet (ROADMAP "
-                                  "queue 1 item 5; one GPU for now)")
-    if args.family == "flux" and args.quantize:
-        raise NotImplementedError("serve --family flux --quantize is not ported "
-                                  "yet (ROADMAP queue 1 item 17)")
+                                  "queue 1 item 4; one GPU for now)")
     device = resolve_device(args.device)
     if args.family == "flux":
         from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline
 
-        pipe = FluxPipeline.from_pretrained(args.model_id, device=device)
+        pipe = FluxPipeline.from_pretrained(args.model_id, quantize=args.quantize,
+                                            device=device)
+    elif args.family == "hidream":
+        from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline
+
+        pipe = HiDreamPipeline.from_pretrained(args.model_id, llama_dir=args.llama_dir,
+                                               quantize=args.quantize, device=device)
     else:
         from uce_tpu_torch.diffusion.pipeline import SDPipeline
 

@@ -4,11 +4,20 @@
 2x2-packed latent patches with (0, y, x) RoPE ids, then the 16-channel VAE
 decode with ``shift_factor`` (schnell: 4 steps, guidance 0, 256 T5 tokens;
 dev: an embedded guidance scale and dynamic sigma shifting).
+
+``from_pretrained(quantize="w8"|"int8")`` quantizes the DiT as it loads,
+tensor by tensor on the device (``quantize.FLUX_SKIP``), so the bf16 DiT
+(23.7 GB at FLUX.1's widths, about 12 GB in int8) is never whole there.
+``staged=True`` defers the DiT: encode the prompts, ``free_encoders()``, and
+the DiT loads into the freed memory on the first ``generate_from_embeddings``
+call, with the edits and quantization asked for before it (the reference's
+three-phase load, ``uce_flux_edit.py:15-41``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 from typing import Sequence
 
@@ -20,8 +29,8 @@ from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import (default_max_sequence_length, load_t5_encoder,
                                      load_t5_tokenizer)
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
-from uce_tpu_torch.models import clip_text, flux as flux_mod, t5 as t5_mod
-from uce_tpu_torch.models import unet as unet_mod, vae as vae_mod
+from uce_tpu_torch.models import clip_text, flux as flux_mod, quantize as quantize_mod
+from uce_tpu_torch.models import t5 as t5_mod, unet as unet_mod, vae as vae_mod
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
 from uce_tpu_torch.utils import torch_rng
 
@@ -64,14 +73,48 @@ def compute_shift_mu(seq_len: int, base_seq=256, max_seq=4096,
     return seq_len * m + (base_shift - m * base_seq)
 
 
+def load_transformer(model_dir: str, dtype=torch.bfloat16, quantize: str | None = None,
+                     device="cuda"):
+    """(params, config) of the snapshot's DiT, read tensor by tensor straight
+    into ``dtype`` on ``device``; given ``quantize``, each eligible weight is
+    quantized as soon as it lands there (uce_tpu casts to ``dtype`` and then
+    quantizes the same values, host-side)."""
+    config = flux_mod.FluxConfig.from_hf(
+        load_json(os.path.join(model_dir, "transformer", "config.json")))
+    transform = (quantize_mod.quantizer(quantize_mod.FLUX_SKIP, quantize)
+                 if quantize else None)
+    params = load_state_dict(model_dir, "transformer", dtype=dtype, device=device,
+                             transform=transform)
+    return params, config
+
+
+def release_memory(device: torch.device, what: str, before: str | None) -> None:
+    """Collect the dropped tensors and hand the card's cached memory back,
+    printing the allocated bytes before and after (``what`` names the
+    step); a no-op off the card."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"{what}: {before} -> {cuda_allocated(device)} allocated on the card",
+              flush=True)
+
+
+def cuda_allocated(device: torch.device) -> str | None:
+    """The card's allocated bytes, for the staged loads' prints (None off
+    the card)."""
+    if device.type != "cuda":
+        return None
+    return f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB"
+
+
 @dataclasses.dataclass
 class FluxPipeline:
-    transformer_params: dict
+    transformer_params: dict | None
     transformer_config: flux_mod.FluxConfig
-    t5_params: dict
+    t5_params: dict | None
     t5_config: t5_mod.T5Config
     t5_tokenizer: object
-    clip_params: dict
+    clip_params: dict | None
     clip_config: clip_text.CLIPTextConfig
     clip_tokenizer: object
     vae_params: dict
@@ -80,18 +123,30 @@ class FluxPipeline:
     dtype: torch.dtype = torch.bfloat16
     max_sequence_length: int = 256
     device: torch.device = torch.device("cuda")
+    # staged loading: where the deferred DiT comes from, its quantization
+    # and the edits to overlay once it is loaded
+    model_dir: str | None = None
+    pending_quantize: str | None = None
+    pending_edits: list = dataclasses.field(default_factory=list)
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,
-                        max_sequence_length: int | None = None,
-                        device="cuda") -> "FluxPipeline":
+                        max_sequence_length: int | None = None, staged: bool = False,
+                        quantize: str | None = None, device="cuda") -> "FluxPipeline":
         """Load a FLUX snapshot directory. The DiT is read tensor by tensor
         straight into ``dtype`` on ``device`` (never a whole fp32 copy on the
-        host); the T5 and CLIP encoders run in fp32, as in uce_tpu."""
+        host) and, given ``quantize`` ("w8" or "int8"), quantized tensor by
+        tensor there; the T5 and CLIP encoders run in fp32, as in uce_tpu.
+        ``staged=True`` loads everything but the DiT, which waits for the
+        first generation call (after ``free_encoders()``)."""
+        if quantize is not None:
+            quantize_mod.check_mode(quantize)
         device = torch.device(device)
-        tcfg = flux_mod.FluxConfig.from_hf(
-            load_json(os.path.join(model_dir, "transformer", "config.json")))
-        tparams = load_state_dict(model_dir, "transformer", dtype=dtype, device=device)
+        if staged:
+            tparams, tcfg = None, flux_mod.FluxConfig.from_hf(
+                load_json(os.path.join(model_dir, "transformer", "config.json")))
+        else:
+            tparams, tcfg = load_transformer(model_dir, dtype, quantize, device)
         t5_params, t5_cfg = load_t5_encoder(model_dir, device=device)
         cparams, ccfg = load_text_encoder(model_dir, device=device)
         vcfg = vae_mod.VAEConfig.from_hf(
@@ -109,12 +164,45 @@ class FluxPipeline:
                    clip_tokenizer=load_tokenizer(model_dir),
                    vae_params=vparams, vae_config=vcfg, scheduler_config=scfg,
                    dtype=dtype, max_sequence_length=max_sequence_length,
-                   device=device)
+                   device=device, model_dir=model_dir, pending_quantize=quantize)
+
+    def free_encoders(self) -> None:
+        """Drop the T5 and CLIP encoders' weights and hand their memory back
+        to the card; after this only ``generate_from_embeddings`` works."""
+        before = cuda_allocated(self.device)
+        self.t5_params = self.clip_params = None
+        release_memory(self.device, "free_encoders", before)
+
+    def quantize_weights(self, mode: str = "w8") -> None:
+        """Quantize the DiT in place (``quantize.FLUX_SKIP``: the UCE edit
+        targets stay float, so edit overlays apply exactly in either order);
+        a staged pipeline quantizes the DiT as it loads. The encoders and the
+        VAE stay as they are."""
+        if self.transformer_params is None:
+            self.pending_quantize = quantize_mod.check_mode(mode)
+            return
+        self.transformer_params = quantize_mod.quantize_params(
+            self.transformer_params, quantize_mod.FLUX_SKIP, mode)
+
+    def _ensure_transformer(self) -> None:
+        if self.transformer_params is not None:
+            return
+        if self.model_dir is None:
+            raise RuntimeError("staged pipeline has no model_dir to load the DiT from")
+        self.transformer_params, self.transformer_config = load_transformer(
+            self.model_dir, self.dtype, self.pending_quantize, self.device)
+        for path in self.pending_edits:
+            self.load_uce_edits(path)
+        self.pending_edits = []
 
     def load_uce_edits(self, safetensors_path: str) -> None:
         """Overlay UCE-edited text-entry projections (uce_flux_edit.py's
         artifacts: context_embedder / text_embedder.linear_1); other keys are
-        skipped, a shape mismatch raises."""
+        skipped, a shape mismatch raises. A staged pipeline applies them when
+        the DiT loads."""
+        if self.transformer_params is None:
+            self.pending_edits.append(safetensors_path)
+            return
         for key, v in read_safetensors(safetensors_path).items():
             if key not in EDIT_SLOTS:
                 print(f"load_uce_edits: skipped unknown key {key}")
@@ -130,6 +218,9 @@ class FluxPipeline:
         """(T5 last hidden state [B, max_sequence_length, d], CLIP pooled
         [B, d']) in the pipeline's dtype. The T5 runs with no attention mask
         (pad tokens attend), as diffusers' FluxPipeline._get_t5_prompt_embeds."""
+        if self.t5_params is None or self.clip_params is None:
+            raise RuntimeError("encoders were freed (free_encoders); encode prompts "
+                               "before freeing, then use generate_from_embeddings")
         ids, _ = emb.tokenize_batch(self.t5_tokenizer, list(prompts),
                                     self.max_sequence_length)
         t5_out = t5_mod.encode_tokens(self.t5_params,
@@ -164,7 +255,9 @@ class FluxPipeline:
                                  seed: int | Sequence[int] = 0, height: int = 1024,
                                  width: int = 1024) -> np.ndarray:
         """Generate from precomputed (t5_embeds [B, S, d], pooled [B, d']),
-        whose rows are already expanded per sample."""
+        whose rows are already expanded per sample and may lie on the host
+        (the staged path: this loads the DiT on its first call)."""
+        self._ensure_transformer()
         bsz = t5_embeds.shape[0]
         if n_prompts is None:
             n_prompts = bsz // num_images_per_prompt

@@ -15,12 +15,14 @@ than one 80 GB card holds at once. ``from_pretrained(staged=True)`` defers
 the DiT: encode every prompt, ``free_encoders()``, then the DiT loads into
 the freed memory on the first ``generate_from_embeddings`` call (the
 reference's three-phase load, ``uce_hidream_edit.py:16-28, 51-64, 97-108``).
+``quantize="w8"|"int8"`` quantizes the DiT tensor by tensor as it loads
+(``quantize.HIDREAM_SKIP``): in w8 it takes about 17 GB, and the whole
+pipeline fits one 80 GB card unstaged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import gc
 import os
 import re
 from typing import Sequence
@@ -29,13 +31,15 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion import schedulers
-from uce_tpu_torch.diffusion.pipeline_flux import compute_shift_mu, make_img_ids
+from uce_tpu_torch.diffusion.pipeline_flux import (compute_shift_mu, cuda_allocated,
+                                                   make_img_ids, release_memory)
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import load_t5_encoder, load_t5_tokenizer
 from uce_tpu_torch.edit.hidream import (load_llama_encoder, load_llama_tokenizer,
                                         resolve_llama_dir)
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
 from uce_tpu_torch.models import clip_text, hidream as hd_mod, llama as llama_mod
+from uce_tpu_torch.models import quantize as quantize_mod
 from uce_tpu_torch.models import t5 as t5_mod, unet as unet_mod, vae as vae_mod
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
 from uce_tpu_torch.utils import torch_rng
@@ -62,18 +66,21 @@ def unpack_latents(packed: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.reshape(b, c, h, w)
 
 
-def load_transformer(model_dir: str, dtype=torch.bfloat16, device="cuda"):
+def load_transformer(model_dir: str, dtype=torch.bfloat16, device="cuda",
+                     quantize: str | None = None):
     """(params, config) of the snapshot's MoE DiT, read tensor by tensor
-    straight into ``dtype`` on ``device``."""
+    straight into ``dtype`` on ``device``; given ``quantize``, each eligible
+    weight is quantized as soon as it lands there (uce_tpu casts to
+    ``dtype`` and then quantizes the same values, host-side)."""
     config = hd_mod.HiDreamConfig.from_hf(
         load_json(os.path.join(model_dir, "transformer", "config.json")))
-    sd = load_state_dict(model_dir, "transformer", dtype=dtype, device=device)
+    transform = None
+    if quantize:
+        fn = quantize_mod.quantizer(quantize_mod.HIDREAM_SKIP, quantize)
+        transform = lambda key, t: fn(hd_mod.convert_key(key), t)  # noqa: E731
+    sd = load_state_dict(model_dir, "transformer", dtype=dtype, device=device,
+                         transform=transform)
     return hd_mod.convert_hf_state_dict(sd), config
-
-
-def cuda_allocated(device: torch.device) -> str:
-    """The card's allocated bytes, for the staged load's prints."""
-    return f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB"
 
 
 @dataclasses.dataclass
@@ -98,9 +105,10 @@ class HiDreamPipeline:
     dtype: torch.dtype = torch.bfloat16
     max_sequence_length: int = 128
     device: torch.device = torch.device("cuda")
-    # staged loading: where the deferred DiT comes from, and the edits to
-    # overlay once it is loaded
+    # staged loading: where the deferred DiT comes from, its quantization
+    # and the edits to overlay once it is loaded
     model_dir: str | None = None
+    pending_quantize: str | None = None
     pending_edits: list = dataclasses.field(default_factory=list)
 
     @classmethod
@@ -111,18 +119,17 @@ class HiDreamPipeline:
         """Load a HiDream snapshot (and a Llama-3.1 snapshot, by default its
         ``text_encoder_4``). ``staged=True`` loads everything but the DiT,
         which waits for the first generation call (after
-        ``free_encoders()``)."""
-        if quantize:
-            raise NotImplementedError(
-                f"HiDream --quantize {quantize} (the depth-stacked DiT quantization) "
-                "is not ported yet (ROADMAP queue 1 item 17)")
+        ``free_encoders()``); ``quantize`` ("w8" or "int8") quantizes the DiT
+        as it loads."""
+        if quantize is not None:
+            quantize_mod.check_mode(quantize)
         device = torch.device(device)
         llama_dir = resolve_llama_dir(model_dir, llama_dir)
         if staged:
             tparams, tcfg = None, hd_mod.HiDreamConfig.from_hf(
                 load_json(os.path.join(model_dir, "transformer", "config.json")))
         else:
-            tparams, tcfg = load_transformer(model_dir, dtype, device)
+            tparams, tcfg = load_transformer(model_dir, dtype, device, quantize)
         cparams, ccfg = load_text_encoder(model_dir, "text_encoder", device)
         cparams2, ccfg2 = load_text_encoder(model_dir, "text_encoder_2", device)
         t5params, t5cfg = load_t5_encoder(model_dir, device, "text_encoder_3")
@@ -145,26 +152,26 @@ class HiDreamPipeline:
             llama_params=lparams, llama_config=lcfg,
             llama_tokenizer=load_llama_tokenizer(tok4 if os.path.isdir(tok4) else llama_dir),
             vae_params=vparams, vae_config=vcfg, scheduler_config=scfg, dtype=dtype,
-            max_sequence_length=max_sequence_length, device=device, model_dir=model_dir)
+            max_sequence_length=max_sequence_length, device=device, model_dir=model_dir,
+            pending_quantize=quantize)
 
     def free_encoders(self) -> None:
         """Drop the four text encoders' weights (CLIP-L/G, T5, Llama) and hand
         their memory back to the card (``torch.cuda.empty_cache``); after
         this only ``generate_from_embeddings`` works."""
-        on_card = self.device.type == "cuda"
-        if on_card:
-            before = cuda_allocated(self.device)
+        before = cuda_allocated(self.device)
         self.clip_params = self.clip_params_2 = self.t5_params = self.llama_params = None
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-            print(f"free_encoders: {before} -> {cuda_allocated(self.device)} allocated "
-                  "on the card", flush=True)
+        release_memory(self.device, "free_encoders", before)
 
     def quantize_weights(self, mode: str = "w8") -> None:
-        raise NotImplementedError(
-            f"HiDream quantize_weights({mode!r}) (the depth-stacked DiT quantization) "
-            "is not ported yet (ROADMAP queue 1 item 17)")
+        """Quantize the MoE DiT in place (``quantize.HIDREAM_SKIP``: the
+        caption projections, the UCE edit targets, and the MoE router stay
+        float); a staged pipeline quantizes the DiT as it loads."""
+        if self.transformer_params is None:
+            self.pending_quantize = quantize_mod.check_mode(mode)
+            return
+        self.transformer_params = quantize_mod.quantize_params(
+            self.transformer_params, quantize_mod.HIDREAM_SKIP, mode)
 
     def apply_mesh(self, mesh) -> None:
         raise NotImplementedError("HiDream apply_mesh is not ported yet (ROADMAP queue 1 "
@@ -176,7 +183,7 @@ class HiDreamPipeline:
         if self.model_dir is None:
             raise RuntimeError("staged pipeline has no model_dir to load the DiT from")
         self.transformer_params, self.transformer_config = load_transformer(
-            self.model_dir, self.dtype, self.device)
+            self.model_dir, self.dtype, self.device, self.pending_quantize)
         for path in self.pending_edits:
             self.load_uce_edits(path)
         self.pending_edits = []

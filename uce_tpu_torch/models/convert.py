@@ -5,9 +5,10 @@ weights [in, out] (CLIP text, T5, Llama and the FLUX and HiDream blocks
 layer-stacked as [L, ...]); the port keeps
 diffusers/HF layouts (conv OIHW, linear [out, in]). Inputs are anything
 ``numpy.asarray`` accepts (numpy or jax arrays). A quantized leaf of
-uce_tpu (``{"qint8"|"w8int": int8, "scale": [1, ..., out]}``) becomes the
-port's quantized weight at the same key: its payload in the port's layout
-and its scale as ``[out]``.
+uce_tpu (``{"qint8"|"w8int": int8, "scale": [1, ..., out]}``; a stacked one
+``[L, (E,) in, out]`` with scales ``[L, (E,) 1, out]``) becomes the port's
+quantized weight at the same key, one per layer (and expert): its payload
+in the port's layout and its scale as ``[out]``.
 """
 
 from __future__ import annotations
@@ -60,6 +61,13 @@ def _convert(key: str, v):
             "scale": torch.tensor(np.asarray(v["scale"], np.float32).reshape(-1))}
 
 
+def _index(v, i):
+    """Layer (or expert) ``i`` of a stacked leaf, quantized or not."""
+    if _quant_kind(v) is not None:
+        return {k: np.asarray(a)[i] for k, a in v.items()}
+    return np.asarray(v)[i]
+
+
 def nested_to_state_dict(params: Mapping) -> dict:
     """uce_tpu nested UNet or VAE params -> flat diffusers state dict (with
     the port's quantized weights where uce_tpu has quantized leaves)."""
@@ -97,14 +105,12 @@ def flux_params(params: Mapping, config: FluxConfig) -> dict:
     out = {}
     for key, v in _flatten(params).items():
         family, _, rest = key.partition(".")
-        v = np.asarray(v, np.float32)
         if family in stacked:
-            assert v.shape[0] == stacked[family], key
             for i in range(stacked[family]):
                 name = f"{family}.{i}.{rest}"
-                out[name] = torch.tensor(_to_port_layout(name, v[i]))
+                out[name] = _convert(name, _index(v, i))
         else:
-            out[key] = torch.tensor(_to_port_layout(key, v))
+            out[key] = _convert(key, v)
     return out
 
 
@@ -139,36 +145,35 @@ def hidream_params(params: Mapping, config: HiDreamConfig) -> dict:
     routed experts as [L, E, in, out], the Llama caption projections as one
     [n, in, out] bank) -> the port's flat diffusers state dict. The MoE
     gate stays [E, D], as diffusers stores it."""
-    t = lambda name, a: torch.tensor(_to_port_layout(name, np.asarray(a, np.float32)))
     stacked = {"double_stream_blocks": config.num_layers,
                "single_stream_blocks": config.num_single_layers}
     out = {}
     for key, v in _flatten(params).items():
         family, _, rest = key.partition(".")
-        v = np.asarray(v, np.float32)
         if family == "caption_projection":
             if rest == "llama.weight":
-                for i in range(v.shape[0]):
-                    out[f"caption_projection.{i}.linear.weight"] = t("weight", v[i])
+                for i in range(np.asarray(v).shape[0]):
+                    out[f"caption_projection.{i}.linear.weight"] = _convert("weight",
+                                                                            _index(v, i))
             else:
                 n = config.num_caption_projections - 1
-                out[f"caption_projection.{n}.linear.weight"] = t("weight", v)
+                out[f"caption_projection.{n}.linear.weight"] = _convert("weight", v)
         elif family in stacked:
-            assert v.shape[0] == stacked[family], key
             for i in range(stacked[family]):
                 name = f"{family}.{i}.block.{rest}".replace(".ff_i.shared.",
                                                              ".ff_i.shared_experts.")
                 expert = re.fullmatch(r"(.*)\.experts\.(w[123])\.weight", name)
                 if expert:
-                    for e in range(v.shape[1]):
+                    layer = _index(v, i)
+                    for e in range(config.num_routed_experts):
                         out[f"{expert.group(1)}.experts.{e}.{expert.group(2)}.weight"] = \
-                            t("weight", v[i, e])
+                            _convert("weight", _index(layer, e))
                 elif name.endswith(".gate.weight"):
-                    out[name] = torch.tensor(v[i])
+                    out[name] = torch.tensor(np.asarray(v[i], np.float32))
                 else:
-                    out[name] = t(name, v[i])
+                    out[name] = _convert(name, _index(v, i))
         else:
-            out[key] = t(key, v)
+            out[key] = _convert(key, v)
     return out
 
 

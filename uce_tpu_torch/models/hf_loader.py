@@ -90,11 +90,14 @@ def load_state_dict(
     keys: Callable[[str], bool] | None = None,
     dtype: torch.dtype | None = None,
     device=None,
-) -> dict[str, torch.Tensor]:
+    transform: Callable[[str, torch.Tensor], object] | None = None,
+) -> dict[str, object]:
     """All tensors of a snapshot (sub)directory, optionally filtered, cast
     and placed: each tensor goes to ``device`` (and is cast there) as soon as
-    it is read, so no more than one tensor at a time is held on the host."""
-    out: dict[str, torch.Tensor] = {}
+    it is read, so no more than one tensor at a time is held on the host.
+    ``transform(key, tensor)``, given, replaces each cast tensor before the
+    next is read (a quantizing load never holds the whole float model)."""
+    out: dict[str, object] = {}
     # a tensor bound for another device is copied there at once, so one
     # buffer serves every read
     reuse = device is not None and torch.device(device).type != "cpu"
@@ -102,7 +105,8 @@ def load_state_dict(
         for k, t in iter_safetensors_file(path, keys, reuse=reuse):
             if device is not None:
                 t = t.to(device)
-            out[k] = t.to(dtype) if dtype is not None else t
+            t = t.to(dtype) if dtype is not None else t
+            out[k] = transform(k, t) if transform is not None else t
     return out
 
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from uce_tpu_torch.models.flux import _heads, _ln, _unheads, apply_rope, rope_freqs
 from uce_tpu_torch.models.layers import linear, timestep_embedding
+from uce_tpu_torch.ops import quant
 from uce_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -118,8 +119,19 @@ def _lin(p, name, x):
     return linear(x, p[name + ".weight"], p.get(name + ".bias"))
 
 
-def _swiglu(p, name, x):
-    return _lin(p, name + ".w2", F.silu(_lin(p, name + ".w1", x)) * _lin(p, name + ".w3", x))
+def _expert_lin(p, name, x):
+    """A routed expert's projection. Its int8 weight, W8A8 or weight-only,
+    is cast to the activation dtype and the scale applied to the output (the
+    storage-only arithmetic of uce_tpu's ``_expert_mm``): routed experts
+    never take the int8 x int8 product."""
+    w = p[name + ".weight"]
+    if quant.is_quantized(w):
+        w = {quant.WKEY: w[quant.QKEY], "scale": w["scale"]}
+    return linear(x, w)
+
+
+def _swiglu(p, name, x, lin=_lin):
+    return lin(p, name + ".w2", F.silu(lin(p, name + ".w1", x)) * lin(p, name + ".w3", x))
 
 
 def moe_gate(p, name, x, num_activated: int):
@@ -133,11 +145,14 @@ def moe_gate(p, name, x, num_activated: int):
 
 def _moe(p, name, x, cfg: HiDreamConfig):
     """Dense routed MoE + shared expert: every expert on every token, its
-    output weighted by the gate (zero for the experts not in the top-k)."""
+    output weighted by the gate (zero for the experts not in the top-k). The
+    shared expert's projections dispatch as any other linear; the routed
+    experts' take ``_expert_lin``."""
     gate_w = moe_gate(p, name, x, cfg.num_activated_experts).to(x.dtype)
     routed = None
     for e in range(cfg.num_routed_experts):
-        y = (_swiglu(p, f"{name}.experts.{e}", x) * gate_w[..., e:e + 1]).float()
+        y = (_swiglu(p, f"{name}.experts.{e}", x, _expert_lin)
+             * gate_w[..., e:e + 1]).float()
         routed = y if routed is None else routed + y
     return routed.to(x.dtype) + _swiglu(p, name + ".shared_experts", x)
 
@@ -302,18 +317,20 @@ def state_dict_shapes(config: HiDreamConfig) -> dict[str, tuple]:
     return shapes
 
 
+def convert_key(key: str) -> str:
+    """A diffusers HiDream key -> its key in ``state_dict_shapes``: blocks
+    without the ``HiDreamBlock`` wrapper get their ``.block`` back, and
+    ``to_out.0`` / ``to_out_t.0`` (the ModuleList form) become the bare
+    Linear's keys, as uce_tpu's converter accepts both."""
+    key = re.sub(r"^(double_stream_blocks|single_stream_blocks)\.(\d+)\.(?!block\.)",
+                 r"\1.\2.block.", key)
+    return re.sub(r"\.(to_out(?:_t)?)\.0\.", r".\1.", key)
+
+
 def convert_hf_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """A diffusers HiDream state dict -> params in ``state_dict_shapes``'
-    keys (the tensors themselves are not copied): blocks without the
-    ``HiDreamBlock`` wrapper get their ``.block`` back, and ``to_out.0`` /
-    ``to_out_t.0`` (the ModuleList form) become the bare Linear's keys, as
-    uce_tpu's converter accepts both."""
-    out = {}
-    for key, v in state_dict.items():
-        key = re.sub(r"^(double_stream_blocks|single_stream_blocks)\.(\d+)\.(?!block\.)",
-                     r"\1.\2.block.", key)
-        out[re.sub(r"\.(to_out(?:_t)?)\.0\.", r".\1.", key)] = v
-    return out
+    keys (``convert_key``; the tensors themselves are not copied)."""
+    return {convert_key(key): v for key, v in state_dict.items()}
 
 
 def init_state_dict(config: HiDreamConfig, seed: int = 0, scale: float = 0.02,

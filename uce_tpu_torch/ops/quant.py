@@ -50,12 +50,18 @@ def concat_weights(ws):
     return torch.cat(ws)
 
 
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127 rounded as an IEEE division on every device (CUDA's divide
+    by a Python number multiplies by its reciprocal, which rounds otherwise
+    and would move the scales and payloads off uce_tpu's)."""
+    return amax.clamp_min(1e-12) / torch.full_like(amax, 127.0)
+
+
 def quantize_weight(w: torch.Tensor, weight_only: bool = False) -> dict:
     """Symmetric per-output-channel int8 quantization of a float weight whose
     dim 0 is the output channel."""
     w = w.float()
-    amax = w.abs().amax(dim=tuple(range(1, w.ndim)))
-    scale = amax.clamp_min(1e-12) / 127.0
+    scale = _scale(w.abs().amax(dim=tuple(range(1, w.ndim))))
     q = torch.clamp(torch.round(w / scale.view(-1, *(1,) * (w.ndim - 1))),
                     -127, 127).to(torch.int8)
     return {WKEY if weight_only else QKEY: q, "scale": scale}
@@ -64,7 +70,7 @@ def quantize_weight(w: torch.Tensor, weight_only: bool = False) -> dict:
 def _quant_act(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric int8 quantization of activations over ``dims``."""
     x32 = x.float()
-    scale = x32.abs().amax(dim=dims, keepdim=True).clamp_min(1e-12) / 127.0
+    scale = _scale(x32.abs().amax(dim=dims, keepdim=True))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -105,8 +105,10 @@ class GenerationServer:
     ``pipe`` is any pipeline called with (prompt list, seed list,
     num_inference_steps, guidance_scale, num_images_per_prompt, height,
     width) that returns uint8 [N, H, W, 3]: SDPipeline, which also takes
-    scheduler, negative_prompt and fast, or FluxPipeline, which takes none of
-    them (the server adapts to the call's signature).
+    scheduler, negative_prompt and fast; HiDreamPipeline, which takes
+    negative_prompt and fast (a CFG window only: the pipeline raises on a
+    cache interval, at warm-up or in a batch, as in uce_tpu); or FluxPipeline, which takes none of them (the
+    server adapts to the call's signature).
     """
 
     def __init__(self, pipe, config: ServerConfig = ServerConfig()):
