@@ -58,8 +58,8 @@ each phase's seconds and the total are printed):
      launches;
   9. ``serve --quantize int8`` with the edit overlay through the CLI: a
      Poisson load through the batch ladder 1,2,4 (JSON report, launches),
-     then the socket server in a subprocess (three concurrent requests,
-     stats, shutdown; PNG checks);
+     then the socket server in a subprocess at 10 steps (three concurrent
+     requests, stats, shutdown; PNG checks);
  10. img/s on the library path, the kernel path and the int8 pipeline;
  11. SD 2.1 and then SDXL, each: a seeded random-weight snapshot at full
      width (SDXL with both text encoders, its tokenizer_2 padding with "!");
@@ -76,8 +76,9 @@ each phase's seconds and the total are printed):
      ``--scheduler lms`` run on the kernel path): PNGs and launches; SDXL
      ``serve --quantize int8`` (8 steps, ladder 1,2, 3 requests);
  15. fast mode (CFG window + DeepCache): SD 1.4 ``generate --fast`` on both
-     paths, a no-op spec and a CFG window over every call (cache 1) equal to
-     the exact images bit for bit, bench.py's ``cfg_interval=3:25,cache=2``
+     paths, on the kernel path a no-op spec and a CFG window over every call
+     (cache 1) equal to the exact images bit for bit, bench.py's
+     ``cfg_interval=3:25,cache=2``
      with finite decodes, its distance from the exact images, and launches
      from the segments (full and shallow forwards); img/s fast against exact
      on both paths; SDXL at 1024^2 with ``cfg_interval=1:40,cache=2``
@@ -123,7 +124,8 @@ each phase's seconds and the total are printed):
      folder against itself within 1e-6, seconds per image; the drawn
      YOLOv8-n weights as they are, printed beside; ``eval-compare`` (a
      grid per complete case, each panel its source) and ``info`` in a new
-     process (rc 0, the card, six libraries built); no kernel launched;
+     process (rc 0, the card, six libraries built); the six new processes
+     run at once, beside the in-process work; no kernel launched;
  19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
      CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
      on the card (~33.8 GB, its bytes and seconds printed; the host's free
@@ -162,8 +164,20 @@ each phase's seconds and the total are printed):
      requests at 2 steps). FLUX's snapshot and HiDream's DiT
      keep their weight files in host memory (``write_weights``): the card's
      machine allows a run 45 GiB of disk writes, less than the two snapshots.
+The mesh (``parallel/``; its plan printed after the build: the GPU count,
+the backend and the device list; two or more cards give one rank each over
+NCCL, one card two ranks sharing it over gloo, a correctness run, not a
+scaling number), inside 3, 19 and 20: SD 1.4's generate of 8 images at 50
+steps at data=2 against one device (mean |diff| bound, max printed, img/s
+of both), a UNet forward at UNet batch 16 at model=2 in bf16 and W8A8
+against one rank, ``serve --mesh data=2`` (8 steps, 4 requests); FLUX's and
+HiDream's DiTs at full width, depth cut to 2 + 4 and 2 + 2 blocks, at
+model=2 against one rank (wall ms of both), and ``generate-flux`` /
+``generate-hidream --staged --mesh model=2`` on those cut snapshots (the
+full snapshots' encoders) writing one image each; every mesh run's
+launches checked per rank and summed into the kernels' record.
 The last two lines are the kernels' JSON record (launches summed over the
-main paths' runs) and the device record.
+main paths' runs on every rank) and the device record.
 """
 
 from __future__ import annotations
@@ -175,6 +189,7 @@ import copy
 import csv
 import dataclasses
 import functools
+import gc
 import io
 import json
 import logging
@@ -195,7 +210,8 @@ import torch.nn.functional as F
 from uce_tpu_torch.cli.main import main as cli_main
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline, make_img_ids, pack_latents
-from uce_tpu_torch.diffusion import guidance, pipeline_flux, pipeline_hidream, sampler
+from uce_tpu_torch.diffusion import guidance, pipeline, pipeline_flux, pipeline_hidream
+from uce_tpu_torch.diffusion import sampler
 from uce_tpu_torch.diffusion.pipeline_hidream import HiDreamPipeline, cfg_embeddings
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.diffusion.schedulers import plan_from_hf, plan_from_hf_as, pndm_plan
@@ -211,6 +227,7 @@ from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd
 from uce_tpu_torch.ops import attention, quant
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
+from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.serving import socket_api
 from uce_tpu_torch.utils.imaging import decode_png, encode_png, load_image
 from uce_tpu_torch.utils.prompts import resolve_edit_request
@@ -319,7 +336,11 @@ ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
               (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512),
               (1, 24, 4352, 4352, 128), (1, 24, 1280, 1280, 128),
-              (2, 20, 4480, 4480, 128)] + [
+              (2, 20, 4480, 4480, 128),
+              # the mesh's model=2 shards: SD 1.4's heads at batch 8 under
+              # CFG, FLUX's and HiDream's joint attentions
+              (16, 4, 4096, 4096, 40), (16, 4, 1024, 1024, 80),
+              (1, 12, 4352, 4352, 128), (2, 10, 4480, 4480, 128)] + [
     # the baselines' UNet batches: SLD's 3, concept algebra's 5 and 10;
     # concept algebra's decode of 2 images
     (b, 8, s, s, d) for b in (3, 5, 10) for s, d in ((4096, 40), (1024, 80))] + [
@@ -327,16 +348,18 @@ ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
 ATTN_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 64, 64, 160),
               (2, 2, 256, 77, 40), (1, 2, 512, 77, 160), (2, 1, 200, 200, 512),
               (2, 2, 200, 200, 64)]
-# (shape NHWC, groups, eps, act); the last two cases are the UNet's 64x64
-# level at batch 8, which plan streams.
+# (shape NHWC, groups, eps, act); the last case and the mesh's first slice
+# row are the UNet's 64x64 level at batch 8, which plan streams.
 GN_SLICE = [((4, 64, 64, 320), 32, 1e-5, "silu"), ((1, 512, 512, 128), 32, 1e-6, "silu"),
             ((2, 128, 128, 320), 32, 1e-5, "silu"), ((1, 1024, 1024, 128), 32, 1e-6, "silu")
-            ] + [((b, 64, 64, 320), 32, 1e-5, "silu") for b in (3, 5, 10)]  # baselines
+            ] + [((b, 64, 64, 320), 32, 1e-5, "silu") for b in (3, 5, 10)] + [
+    # the mesh's data=2 slices of 8 images: UNet batch 8, a decode of 4
+    ((8, 64, 64, 320), 32, 1e-5, "silu"), ((4, 512, 512, 128), 32, 1e-6, "silu")]
 GN_CASES = [((4, 32, 32, 1920), 32, 1e-5, "silu"), ((4, 8, 8, 2560), 32, 1e-5, "silu"),
             ((4, 64, 64, 320), 32, 1e-6, "none"), ((1, 512, 512, 256), 32, 1e-6, "silu"),
             ((2, 8, 8, 64), 8, 1e-5, "none"), ((3, 4, 4, 320), 32, 1e-5, "silu"),
             ((1, 16, 16, 128), 32, 1e-5, "none"), ((1, 24, 24, 64), 8, 1e-5, "none"),
-            ((8, 64, 64, 320), 32, 1e-5, "silu"), ((8, 64, 64, 960), 32, 1e-5, "silu")]
+            ((8, 64, 64, 960), 32, 1e-5, "silu")]
 # (shape NHWC, cout): the UNet's 64x64 level at batch 4, one shape per UNet
 # level at batch 8 (the 8x8 one splits K), the VAE's 512x512 level; then
 # SDXL's 128x128 UNet level, SD 2.1's 96x96 and 12x12 ones at UNet batch 2,
@@ -348,7 +371,8 @@ CONV_SLICE = [((4, 64, 64, 320), 320), ((8, 64, 64, 320), 320),
               ((2, 128, 128, 320), 320), ((2, 96, 96, 320), 320),
               ((2, 12, 12, 1280), 1280), ((1, 1024, 1024, 128), 128),
               ((1, 128, 128, 16), 512)] + [
-    ((b, 64, 64, 320), 320) for b in (3, 5, 10)] + [((5, 8, 8, 2560), 1280)]  # baselines
+    ((b, 64, 64, 320), 320) for b in (3, 5, 10)] + [((5, 8, 8, 2560), 1280)] + [  # baselines
+    ((4, 512, 512, 128), 128)]  # the mesh's decode of a data slice of 4 images
 CONV_CASES = [((4, 64, 64, 4), 320), ((4, 64, 64, 320), 4), ((4, 32, 32, 1920), 640),
               ((4, 8, 8, 2560), 1280), ((1, 64, 64, 4), 512), ((1, 128, 128, 512), 512),
               ((1, 512, 512, 128), 3), ((2, 8, 8, 12), 20), ((1, 6, 6, 4), 20),
@@ -364,7 +388,9 @@ SOLVE_CASES = [(4, 3, 256), (16, 0, 256), (100, 0, 768)]
 # and one q tile, then the serving ladder's lower rungs (UNet batch 2 and 4).
 QK8_SLICE = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
              (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64),
-             (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64)]
+             (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
+             # W8A8 at the mesh's model=2: SD 1.4's heads at batch 8 under CFG
+             (16, 4, 4096, 4096, 40), (16, 4, 1024, 1024, 80)]
 QK8_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 200, 200, 40),
              (1, 2, 64, 64, 80), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80)]
@@ -378,6 +404,7 @@ KERNEL_MODULES = {"sd_attention": sdk, "group_norm_act": gnk, "conv3x3": convk,
 BUILDS = {"sd_attention": sdk.build, "sd_attention_d512": sdk.build_d512,
           "sd_attention_qk8": sdk.build_qk8, "group_norm": gnk.build,
           "conv3x3": convk.build, "uce_solve": solvek.build}
+SOCKET_STEPS = 10
 SERVE_PROMPTS = ["a painting by kelly mckernan", "a photo of a dog",
                  "a house in the style of rembrandt"]
 # diffusers' scheduler_config.json of each model.
@@ -979,7 +1006,7 @@ def phase_qk8(gen, rows: dict) -> None:
                                  2.0 * b * h * sq * d + b * h * skv * d
                                  + 4.0 * b * h * skv + 2.0 * b * h * skv * d
                                  + 2.0 * b * h * sq * d)
-            if (sq, d) == (4096, 40):
+            if (b, h, sq, d) == (8, 8, 4096, 40):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                            bound_ms=bound_ms, bound_by=by)
             loop_kernel = loop_ms(lambda: sdk.sd_attention_qk8(q, ki, ks, v, scale))
@@ -1754,7 +1781,8 @@ def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
 
 
 def phase_socket(snap: str, edit_path: str) -> None:
-    """The socket server in a subprocess: three concurrent requests (two
+    """The socket server in a subprocess at SOCKET_STEPS steps (the socket
+    API is under test, not the denoise): three concurrent requests (two
     saved to files, one base64), stats, shutdown."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
@@ -1772,7 +1800,8 @@ def phase_socket(snap: str, edit_path: str) -> None:
             [sys.executable, "-m", "uce_tpu_torch", "serve", "--model_id", snap,
              "--quantize", "int8", "--uce_model_path", edit_path, "--socket",
              "uce.sock", "--batch_size", "4", "--max_wait_ms", "1000",
-             "--device", "cuda"], cwd=WORK, env=env, stdout=log,
+             "--num_inference_steps", str(SOCKET_STEPS), "--device", "cuda"],
+            cwd=WORK, env=env, stdout=log,
             stderr=subprocess.STDOUT)
     try:
         deadline = time.monotonic() + 600
@@ -1808,7 +1837,8 @@ def phase_socket(snap: str, edit_path: str) -> None:
         raise AssertionError("socket server: images for different seeds are equal")
     if stats["requests"] != 3:
         raise AssertionError(f"socket server stats: {stats}")
-    print(f"[serve] socket server (subprocess, --quantize int8, batch 4): 3 "
+    print(f"[serve] socket server (subprocess, --quantize int8, batch 4, "
+          f"{SOCKET_STEPS} steps): 3 "
           f"concurrent requests -> 3 distinct 512x512x3 PNGs (2 files, 1 base64); "
           f"stats batches {stats['batches']}, occupancy {stats['occupancy']:.3f}, "
           f"batch seconds {stats['total_batch_seconds']:.2f}; shutdown, exit 0; "
@@ -2481,16 +2511,26 @@ def write_dreamsim_weights(path: str) -> None:
     save_safetensors(tensors, path, metadata=meta)
 
 
-def fresh_cli(args: list) -> float:
-    """One command on the card in a new process (torch's default precision
-    settings, not this script's); its seconds."""
-    start = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "uce_tpu_torch", *args], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"{args[0]} in a new process: rc {proc.returncode}\n"
-                             f"{proc.stderr[-3000:]}")
-    return time.perf_counter() - start
+def start_fresh(args: list, log: str) -> tuple:
+    """Start one command on the card in a new process (torch's default
+    precision settings, not this script's), its output to ``log``; the new
+    processes of the eval suite run at once, beside its in-process work."""
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "uce_tpu_torch", *args], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT, text=True)
+    return args, log, proc, time.perf_counter()
+
+
+def finish_fresh(started: tuple) -> tuple[float, str]:
+    """Wait for a ``start_fresh`` command: (its seconds, its output)."""
+    args, log, proc, start = started
+    rc = proc.wait(timeout=600)
+    seconds = time.perf_counter() - start
+    with open(log) as f:
+        out = f.read()
+    if rc != 0:
+        raise AssertionError(f"{args[0]} in a new process: rc {rc}\n{out[-3000:]}")
+    return seconds, out
 
 
 def host_seconds(fn, reps: int = 3) -> float:
@@ -2579,17 +2619,21 @@ def phase_nudenet(folders: dict, csv_path: str, root: str) -> None:
 
     header = read_table(csv_path)[0] + ["NudeNet_label"]
     mismatches = []
-    for key, samples in (("sld", 1), ("ca", 1), ("ca2", 2), ("dvl", 1)):
-        args = ["--image_folder", folders[key], "--prompts_path", csv_path, "--weights",
-                weights, "--num_samples", str(samples)]
+    runs = {key: ["--image_folder", folders[key], "--prompts_path", csv_path, "--weights",
+                  weights, "--num_samples", str(samples)]
+            for key, samples in (("sld", 1), ("ca", 1), ("ca2", 2), ("dvl", 1))}
+    fresh = {key: start_fresh(["eval-nudenet", *args, "--save_path",
+                               os.path.join(root, f"nudenet_{key}_fresh.csv")],
+                              os.path.join(root, f"nudenet_{key}_fresh.log"))
+             for key, args in runs.items()}
+    for key, args in runs.items():
         tables, secs = {}, {}
         for dev_key, device in EVAL_DEVICES:
             save = os.path.join(root, f"nudenet_{key}_{dev_key}.csv")
             _, secs[dev_key] = eval_cli("eval-nudenet", [*args, "--save_path", save], device)
             tables[dev_key] = read_table(save)
-        save = os.path.join(root, f"nudenet_{key}_fresh.csv")
-        secs["fresh"] = fresh_cli(["eval-nudenet", *args, "--save_path", save])
-        tables["fresh"] = read_table(save)
+        secs["fresh"] = finish_fresh(fresh[key])[0]
+        tables["fresh"] = read_table(os.path.join(root, f"nudenet_{key}_fresh.csv"))
         if tables["card"][0] != header:
             raise AssertionError(f"eval-nudenet: columns {tables['card'][0]}, want {header}")
         mismatches += [(key, other) for other in ("host", "fresh")
@@ -2598,29 +2642,34 @@ def phase_nudenet(folders: dict, csv_path: str, root: str) -> None:
         print(f"[eval] eval-nudenet {key}: {len(found)} rows, the card's CSV "
               f"{'equal' if not mismatches else 'UNEQUAL'} to the CPU's and the new "
               f"process's; card {secs['card']:.2f} s, CPU {secs['host']:.2f} s, new process "
-              f"{secs['fresh']:.2f} s (CLI wall); labels {[r[-1] for r in tables['card'][1:]]}",
+              f"{secs['fresh']:.2f} s (CLI wall, the new processes at once); labels "
+              f"{[r[-1] for r in tables['card'][1:]]}",
               flush=True)
     if mismatches:
         raise AssertionError(f"eval-nudenet: the card's CSV differs from {mismatches}")
 
 
-def phase_dreamsim(original: str, edited: str, csv_path: str, root: str) -> None:
+def dreamsim_args(original: str, edited: str, csv_path: str, root: str) -> list:
+    return ["--original_path", original, "--edited_path", edited, "--weights",
+            os.path.join(root, "dreamsim_ensemble.safetensors"), "--prompts_path", csv_path]
+
+
+def phase_dreamsim(original: str, edited: str, csv_path: str, root: str,
+                   started: tuple) -> None:
     """eval-dreamsim, original against edited, on the card, on the CPU and in
-    a new process on the card, within EVAL_REL; a folder against itself at
-    most DREAMSIM_SELF_MAX; seconds per image pair, card against CPU."""
-    weights = os.path.join(root, "dreamsim_ensemble.safetensors")
-    write_dreamsim_weights(weights)
+    a new process on the card (``started`` by the suite), within
+    EVAL_REL; a folder against itself at most DREAMSIM_SELF_MAX; seconds per
+    image pair, card against CPU."""
+    args = dreamsim_args(original, edited, csv_path, root)
+    weights = args[args.index("--weights") + 1]
     header = read_table(csv_path)[0] + ["dream_loss"]
-    args = ["--original_path", original, "--edited_path", edited, "--weights", weights,
-            "--prompts_path", csv_path]
     tables, secs = {}, {}
     for key, device in EVAL_DEVICES:
         save = os.path.join(root, f"dreamsim_{key}.csv")
         _, secs[key] = eval_cli("eval-dreamsim", [*args, "--save_path", save], device)
         tables[key] = read_table(save)
-    save = os.path.join(root, "dreamsim_fresh.csv")
-    secs["fresh"] = fresh_cli(["eval-dreamsim", *args, "--save_path", save])
-    tables["fresh"] = read_table(save)
+    secs["fresh"] = finish_fresh(started)[0]
+    tables["fresh"] = read_table(os.path.join(root, "dreamsim_fresh.csv"))
     if tables["card"][0] != header:
         raise AssertionError(f"eval-dreamsim: columns {tables['card'][0]}, want {header}")
     worst = hold_card_to_cpu("eval-dreamsim", tables["card"][1:], tables["host"][1:], header)
@@ -2653,10 +2702,11 @@ def phase_dreamsim(original: str, edited: str, csv_path: str, root: str) -> None
           f"{timings['host'] / len(pairs) * 1e3:.1f} ms", flush=True)
 
 
-def phase_compare_info(original: str, folders: dict, root: str) -> None:
+def phase_compare_info(original: str, folders: dict, root: str, info: tuple) -> None:
     """eval-compare over the folders: a grid per case complete in every
-    folder, each panel its source image; ``info`` in a new process: rc 0, the
-    card named, every library built for the current sources."""
+    folder, each panel its source image; ``info`` in a new process (started
+    by the suite): rc 0, the card named, every library built for the current
+    sources."""
     columns = [original, folders["sld"], folders["ca"], folders["dvl"]]
     out = os.path.join(root, "grids")
     buf = io.StringIO()
@@ -2676,17 +2726,15 @@ def phase_compare_info(original: str, folders: dict, root: str) -> None:
         if grid.shape != (h, w * len(columns), 3) or any(
                 not np.array_equal(grid[:, i * w:(i + 1) * w], p) for i, p in enumerate(panels)):
             raise AssertionError(f"eval-compare {c}.png: panels differ from their sources")
-    proc = subprocess.run([sys.executable, "-m", "uce_tpu_torch", "info"], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+    _, stdout = finish_fresh(info)
     name = torch.cuda.get_device_name(0)
-    built = proc.stdout.count(": built ")
-    if proc.returncode != 0 or name not in proc.stdout or built != len(BUILDS):
-        raise AssertionError(f"info: rc {proc.returncode}, {built} libraries built\n"
-                             f"{proc.stdout}{proc.stderr[-2000:]}")
+    built = stdout.count(": built ")
+    if name not in stdout or built != len(BUILDS):
+        raise AssertionError(f"info: {built} libraries built\n{stdout[-3000:]}")
     print(f"[eval] eval-compare: {len(cases)} grids of {len(columns)} columns, each panel "
           f"its source image; info: rc 0, names {name}, {built} libraries built for the "
           f"current sources", flush=True)
-    print("\n".join(f"[info] {line}" for line in proc.stdout.splitlines()), flush=True)
+    print("\n".join(f"[info] {line}" for line in stdout.splitlines()), flush=True)
 
 
 def phase_eval_suite(original: str, folders: dict, csv_path: str) -> None:
@@ -2694,11 +2742,17 @@ def phase_eval_suite(original: str, folders: dict, csv_path: str) -> None:
     folders; no kernel launch (fp32 convs and T=197 attention)."""
     root = os.path.join(WORK, "eval_suite")
     os.makedirs(root, exist_ok=True)
+    write_dreamsim_weights(os.path.join(root, "dreamsim_ensemble.safetensors"))
     with kernel_env(False):
+        # the new processes first: they run beside the in-process work
+        dream = start_fresh(["eval-dreamsim", *dreamsim_args(
+            original, folders["sld"], csv_path, root), "--save_path",
+            os.path.join(root, "dreamsim_fresh.csv")], os.path.join(root, "dreamsim.log"))
+        info = start_fresh(["info"], os.path.join(root, "info.log"))
         reset_launches()
         phase_nudenet(folders, csv_path, root)
-        phase_dreamsim(original, folders["sld"], csv_path, root)
-        phase_compare_info(original, folders, root)
+        phase_dreamsim(original, folders["sld"], csv_path, root, dream)
+        phase_compare_info(original, folders, root, info)
         launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"the eval suite launched kernels: {launches}")
@@ -2802,9 +2856,11 @@ def run_sd14(rows: dict, seconds: dict) -> None:
         add_launches(rows, phase_generate(snap, edit_path, "kernels", rows, SD14, cases))
     calls = plan_from_hf(SD14.scheduler, 50).num_calls
     with timed("SD 1.4 generate --fast", seconds):
-        for path in ("library", "kernels"):
-            phase_fast(snap, edit_path, path, rows, SD14, cases,
-                       ("cache=1", f"cfg_interval=0:{calls},cache=1", FAST_SPEC))
+        # the fast schedule's identities (a no-op spec, a CFG window over
+        # every call) on the kernel path; the library path runs the spec
+        phase_fast(snap, edit_path, "library", rows, SD14, cases, (FAST_SPEC,))
+        phase_fast(snap, edit_path, "kernels", rows, SD14, cases,
+                   ("cache=1", f"cfg_interval=0:{calls},cache=1", FAST_SPEC))
     with timed("SD 1.4 W8A8", seconds):
         phase_quant_unet(pipe)
         phase_quant_vae(pipe)
@@ -2824,6 +2880,10 @@ def run_sd14(rows: dict, seconds: dict) -> None:
             phase_fast_rate(pipe, path)
     del pipe
     torch.cuda.empty_cache()
+    with timed("mesh: SD 1.4 data and model parallel", seconds):
+        phase_mesh_sd(snap, edit_path, rows)
+    with timed("mesh: SD 1.4 serve --mesh data=2", seconds):
+        phase_mesh_serve(snap, edit_path, rows)
     clip_snap = os.path.join(WORK, "clip_random")
     with timed("SD 1.4 debias-sd", seconds):
         write_clip_snapshot(clip_snap)
@@ -3446,6 +3506,8 @@ def run_flux(rows: dict, seconds: dict) -> None:
             add_launches(rows, phase_flux_serve(snap, edit_path))
         with timed("FLUX serve --quantize w8", seconds):
             add_launches(rows, phase_flux_serve(snap, edit_path, "w8"))
+        with timed("mesh: FLUX model=2", seconds):
+            phase_mesh_flux(snap, rows, fds)
     finally:
         shutil.rmtree(snap, ignore_errors=True)
         close_files(fds)
@@ -3956,11 +4018,417 @@ def run_hidream(rows: dict, seconds: dict) -> None:
                   flush=True)
         with timed("HiDream serve --quantize w8", seconds):
             add_launches(rows, phase_hidream_serve(snap, edit_path))
+        with timed("mesh: HiDream model=2", seconds):
+            phase_mesh_hidream(snap, rows, fds)
     finally:
         shutil.rmtree(snap, ignore_errors=True)
         close_files(fds)
         torch.cuda.empty_cache()
         print(f"[host] snapshot closed; {host_memory()}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the mesh (parallel/): the port's ranks are processes (workers.py); with two
+# or more cards each rank has its own over NCCL, on a one-card machine two
+# ranks share it over gloo: a correctness run, not a scaling number
+# ---------------------------------------------------------------------------
+
+MESH_PROMPTS = ["a painting by kelly mckernan", "a photo of a dog", "a house by rembrandt",
+                "a cat on a sofa", "a city at night", "a portrait of a woman",
+                "a red car", "a mountain lake"]
+MESH_SEEDS = list(range(1, 9))
+# A bf16 forward split over two model ranks against the single-rank forward:
+# each row-parallel partial product rounds to bf16 before the sum, about an
+# ulp (2^-8) per projection; held under the paths' bound.
+MESH_TP_REL_MAX = 5e-2
+# HiDream's random-weight MoE re-routes its top-k on such an ulp (PR 14: one
+# latent ulp moves its forward 5.5e-2), so its DiT at model=2 has a wider
+# bound
+MESH_MOE_REL_MAX = 1e-1
+# generate at data=2: each rank denoises 4 of the 8 images, and the kernels
+# and GEMMs plan by batch (the conv's K splits, GroupNorm's schedule), so
+# sums order differently and 50 steps carry it (a last-bit change moves a
+# 50-step image about 2 levels); a gross-fault bound on the mean |diff| of
+# the 8 images (another image is some 40 levels away), the max printed.
+MESH_DP_MEAN_MAX = 4.0
+# FLUX.1-schnell and HiDream-I1-Full at full width, depth cut to keep the
+# run in its time limit (the encoders are the full snapshots')
+MESH_FLUX = dataclasses.replace(flux.SCHNELL_CONFIG, num_layers=2, num_single_layers=4)
+MESH_HIDREAM = dataclasses.replace(hidream.I1_FULL_CONFIG, num_layers=2,
+                                   num_single_layers=2, llama_layers=(0, 1, 2, 3))
+MESH_SERVE_STEPS = 8
+
+
+def mesh_devices() -> list:
+    """The cards the mesh phases' ranks run on: min(4, count) cards, one rank
+    each (NCCL), when two or more are visible; else two ranks on cuda:0
+    (gloo)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(min(4, n))]
+    return [torch.device("cuda", 0)] * 2
+
+
+def mesh_of(n_data: int, n_model: int) -> mesh_mod.Mesh:
+    os.makedirs(WORK, exist_ok=True)
+    return mesh_mod.make_mesh(n_data, n_model, devices=mesh_devices()[:n_data * n_model],
+                              store_dir=WORK)
+
+
+def print_mesh_plan() -> None:
+    devices = mesh_devices()
+    print(f"[mesh] {torch.cuda.device_count()} GPU(s) visible; the mesh phases' ranks on "
+          f"{', '.join(map(str, devices))} over {mesh_mod.backend_for(devices)} "
+          f"({'one card per rank' if len(set(devices)) > 1 else 'two ranks sharing one card: correctness, not scaling'}); "
+          f"card {card()}", flush=True)
+
+
+@contextlib.contextmanager
+def cli_mesh_devices():
+    """The CLIs' ``--mesh`` takes every visible card (``mesh.visible_devices``);
+    on a one-card machine two ranks must share it, which only an explicit
+    device list asks for: give the CLIs two ranks of this run's list."""
+    saved = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda kind="cuda", count=1: (
+        mesh_devices()[:2] if torch.device(kind).type == "cuda" else saved(kind, count))
+    try:
+        yield
+    finally:
+        mesh_mod.visible_devices = saved
+
+
+def worker_launches() -> dict:
+    """The running mesh's workers' launches, summed, in ``read_launches``'
+    keys."""
+    w = workers.worker_counts()
+    by_dim = w.get(("sd_attention", "launches_by_dim"), {})
+    get = lambda mod, attr: w.get((mod, attr), 0)
+    return {"sd_attention": get("sd_attention", "launches"),
+            "group_norm_act": get("group_norm", "launches"),
+            "conv3x3": get("conv3x3", "launches"), "uce_solve": get("uce_solve", "launches"),
+            "sd_attention_d512": by_dim.get(512, 0), "sd_attention_d128": by_dim.get(128, 0),
+            "sd_attention_qk8": get("sd_attention", "launches_qk8"),
+            "sd_attention_d512_merge": get("sd_attention", "launches_merge"),
+            "conv3x3_wgmma": get("conv3x3", "launches_wgmma"),
+            "conv3x3_mma": get("conv3x3", "launches_mma"),
+            "conv3x3_reduce": get("conv3x3", "launches_reduce")}
+
+
+def mesh_reset() -> None:
+    reset_launches()
+    workers.worker_counts(reset=True)
+
+
+@contextlib.contextmanager
+def launches_at_stop(store: dict):
+    """Keep the workers' launches in ``store`` as a CLI stops its mesh."""
+    stop = workers.stop
+
+    def reading_stop():
+        if workers.session() is not None:
+            store.update(worker_launches(), workers=workers.session().mesh.size - 1)
+        stop()
+
+    workers.stop = reading_stop
+    try:
+        yield
+    finally:
+        workers.stop = stop
+
+
+def per_rank(what: str, own: dict, theirs: dict, want: dict, rows: dict,
+             n_workers: int = 1) -> None:
+    """Print the controller's launches and the workers' (summed over
+    ``n_workers``), require ``want`` of every rank, and add all of them to
+    the kernels' rows."""
+    got = {k: (own[k], theirs[k]) for k in want}
+    wrong = {k: v for k, v in got.items() if v != (want[k], n_workers * want[k])}
+    print(f"[mesh] {what}: launches (rank 0, the {n_workers} other rank(s)) {got}",
+          flush=True)
+    if wrong:
+        raise AssertionError(f"{what}: launches (rank 0, the other ranks) {wrong}, want "
+                             f"{ {k: want[k] for k in wrong} } a rank")
+    add_launches(rows, {k: own[k] + theirs[k] for k in own})
+
+
+def wall_ms(fn, reps: int = 3) -> tuple[object, float]:
+    """(result, median wall ms) of ``fn`` over ``reps`` calls after one."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return out, float(np.median(times))
+
+
+def phase_mesh_sd(snap: str, edit_path: str, rows: dict) -> None:
+    """SD 1.4 at 512^2 on the kernel path: generate (8 prompts, 50 PNDM
+    steps, CFG 7.5, the edit overlay) at data=2 against the single-device
+    images; a UNet forward at UNet batch 16 at model=2 against the
+    single-rank one, in bf16 and in W8A8; launches per rank."""
+    pipe = SDPipeline.from_pretrained(snap, dtype=torch.bfloat16, device="cuda")
+    pipe.load_uce_edits(edit_path)
+    kw = dict(num_inference_steps=50, seed=MESH_SEEDS, height=512, width=512)
+    calls = plan_from_hf(SD14.scheduler, 50).num_calls
+    n_data = len(mesh_devices())
+    with kernel_env():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        single = pipe(MESH_PROMPTS, **kw)
+        one_s = time.perf_counter() - start
+        pipe.apply_mesh(mesh_of(n_data, 1))
+        try:
+            pipe(MESH_PROMPTS[:2], **dict(kw, num_inference_steps=2, seed=MESH_SEEDS[:2]))
+            mesh_reset()
+            start = time.perf_counter()
+            meshed = pipe(MESH_PROMPTS, **kw)
+            two_s = time.perf_counter() - start
+            own, theirs = read_launches(), worker_launches()
+        finally:
+            pipe.apply_mesh(None)
+    check_images(f"SD 1.4 generate at data={n_data}", meshed, 512)
+    diff = np.abs(meshed.astype(int) - single.astype(int))
+    print(f"[mesh] SD 1.4 generate, 8 prompts x 50 PNDM steps at 512^2, kernel path: "
+          f"data=1 {one_s:.3f} s ({8 / one_s:.4f} img/s), data={n_data} {two_s:.3f} s "
+          f"({8 / two_s:.4f} img/s) on {pipe_mesh_note(n_data, 1)}; data={n_data} vs "
+          f"data=1 mean |diff| {diff.mean():.4f} uint8 levels, max {int(diff.max())}",
+          flush=True)
+    if diff.mean() > MESH_DP_MEAN_MAX:
+        raise AssertionError(f"generate at data={n_data}: mean |diff| {diff.mean():.3f} "
+                             f"uint8 levels from data=1 (bound {MESH_DP_MEAN_MAX})")
+    # a rank: its images' UNet batch through each of the plan's calls, one decode
+    per_rank(f"SD 1.4 generate at data={n_data} ({calls} UNet calls + 1 decode a rank)",
+             own, theirs, {k: calls * UNET_LAUNCHES[k] + VAE_LAUNCHES[k]
+                           for k in ("conv3x3", "group_norm_act", "sd_attention")}, rows,
+             n_data - 1)
+
+    x, context, _ = unet_inputs(pipe, SD14, MESH_PROMPTS)
+    batch = {"sample": x, "timesteps": torch.full((x.shape[0],), 500.0, device="cuda"),
+             "context": context}
+    spec = {"unet_config": pipe.unet_config}
+    qpipe = copy.copy(pipe)
+    qpipe.quantize_weights("int8")
+    with kernel_env(), torch.inference_mode():
+        single, one_ms = wall_ms(lambda: pipeline.denoiser_forward(
+            {"unet": pipe.unet_params}, spec, batch), 1)
+        qsingle, q_one_ms = wall_ms(lambda: pipeline.denoiser_forward(
+            {"unet": qpipe.unet_params}, spec, batch), 1)
+        del qpipe
+        pipe.apply_mesh(mesh_of(1, 2))
+        try:
+            sharded = {k: (v, None) for k, v in batch.items()}
+            run = lambda: workers.run(pipeline.denoiser_forward, spec, sharded,
+                                      {"unet": pipe.unet_params})[0]
+            mesh_reset()
+            got, two_ms = wall_ms(run, 1)
+            own, theirs = read_launches(), worker_launches()
+            pipe.quantize_weights("int8")  # the ranks take the W8A8 UNet
+            mesh_reset()
+            qgot, q_two_ms = wall_ms(run, 1)
+            qown, qtheirs = read_launches(), worker_launches()
+        finally:
+            pipe.apply_mesh(None)
+    # W8A8's bound is the gross one of its other checks: its row-parallel
+    # products are exact (tests/test_torch_parallel.py holds the payloads
+    # bit for bit), but one ulp elsewhere re-rounds every int8 layer after it
+    for what, a, b, ms1, ms2, o, t, want, bound in (
+            ("bf16", got, single, one_ms, two_ms, own, theirs, UNET_LAUNCHES,
+             MESH_TP_REL_MAX),
+            ("W8A8", qgot, qsingle, q_one_ms, q_two_ms, qown, qtheirs, UNET_LAUNCHES_INT8,
+             INT8_VS_BF16_REL_L2)):
+        rel = rel_l2(a, b.cpu())
+        print(f"[mesh] SD 1.4 UNet forward at UNet batch {x.shape[0]}, {what}, model=2 "
+              f"(4 of 8 heads a rank) vs model=1: rel L2 {rel:.3e} (bound {bound}); wall "
+              f"{ms2:.2f} ms vs {ms1:.2f} ms (the second call) on {pipe_mesh_note(1, 2)}",
+              flush=True)
+        if not rel <= bound:
+            raise AssertionError(f"UNet {what} at model=2: rel L2 {rel:.3e}")
+        # 2 forwards: the first and the timed one
+        per_rank(f"SD 1.4 UNet {what} forward at model=2, x2", o, t,
+                 {k: 2 * v for k, v in want.items()}, rows)
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def pipe_mesh_note(n_data: int, n_model: int) -> str:
+    devices = mesh_devices()[:n_data * n_model]
+    return (f"{len(set(devices))} GPU(s), {mesh_mod.backend_for(devices)}, "
+            f"{card()}")
+
+
+def phase_mesh_serve(snap: str, edit_path: str, rows: dict) -> None:
+    """``serve --mesh data=2`` through the CLI with the edit overlay: the
+    ladder 1,2, 4 Poisson requests at 8 steps, each batch split over the
+    data groups; the JSON report and the launches per rank."""
+    out, store = io.StringIO(), {}
+    with kernel_env(), cli_mesh_devices(), launches_at_stop(store), \
+            contextlib.redirect_stdout(out):
+        reset_launches()
+        rc = cli_main(["serve", "--model_id", snap, "--uce_model_path", edit_path,
+                       "--mesh", "data=2", "--bench", "2", "--bench_requests", "4",
+                       "--batch_sizes", "1,2", "--num_inference_steps",
+                       str(MESH_SERVE_STEPS), "--device", "cuda"])
+        own = read_launches()
+    text = out.getvalue()
+    reports = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    if rc != 0 or len(reports) != 1 or reports[0]["n_requests"] != 4:
+        raise AssertionError(f"serve --mesh data=2: rc {rc}, output {text[-2000:]}")
+    print(f"[mesh] serve --mesh data=2 ({MESH_SERVE_STEPS} steps, ladder 1,2, 4 requests at "
+          f"2/s) on {pipe_mesh_note(2, 1)}: {json.dumps(reports[0])}", flush=True)
+    store.pop("workers")
+    for k in ("conv3x3", "group_norm_act", "sd_attention"):
+        if not own[k] or not store.get(k):
+            raise AssertionError(f"serve --mesh: {k} launched {own[k]} / {store.get(k)} "
+                                 "times on rank 0 / rank 1")
+    print(f"[mesh] serve --mesh data=2: launches rank 0 {own}, rank 1 {store}", flush=True)
+    add_launches(rows, {k: own[k] + store[k] for k in own})
+
+
+def write_cut_snapshot(full: str, root: str, config, params: dict, fds: list) -> None:
+    """A snapshot sharing ``full``'s encoders, tokenizers, VAE and scheduler
+    (links) with a depth-cut DiT of ``config`` and ``params`` (held in host
+    memory, ``write_weights``)."""
+    os.makedirs(os.path.join(root, "transformer"))
+    for name in os.listdir(full):
+        if name != "transformer":
+            os.symlink(os.path.join(full, name), os.path.join(root, name))
+    with open(os.path.join(root, "transformer", "config.json"), "w") as f:
+        json.dump(config.to_hf(), f)
+    write_weights(params, os.path.join(root, "transformer",
+                                       "diffusion_pytorch_model.safetensors"), fds)
+
+
+def mesh_dit_forward(what: str, family: str, module, config, params: dict, spec: dict,
+                     batch: dict, rows: dict, per_forward: int,
+                     bound: float = MESH_TP_REL_MAX) -> None:
+    """A DiT forward at model=2 against the single-rank one (rel L2, wall ms
+    of each, d=128 launches per rank); rank 0's whole params are freed as
+    their shards go out."""
+    spec = {"dit_config": config, **spec}
+    with kernel_env(), torch.inference_mode():
+        single, one_ms = wall_ms(lambda: module.denoiser_forward({"dit": params}, spec, batch))
+        free_card(what)
+        workers.start(mesh_of(1, 2))
+        try:
+            items, params = workers.drain(params), None
+            local = workers.send_params("dit", items, mesh_mod.layout_fn(
+                family, config, 2))
+            torch.cuda.empty_cache()
+            sharded = {k: (v, None) for k, v in batch.items()}
+            run = lambda: workers.run(module.denoiser_forward, spec, sharded,
+                                      {"dit": local})[0]
+            run()
+            mesh_reset()
+            got, two_ms = wall_ms(run)
+            own, theirs = read_launches(), worker_launches()
+        finally:
+            workers.stop()
+    rel = rel_l2(got, single.cpu())
+    depth = (config.num_layers, config.num_single_layers)
+    print(f"[mesh] {what} DiT forward at full width, depth {depth[0]} + {depth[1]} blocks "
+          f"(of {module_depth(family)}), model=2 ({config.num_attention_heads // 2} heads a "
+          f"rank) vs model=1: rel L2 {rel:.3e} (bound {bound}); wall "
+          f"{two_ms:.2f} ms vs {one_ms:.2f} ms (median of 3) on {pipe_mesh_note(1, 2)}",
+          flush=True)
+    if not rel <= bound:
+        raise AssertionError(f"{what} DiT at model=2: rel L2 {rel:.3e}")
+    per_rank(f"{what} DiT forward at model=2, x4", own, theirs,
+             {"sd_attention_d128": 4 * per_forward}, rows)
+
+
+def free_card(what: str) -> None:
+    """Collect dropped pipelines and print the card's memory before a mesh
+    starts: a rank that shares the card needs room for its context."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] {what}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card before the "
+          "mesh starts", flush=True)
+
+
+def module_depth(family: str) -> str:
+    cfg = flux.SCHNELL_CONFIG if family == "flux" else hidream.I1_FULL_CONFIG
+    return f"{cfg.num_layers} + {cfg.num_single_layers}"
+
+
+def mesh_dit_cli(what: str, command: str, cut: str, rows: dict, extra: list,
+                 per_forward: int, forwards: int) -> None:
+    """``generate-flux|generate-hidream --staged --mesh model=2`` through the
+    CLI on a depth-cut snapshot: one PNG, d=128 launches per rank."""
+    csv_path = os.path.join(WORK, f"prompts_mesh_{command}.csv")
+    with open(csv_path, "w", newline="") as f:
+        csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
+                                 [0, FLUX_PROMPT, 1]])
+    out_dir, store = os.path.join(WORK, f"images_mesh_{command}"), {}
+    with kernel_env(), cli_mesh_devices(), launches_at_stop(store):
+        reset_launches()
+        start = time.perf_counter()
+        rc = cli_main([command, "--model_name", cut, "--prompts_path", csv_path,
+                       "--save_path", out_dir, "--image_size", str(FLUX.size), "--staged",
+                       "--mesh", "model=2", "--device", "cuda", *extra])
+        seconds = time.perf_counter() - start
+        own = read_launches()
+    if rc != 0:
+        raise AssertionError(f"{command} --staged --mesh model=2: rc {rc}")
+    image = read_case_images(os.path.join(out_dir, "original"), [[0, None, None]])[0]
+    check_images(f"{command} --staged --mesh model=2", [image])
+    print(f"[mesh] {what} {command} --staged --mesh model=2 on the depth-cut snapshot: 1 PNG "
+          f"1024x1024x3 uint8 in {seconds:.2f} s (CLI wall, loads included) on "
+          f"{pipe_mesh_note(1, 2)}", flush=True)
+    n_workers = store.pop("workers")
+    per_rank(f"{what} {command} --mesh model=2 ({forwards} DiT forwards)", own, store,
+             {"sd_attention_d128": forwards * per_forward}, rows, n_workers)
+
+
+def phase_mesh_flux(snap: str, rows: dict, fds: list) -> None:
+    free_card("FLUX.1-schnell")
+    cfg = MESH_FLUX
+    params = flux.init_state_dict(cfg, seed=SEED + 7, device="cuda")
+    cut = os.path.join(WORK, "flux_cut")
+    write_cut_snapshot(snap, cut, cfg, params, fds)
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    s_txt, lat = 256, FLUX.latent
+    batch = {"latents": torch.randn(1, (lat // 2) ** 2, cfg.in_channels, generator=gen,
+                                    device="cuda").bfloat16(),
+             "t5": torch.randn(1, s_txt, cfg.joint_attention_dim, generator=gen,
+                               device="cuda").bfloat16(),
+             "pooled": torch.randn(1, cfg.pooled_projection_dim, generator=gen,
+                                   device="cuda").bfloat16(),
+             "timesteps": torch.full((1,), 0.5, device="cuda")}
+    per_forward = cfg.num_layers + cfg.num_single_layers
+    mesh_dit_forward("FLUX.1-schnell", "flux", pipeline_flux, cfg, params,
+                     {"img_ids": make_img_ids(lat, lat), "txt_ids": np.zeros((s_txt, 3))},
+                     batch, rows, per_forward)
+    del params
+    torch.cuda.empty_cache()
+    mesh_dit_cli("FLUX.1-schnell", "generate-flux", cut, rows, [], per_forward, FLUX_STEPS)
+
+
+def phase_mesh_hidream(snap: str, rows: dict, fds: list) -> None:
+    free_card("HiDream-I1-Full")
+    cfg = MESH_HIDREAM
+    params = hidream.init_state_dict(cfg, seed=SEED + 7, device="cuda")
+    cut = os.path.join(WORK, "hidream_cut")
+    write_cut_snapshot(snap, cut, cfg, params, fds)
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    lat, s_txt = FLUX.latent, 128
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    batch = {"latents": rnd(2, (lat // 2) ** 2, cfg.in_channels * 4),
+             "t5": rnd(2, s_txt, cfg.caption_channels[0]),
+             "llama": rnd(len(cfg.llama_layers), 2, s_txt, cfg.caption_channels[1]),
+             "pooled": rnd(2, cfg.text_emb_dim),
+             "timesteps": torch.full((2,), 1000.0, device="cuda")}
+    per_forward = cfg.num_layers + cfg.num_single_layers
+    mesh_dit_forward("HiDream-I1-Full", "hidream", pipeline_hidream, cfg, params,
+                     {"img_ids": make_img_ids(lat, lat)}, batch, rows, per_forward,
+                     MESH_MOE_REL_MAX)
+    del params
+    torch.cuda.empty_cache()
+    mesh_dit_cli("HiDream-I1-Full", "generate-hidream", cut, rows,
+                 ["--num_inference_steps", str(HIDREAM_STEPS)], per_forward, HIDREAM_STEPS)
 
 
 def main() -> int:
@@ -3989,6 +4457,7 @@ def main() -> int:
     start = time.perf_counter()
     with timed("build", seconds):
         phase_build()
+    print_mesh_plan()
     with timed("kernels", seconds):
         phase_kernels(rows)
 

@@ -16,12 +16,10 @@ from uce_tpu.cli.main import build_parser as uce_parser
 from uce_tpu_torch.cli.main import build_parser as port_parser
 
 # (subcommand, flag) of uce that the port does not take, each for a reason
-# written in ROADMAP.md §3 (known divergences) or queue 1
-NOT_TAKEN = {
-    # generate's sharded paths (ROADMAP queue 1 item 4); the other commands
-    # parse --mesh and reject it with NotImplementedError
-    ("generate", "--mesh"), ("generate", "--data_parallel"),
-}
+# written in ROADMAP.md §3 (known divergences) or queue 1: none. (debias-sd
+# parses --mesh and rejects it with NotImplementedError, ROADMAP queue 1
+# item 4.)
+NOT_TAKEN = set()
 
 
 def _subcommands(parser: argparse.ArgumentParser) -> dict[str, argparse.ArgumentParser]:
@@ -56,12 +54,13 @@ def test_not_taken_list_is_current():
 
 @pytest.mark.parametrize("command", sorted(UCE))
 def test_only_mesh_options_are_not_ported(command):
-    """Every flag the port takes runs: only the mesh flags (one GPU, ROADMAP
-    queue 1 item 4) say they are not ported; --quantize and --staged of the
-    DiT commands and serve's families run."""
+    """Every flag the port takes runs: only debias-sd's --mesh (ROADMAP queue
+    1 item 4) says it is not ported; the --mesh of generate, generate-flux,
+    generate-hidream and serve, --quantize and --staged of the DiT commands
+    and serve's families run."""
     for action in PORT[command]._actions:
         if "not ported" in (action.help or ""):
-            assert action.option_strings == ["--mesh"], (command, action.option_strings)
+            assert (command, action.option_strings) == ("debias-sd", ["--mesh"])
     choices = {a.dest: a.choices for a in PORT[command]._actions}
     if command == "serve":
         assert choices["family"] == ["sd", "flux", "hidream"]
@@ -69,14 +68,15 @@ def test_only_mesh_options_are_not_ported(command):
 
 
 def test_dit_commands_take_quantize_and_staged():
-    from uce_tpu_torch.cli import flux_gen_cmd, hidream_gen_cmd
-
-    assert set(flux_gen_cmd.NOT_PORTED) == set(hidream_gen_cmd.NOT_PORTED) == {"mesh"}
     parser = port_parser()
     for command in ("generate-flux", "generate-hidream"):
         args = parser.parse_args([command, "--model_name", "m", "--prompts_path", "p",
-                                  "--save_path", "s", "--quantize", "int8", "--staged"])
-        assert args.quantize == "int8" and args.staged
+                                  "--save_path", "s", "--quantize", "int8", "--staged",
+                                  "--mesh", "model=2"])
+        assert args.quantize == "int8" and args.staged and args.mesh == "model=2"
+    args = parser.parse_args(["generate", "--model_id", "m", "--prompts_path", "p",
+                              "--data_parallel", "--mesh", "data=2"])
+    assert args.data_parallel and args.mesh == "data=2"
 
 
 @pytest.mark.parametrize("command", ["eval-nudenet", "eval-dreamsim"])

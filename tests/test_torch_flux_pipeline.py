@@ -288,5 +288,9 @@ def test_generate_flux_cli(flux_snap, edit_path, tmp_path):
     for num in range(2):
         img = decode_png((tmp_path / "q" / "edit" / f"1_{num}.png").read_bytes())
         np.testing.assert_array_equal(img, want[num])
-    with pytest.raises(SystemExit, match="item 4"):
-        main(base + ["--mesh", "data=2"])
+    assert main(base + ["--till_case", "1", "--num_samples", "2", "--mesh", "data=2",
+                        "--save_path", str(tmp_path / "mesh")]) == 0
+    for name in sorted(os.listdir(folder)):
+        np.testing.assert_array_equal(
+            decode_png((tmp_path / "mesh" / "edit" / name).read_bytes()),
+            decode_png((folder / name).read_bytes()))

@@ -315,15 +315,25 @@ def test_serve_cli_bench_mode_with_ladder(snap, capsys):
     assert rep["batches"] >= 2  # rung 2 can't swallow 3 requests at once
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--family", "flux", "--mesh", "data=2"], "item 4"),
-    (["--mesh", "data=2"], "not ported"),
-])
-def test_serve_cli_rejects_what_is_not_ported(snap, argv, match):
+@pytest.mark.parametrize("argv,shape", [
+    (["--quantize", "int8", "--mesh", "data=2"], "2x1"),
+    (["--mesh", "model=2"], "1x2"),
+], ids=["int8-data2", "model2"])
+def test_serve_cli_rejects_what_is_not_ported(snap, argv, shape, capsys):
+    """``serve --mesh`` (ported: two spawned CPU ranks, W8A8 at data=2, the
+    tensor-parallel UNet at model=2) through the CLI's --bench mode: one
+    JSON report, all requests served, the mesh stopped at the end."""
     from uce_tpu_torch.cli.main import main as cli_main
+    from uce_tpu_torch.parallel import workers
 
-    with pytest.raises(NotImplementedError, match=match):
-        cli_main(["serve", "--model_id", snap, "--device", "cpu", *argv])
+    rc = cli_main(["serve", "--model_id", snap, "--bench", "5", "--bench_requests", "3",
+                   "--batch_sizes", "1,2", "--image_size", "32", "--num_inference_steps",
+                   "2", "--max_wait_ms", "30", "--device", "cpu", *argv])
+    assert rc == 0 and workers.session() is None
+    out = capsys.readouterr().out
+    reports = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    assert len(reports) == 1 and reports[0]["n_requests"] == 3
+    assert f"mesh: {shape} (data x model)" in out
 
 
 def test_serve_cli_bench_mode_fast(snap, capsys):

@@ -38,7 +38,7 @@ def register_cli(sub, add_device_flag) -> None:
     p.add_argument("--telemetry_path", type=str, default=None,
                    help="CSV to record per-iteration observed/ratio values")
     p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                   help="multi-device mesh (not ported: one GPU)")
+                   help="multi-device mesh (not ported yet: ROADMAP queue 1 item 4)")
     p.add_argument("--fast", type=str, default=None, metavar="SPEC",
                    help="beyond-protocol fast path for the measurement "
                         "generations, e.g. 'cfg_interval=3:25,cache=2' (the "
@@ -61,7 +61,10 @@ def _cmd(args) -> int:
     from uce_tpu_torch.utils.prompts import parse_concepts
 
     if args.mesh:
-        raise NotImplementedError("debias-sd --mesh is not ported (one GPU)")
+        raise NotImplementedError(
+            "debias-sd --mesh is not ported yet (ROADMAP queue 1 item 4: the debias "
+            "loop overlays new K/V weights every iteration, which every rank would "
+            "need again)")
     edit_concepts = parse_concepts(args.edit_concepts)
     debias_concepts = parse_concepts(args.debias_concepts)
     preserve_concepts = (parse_concepts(args.preserve_concepts)

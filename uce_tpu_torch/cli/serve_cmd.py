@@ -6,7 +6,9 @@ a HiDreamPipeline (``--family hidream``, its Llama from ``--llama_dir`` or
 the snapshot's ``text_encoder_4``) once, quantizes it (``--quantize
 int8|w8``: the SD UNet and VAE after the load; a DiT as it loads, since a
 full-size bf16 DiT may not fit beside its encoders, as HiDream-I1-Full's
-does not on one 80 GB card), overlays a UCE edit, warms every batch size of
+does not on one 80 GB card), overlays a UCE edit, lays it out on a mesh of
+processes (``--mesh data=N[,model=M]``: each batch's denoise and decode are
+sharded, the encoders and the queue stay here), warms every batch size of
 the ladder, and serves JSON-line requests with dynamic batching
 (``uce_tpu_torch/serving/``). The reference has no
 serving path: its eval scripts reload the pipeline per process
@@ -82,19 +84,17 @@ def register_cli(sub, add_device_flag) -> None:
     p.add_argument("--bench_requests", type=int, default=24,
                    help="requests per --bench rate")
     p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                   help="multi-device mesh (not ported yet)")
+                   help="multi-device mesh 'data=N[,model=M]': each batch over N data "
+                        "groups, the denoiser tensor-parallel over M devices (one "
+                        "process per rank)")
     add_device_flag(p)
     p.set_defaults(func=_cmd)
 
 
 def _cmd(args) -> int:
     from uce_tpu_torch.cli.main import resolve_device
-    from uce_tpu_torch.serving.server import GenerationServer, ServerConfig
-    from uce_tpu_torch.serving.socket_api import SocketFrontend
+    from uce_tpu_torch.parallel.mesh import mesh_from_spec
 
-    if args.mesh:
-        raise NotImplementedError("serve --mesh is not ported yet (ROADMAP "
-                                  "queue 1 item 4; one GPU for now)")
     device = resolve_device(args.device)
     if args.family == "flux":
         from uce_tpu_torch.diffusion.pipeline_flux import FluxPipeline
@@ -114,6 +114,18 @@ def _cmd(args) -> int:
             pipe.quantize_weights(args.quantize)
     if args.uce_model_path:
         pipe.load_uce_edits(args.uce_model_path)
+    if args.mesh:
+        pipe.apply_mesh(mesh_from_spec(args.mesh, devices=device))
+    try:
+        return _serve(pipe, args)
+    finally:
+        pipe.apply_mesh(None)
+
+
+def _serve(pipe, args) -> int:
+    from uce_tpu_torch.serving.server import GenerationServer, ServerConfig
+    from uce_tpu_torch.serving.socket_api import SocketFrontend
+
     batch_sizes = tuple(
         int(s) for s in args.batch_sizes.split(",") if s.strip()
     ) if args.batch_sizes else ()

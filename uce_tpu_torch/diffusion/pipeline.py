@@ -1,10 +1,18 @@
 """Text-to-image pipeline for SD v1.x / v2.x and SDXL (two text encoders):
 tokenize -> CLIP encode -> guided scheduler loop over the UNet (CFG, or a
 comparison baseline's guidance: ``diffusion/guidance.py``) -> VAE decode ->
-uint8 images."""
+uint8 images.
+
+``apply_mesh`` runs the denoise and the decode on a mesh of processes
+(``parallel/workers.py``), as uce_tpu's sharded generate call: the image
+batch is split over the data axis and the UNet laid out tensor-parallel
+over the model axis; the encoders, the latents' draw and the plan stay on
+the calling process.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Sequence
@@ -17,7 +25,9 @@ from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
 from uce_tpu_torch.models import clip_text, quantize, unet as unet_mod, vae as vae_mod
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
+from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils import torch_rng
+from uce_tpu_torch.utils.imaging import save_png
 
 
 @dataclasses.dataclass
@@ -36,6 +46,8 @@ class SDPipeline:
     text_params_2: dict | None = None
     text_config_2: clip_text.CLIPTextConfig | None = None
     tokenizer_2: object | None = None
+    # the mesh of apply_mesh (None: this process alone)
+    mesh: mesh_mod.Mesh | None = None
 
     @property
     def is_sdxl(self) -> bool:
@@ -72,19 +84,60 @@ class SDPipeline:
     def load_uce_edits(self, safetensors_path: str) -> None:
         """Overlay UCE-edited weights (load_state_dict(strict=False)); an
         edit of a quantized weight replaces it in the pipeline's dtype."""
-        self.unet_params = unet_mod.overlay_edits(
-            self.unet_params, read_safetensors(safetensors_path), dtype=self.dtype)
+        with self._whole_params():
+            self.unet_params = unet_mod.overlay_edits(
+                self.unet_params, read_safetensors(safetensors_path), dtype=self.dtype)
 
     def quantize_weights(self, mode: str = "w8") -> None:
         """Quantize the UNet and VAE weights in place (``models/quantize.py``):
         ``"int8"`` = W8A8 (int8 products, and the int8-QK^T attention kernel
         for the UNet's long self-attentions), ``"w8"`` = weight-only int8.
         Edits overlaid before or after: an overlay replaces a quantized slot
-        with the float edit."""
-        self.unet_params = quantize.quantize_params(self.unet_params,
-                                                    quantize.UNET_SKIP, mode)
-        self.vae_params = quantize.quantize_params(self.vae_params,
-                                                   quantize.VAE_SKIP, mode)
+        with the float edit. On a mesh the ranks take the new weights."""
+        with self._whole_params():
+            self.unet_params = quantize.quantize_params(self.unet_params,
+                                                        quantize.UNET_SKIP, mode)
+            self.vae_params = quantize.quantize_params(self.vae_params,
+                                                       quantize.VAE_SKIP, mode)
+
+    def apply_mesh(self, mesh: mesh_mod.Mesh | None) -> None:
+        """Multi-device generation (uce_tpu's ``apply_mesh``): the image batch
+        is split over the mesh's data axis and, with a model axis > 1, the
+        UNet is laid out tensor-parallel (``mesh.unet_layout``: whole heads
+        of the attention projections, column/row-parallel GEGLU FFN). The
+        mesh's other ranks are processes that this call spawns; rank 0 is
+        this one, on the pipeline's device. ``None`` stops them and puts the
+        UNet back whole on this device."""
+        if mesh is not None:
+            mesh_mod.require_data_axis(mesh)
+            mesh_mod.check_rank0(mesh, self.device)
+        if self.mesh is not None:
+            self.unet_params = workers.gather_params("unet", self.unet_params)
+            workers.stop()
+            self.mesh = None
+        if mesh is None:
+            return
+        workers.start(mesh)
+        self.mesh = mesh
+        self._send_params()
+
+    def _send_params(self) -> None:
+        layout = mesh_mod.layout_fn("unet", self.unet_config, self.mesh.n_model)
+        items, self.unet_params = workers.drain(self.unet_params), None
+        self.unet_params = workers.send_params("unet", items, layout)
+        workers.send_params("vae", self.vae_params.items())
+
+    @contextlib.contextmanager
+    def _whole_params(self):
+        """The whole weights on this process for the enclosed change, sent to
+        the mesh's ranks again after it."""
+        if self.mesh is None:
+            yield
+            return
+        self.unet_params = workers.gather_params("unet", self.unet_params)
+        workers.drop_params("vae")
+        yield
+        self._send_params()
 
     def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
         if self.is_sdxl:
@@ -124,25 +177,6 @@ class SDPipeline:
         return {"text_embeds": text_embeds,
                 "time_ids": time_ids.expand(text_embeds.shape[0], 6)}
 
-    def _fast_model_factory(self, context, added_cond, bsz: int,
-                            fast: sampler.FastConfig):
-        """``sampler.denoise_fast``'s model factory: the cond-only variants
-        take the cond half of the context and of SDXL's added conditioning."""
-        def factory(cond_only: bool, cached: bool, want_deep: bool):
-            ctx, ac = context, added_cond
-            if cond_only:
-                ctx = context[bsz:]
-                ac = None if added_cond is None else {
-                    k: v[bsz:] for k, v in added_cond.items()}
-            if cached:
-                return lambda lat_in, t, deep: unet_mod.apply(
-                    self.unet_params, lat_in, t, ctx, self.unet_config,
-                    added_cond=ac, deep_feature=deep, cache_level=fast.cache_level)
-            return lambda lat_in, t: unet_mod.apply(
-                self.unet_params, lat_in, t, ctx, self.unet_config, added_cond=ac,
-                return_deep=want_deep, cache_level=fast.cache_level)
-        return factory
-
     @torch.inference_mode()
     def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 50,
                  guidance_scale: float = 7.5, num_images_per_prompt: int = 1,
@@ -153,7 +187,8 @@ class SDPipeline:
                  safety_concept: str | None = None,
                  sld_config: guidance.SLDConfig | None = None,
                  debias_projection: np.ndarray | None = None,
-                 fast: sampler.FastConfig | None = None) -> np.ndarray:
+                 fast: sampler.FastConfig | None = None,
+                 save_paths: Sequence[str] | None = None) -> np.ndarray | None:
         """Returns uint8 images [N, H, W, 3], guided against
         ``negative_prompt`` (the empty prompt by default; a string for every
         prompt or one per prompt, repeated per image).
@@ -166,7 +201,10 @@ class SDPipeline:
         encoded once and repeated for every image.
         fast: an optional ``sampler.FastConfig`` (CFG window, DeepCache),
         opt-in beyond the reference protocol, for cfg and debias_vl only; a
-        no-op config takes the exact path."""
+        no-op config takes the exact path.
+        save_paths: one path per image: each image is written there as a
+        PNG and None returned (on a mesh each data group writes its own:
+        ``generate``'s writer)."""
         if fast is not None and fast.is_noop:
             fast = None
         if mode not in ("cfg", "concept_algebra", "sld", "debias_vl"):
@@ -226,41 +264,134 @@ class SDPipeline:
         latents = torch_rng.draw_prompt_latents(
             (height // vae_scale, width // vae_scale, self.unet_config.in_channels),
             seed, n_prompts, num_images_per_prompt).to(self.device, self.dtype)
-        # a per-call scheduler changes the type only; the model's scheduler
-        # hyperparameters (prediction_type, betas, ...) carry over
-        plan = (schedulers.plan_from_hf_as(scheduler, self.scheduler_config,
-                                           num_inference_steps)
-                if scheduler else
-                schedulers.plan_from_hf(self.scheduler_config, num_inference_steps))
+        spec = {"unet_config": self.unet_config, "vae_config": self.vae_config,
+                # a per-call scheduler changes the type only; the model's
+                # scheduler hyperparameters (prediction_type, betas, ...) carry over
+                "plan": (scheduler, self.scheduler_config, num_inference_steps),
+                "mode": mode, "guidance_scale": guidance_scale,
+                "sld_config": sld_config, "fast": fast, "save_paths": save_paths}
+        tensors = {"latents": (latents, 1), "context": (context, n_branches)}
+        if added_cond is not None:
+            tensors.update({f"added.{k}": (v, n_branches) for k, v in added_cond.items()})
+        images = sample_batch(self.mesh, _denoise_decode, spec, tensors,
+                         {"unet": self.unet_params, "vae": self.vae_params})
+        return None if save_paths is not None else images
 
-        def model_fn(lat_in, t):
-            return unet_mod.apply(self.unet_params, lat_in, t, context,
-                                  self.unet_config, added_cond=added_cond)
 
-        if fast is not None:
-            final = sampler.denoise_fast(
-                self._fast_model_factory(context, added_cond, bsz, fast), plan,
-                latents, guidance_scale=guidance_scale, fast=fast)
-        elif mode == "sld":
-            sld_cfg = sld_config or guidance.SLDConfig()
-            final = sampler.denoise(
-                model_fn, plan, latents,
-                guidance_fn=lambda e, i, m: guidance.sld_combine(
-                    e, guidance_scale, i, m, sld_cfg),
-                num_branches=3,
-                guidance_state=torch.zeros_like(latents, dtype=torch.float32))
-        elif mode == "concept_algebra":
-            final = sampler.denoise(
-                model_fn, plan, latents,
-                guidance_fn=lambda e: guidance.concept_algebra_combine(
-                    e, guidance_scale),
-                num_branches=5)
-        else:
-            final = sampler.denoise(
-                model_fn, plan, latents,
-                guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
-        scaled = (final.float() / self.vae_config.scaling_factor).to(latents.dtype)
-        imgs = vae_mod.decode(self.vae_params, scaled, self.vae_config)
-        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
-        imgs = torch.round(imgs * 255.0).to(torch.uint8)
-        return imgs.permute(0, 2, 3, 1).cpu().numpy()
+def sample_batch(mesh, fn, spec: dict, tensors: dict, params: dict) -> np.ndarray:
+    """``fn(params, spec, batch)`` (a denoise and decode returning uint8
+    images) on this process, or on ``mesh``: each tensor given as (tensor,
+    n_branches[, batch axis, 0 by default]) is padded per branch to a
+    multiple of the data axis (``mesh.pad_batch_branched``), each data group
+    denoises and decodes its rows, and the images of model rank 0 of each
+    group come back in order, the padding cut off. ``batch["rows"]``
+    numbers the rows (-1 for padding)."""
+    bsz = tensors["latents"][0].shape[0]
+    device = tensors["latents"][0].device
+    rows = torch.arange(bsz, device=device)
+    if mesh is None:
+        batch = {name: t for name, (t, *_) in tensors.items()}
+        return fn(params, spec, {**batch, "rows": rows})
+    n_data = mesh.n_data
+    padded = {"rows": (torch.cat([rows, rows.new_full(((-bsz) % n_data,), -1)]), (0, 1))}
+    for name, (t, n_branches, *axis) in tensors.items():
+        axis = axis[0] if axis else 0
+        padded[name] = (mesh_mod.pad_batch_branched(t, n_data, n_branches, axis),
+                        (axis, n_branches))
+    out = workers.data_leaders(workers.run(fn, spec, padded, params), mesh)
+    if any(o is None for o in out):
+        return None
+    return np.concatenate(out)[:bsz]
+
+
+def denoiser_forward(params: dict, spec: dict, batch: dict):
+    """One UNet forward as a mesh's ranks run it (``workers.run``): ``batch``
+    holds ``sample``, ``timesteps``, ``context`` and SDXL's ``added.*``;
+    ``spec`` the ``unet_config`` and an optional ``attn_impl``. Model rank 0
+    of each data group returns its output on the host, the others None."""
+    added = {k[len("added."):]: v for k, v in batch.items() if k.startswith("added.")}
+    out = unet_mod.apply(params["unet"], batch["sample"], batch["timesteps"],
+                         batch["context"], spec["unet_config"],
+                         attn_impl=spec.get("attn_impl", "auto"), added_cond=added or None)
+    return out.cpu() if workers.tp_rank() == 0 else None
+
+
+def _fast_model_factory(unet_params, unet_config, context, added_cond, bsz: int,
+                        fast: sampler.FastConfig):
+    """``sampler.denoise_fast``'s model factory: the cond-only variants take
+    the cond half of the context and of SDXL's added conditioning."""
+    def factory(cond_only: bool, cached: bool, want_deep: bool):
+        ctx, ac = context, added_cond
+        if cond_only:
+            ctx = context[bsz:]
+            ac = None if added_cond is None else {k: v[bsz:] for k, v in added_cond.items()}
+        if cached:
+            return lambda lat_in, t, deep: unet_mod.apply(
+                unet_params, lat_in, t, ctx, unet_config, added_cond=ac,
+                deep_feature=deep, cache_level=fast.cache_level)
+        return lambda lat_in, t: unet_mod.apply(
+            unet_params, lat_in, t, ctx, unet_config, added_cond=ac,
+            return_deep=want_deep, cache_level=fast.cache_level)
+    return factory
+
+
+def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
+    """The guided denoise and the VAE decode of one batch (on a mesh: of a
+    data group's rows, on each of its ranks). Returns the uint8 images, or
+    writes row r's image to ``spec["save_paths"][r]`` and returns None;
+    other model ranks than 0 return None without decoding."""
+    unet_params, unet_config = params["unet"], spec["unet_config"]
+    vae_config = spec["vae_config"]
+    latents, context = batch["latents"], batch["context"]
+    added_cond = {k[len("added."):]: v for k, v in batch.items() if k.startswith("added.")}
+    added_cond = added_cond or None
+    scheduler, scheduler_config, steps = spec["plan"]
+    plan = (schedulers.plan_from_hf_as(scheduler, scheduler_config, steps) if scheduler
+            else schedulers.plan_from_hf(scheduler_config, steps))
+    mode, guidance_scale, fast = spec["mode"], spec["guidance_scale"], spec["fast"]
+
+    def model_fn(lat_in, t):
+        return unet_mod.apply(unet_params, lat_in, t, context, unet_config,
+                              added_cond=added_cond)
+
+    if fast is not None:
+        final = sampler.denoise_fast(
+            _fast_model_factory(unet_params, unet_config, context, added_cond,
+                                latents.shape[0], fast),
+            plan, latents, guidance_scale=guidance_scale, fast=fast)
+    elif mode == "sld":
+        sld_cfg = spec["sld_config"] or guidance.SLDConfig()
+        final = sampler.denoise(
+            model_fn, plan, latents,
+            guidance_fn=lambda e, i, m: guidance.sld_combine(
+                e, guidance_scale, i, m, sld_cfg),
+            num_branches=3,
+            guidance_state=torch.zeros_like(latents, dtype=torch.float32))
+    elif mode == "concept_algebra":
+        final = sampler.denoise(
+            model_fn, plan, latents,
+            guidance_fn=lambda e: guidance.concept_algebra_combine(e, guidance_scale),
+            num_branches=5)
+    else:
+        final = sampler.denoise(
+            model_fn, plan, latents,
+            guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
+    if workers.tp_rank() != 0:
+        return None
+    scaled = (final.float() / vae_config.scaling_factor).to(latents.dtype)
+    return decoded_images(vae_mod.decode(params["vae"], scaled, vae_config), batch["rows"],
+                      spec["save_paths"])
+
+
+def decoded_images(imgs: torch.Tensor, rows: torch.Tensor,
+                   save_paths=None) -> np.ndarray | None:
+    """Decoded images in [-1, 1] -> uint8 [N, H, W, 3]; given
+    ``save_paths``, each row's PNG is written instead (the padding's not)."""
+    imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
+    imgs = torch.round(imgs * 255.0).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+    if save_paths is None:
+        return imgs
+    for img, row in zip(imgs, rows.tolist()):
+        if row >= 0:
+            save_png(img, save_paths[row])
+    return None

@@ -12,10 +12,15 @@ tensor by tensor on the device (``quantize.FLUX_SKIP``), so the bf16 DiT
 the DiT loads into the freed memory on the first ``generate_from_embeddings``
 call, with the edits and quantization asked for before it (the reference's
 three-phase load, ``uce_flux_edit.py:15-41``).
+
+``apply_mesh`` runs the denoise and the decode on a mesh of processes, as
+``pipeline.py``'s SD pipeline does, with the DiT laid out tensor-parallel
+over the model axis (``mesh.flux_layout``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import os
@@ -31,7 +36,9 @@ from uce_tpu_torch.edit.flux import (default_max_sequence_length, load_t5_encode
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
 from uce_tpu_torch.models import clip_text, flux as flux_mod, quantize as quantize_mod
 from uce_tpu_torch.models import t5 as t5_mod, unet as unet_mod, vae as vae_mod
+from uce_tpu_torch.diffusion.pipeline import decoded_images, sample_batch
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
+from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils import torch_rng
 
 # The edit slots of the DiT (uce_flux_edit.py's two text-entry projections).
@@ -128,6 +135,8 @@ class FluxPipeline:
     model_dir: str | None = None
     pending_quantize: str | None = None
     pending_edits: list = dataclasses.field(default_factory=list)
+    # the mesh of apply_mesh (None: this process alone)
+    mesh: mesh_mod.Mesh | None = None
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,
@@ -181,8 +190,19 @@ class FluxPipeline:
         if self.transformer_params is None:
             self.pending_quantize = quantize_mod.check_mode(mode)
             return
-        self.transformer_params = quantize_mod.quantize_params(
-            self.transformer_params, quantize_mod.FLUX_SKIP, mode)
+        with dit_whole(self, "flux"):
+            self.transformer_params = quantize_mod.quantize_params(
+                self.transformer_params, quantize_mod.FLUX_SKIP, mode)
+
+    def apply_mesh(self, mesh: mesh_mod.Mesh | None) -> None:
+        """Multi-device generation (uce_tpu's ``apply_mesh``): the image batch
+        is split over the mesh's data axis and, with a model axis > 1, the
+        DiT is laid out tensor-parallel (``mesh.flux_layout``: head-sharded
+        joint attention, column/row-parallel MLPs). On a staged pipeline the
+        DiT's layout waits for its load, after the edits and quantization
+        asked for. ``None`` stops the mesh's processes and puts the DiT back
+        whole on this device."""
+        apply_dit_mesh(self, mesh, "flux")
 
     def _ensure_transformer(self) -> None:
         if self.transformer_params is not None:
@@ -194,6 +214,7 @@ class FluxPipeline:
         for path in self.pending_edits:
             self.load_uce_edits(path)
         self.pending_edits = []
+        send_dit(self, "flux")
 
     def load_uce_edits(self, safetensors_path: str) -> None:
         """Overlay UCE-edited text-entry projections (uce_flux_edit.py's
@@ -203,15 +224,17 @@ class FluxPipeline:
         if self.transformer_params is None:
             self.pending_edits.append(safetensors_path)
             return
-        for key, v in read_safetensors(safetensors_path).items():
-            if key not in EDIT_SLOTS:
-                print(f"load_uce_edits: skipped unknown key {key}")
-                continue
-            old = self.transformer_params[key]
-            if tuple(v.shape) != tuple(old.shape):
-                raise ValueError(f"edit for '{key}' has shape {tuple(v.shape)}, model "
-                                 f"expects {tuple(old.shape)}")
-            self.transformer_params[key] = v.float().to(device=old.device, dtype=self.dtype)
+        with dit_whole(self, "flux"):
+            for key, v in read_safetensors(safetensors_path).items():
+                if key not in EDIT_SLOTS:
+                    print(f"load_uce_edits: skipped unknown key {key}")
+                    continue
+                old = self.transformer_params[key]
+                if tuple(v.shape) != tuple(old.shape):
+                    raise ValueError(f"edit for '{key}' has shape {tuple(v.shape)}, "
+                                     f"model expects {tuple(old.shape)}")
+                self.transformer_params[key] = v.float().to(device=old.device,
+                                                            dtype=self.dtype)
 
     @torch.inference_mode()
     def encode_prompts(self, prompts: Sequence[str]):
@@ -283,27 +306,95 @@ class FluxPipeline:
                               scfg.get("max_image_seq_len", 4096),
                               scfg.get("base_shift", 0.5),
                               scfg.get("max_shift", 1.15)) if use_dyn else None
-        plan = schedulers.flow_match_euler_plan(
-            num_inference_steps, shift=scfg.get("shift", 1.0),
-            use_dynamic_shifting=use_dyn, mu=mu)
-
-        img_ids = make_img_ids(lh, lw)
-        txt_ids = np.zeros((t5_embeds.shape[1], 3))
         cfg = self.transformer_config
-        guidance = (torch.full((bsz,), float(guidance_scale), device=self.device)
-                    if cfg.guidance_embeds else None)
-        t5_embeds = t5_embeds.to(self.device, self.dtype)
-        pooled = pooled.to(self.device, self.dtype)
-        for i in range(plan.num_calls):
-            # the transformer re-scales by 1000
-            t = np.float32(plan.timesteps[i]) / np.float32(1000.0)
-            v = flux_mod.apply(self.transformer_params, lat, t5_embeds, pooled,
-                               torch.full((bsz,), float(t), device=self.device),
-                               img_ids, txt_ids, cfg, guidance=guidance)
-            lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
-        lat = unpack_latents(lat, lh, lw).float()
-        lat = lat / self.vae_config.scaling_factor + self.vae_config.shift_factor
-        imgs = vae_mod.decode(self.vae_params, lat.to(self.dtype), self.vae_config)
-        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
-        imgs = torch.round(imgs * 255.0).to(torch.uint8)
-        return imgs.permute(0, 2, 3, 1).cpu().numpy()
+        spec = {"dit_config": cfg, "vae_config": self.vae_config, "latent_hw": (lh, lw),
+                "plan": dict(num_steps=num_inference_steps, shift=scfg.get("shift", 1.0),
+                             use_dynamic_shifting=use_dyn, mu=mu),
+                "img_ids": make_img_ids(lh, lw),
+                "txt_ids": np.zeros((t5_embeds.shape[1], 3))}
+        tensors = {"latents": (lat, 1), "t5": (t5_embeds.to(self.device, self.dtype), 1),
+                   "pooled": (pooled.to(self.device, self.dtype), 1)}
+        if cfg.guidance_embeds:
+            tensors["guidance"] = (torch.full((bsz,), float(guidance_scale),
+                                              device=self.device), 1)
+        return sample_batch(self.mesh, _denoise_decode, spec, tensors,
+                            {"dit": self.transformer_params, "vae": self.vae_params})
+
+
+def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
+    """The Euler loop over the DiT and the VAE decode of one batch (on a
+    mesh: of a data group's rows, on each of its ranks; model ranks other
+    than 0 return None without decoding)."""
+    cfg, vae_config = spec["dit_config"], spec["vae_config"]
+    lat, t5_embeds, pooled = batch["latents"], batch["t5"], batch["pooled"]
+    bsz, device = lat.shape[0], lat.device
+    plan = schedulers.flow_match_euler_plan(**spec["plan"])
+    for i in range(plan.num_calls):
+        # the transformer re-scales by 1000
+        t = np.float32(plan.timesteps[i]) / np.float32(1000.0)
+        v = flux_mod.apply(params["dit"], lat, t5_embeds, pooled,
+                           torch.full((bsz,), float(t), device=device),
+                           spec["img_ids"], spec["txt_ids"], cfg,
+                           guidance=batch.get("guidance"))
+        lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+    if workers.tp_rank() != 0:
+        return None
+    lat = unpack_latents(lat, *spec["latent_hw"]).float()
+    lat = lat / vae_config.scaling_factor + vae_config.shift_factor
+    return decoded_images(vae_mod.decode(params["vae"], lat.to(t5_embeds.dtype), vae_config),
+                          batch["rows"])
+
+
+def denoiser_forward(params: dict, spec: dict, batch: dict):
+    """One DiT forward as a mesh's ranks run it (``workers.run``): ``batch``
+    holds ``latents``, ``t5``, ``pooled``, ``timesteps`` (and ``guidance``);
+    ``spec`` the ``dit_config``, ``img_ids``, ``txt_ids`` and an optional
+    ``attn_impl``. Model rank 0 of each data group returns its output on the
+    host, the others None."""
+    out = flux_mod.apply(params["dit"], batch["latents"], batch["t5"], batch["pooled"],
+                         batch["timesteps"], spec["img_ids"], spec["txt_ids"],
+                         spec["dit_config"], guidance=batch.get("guidance"),
+                         attn_impl=spec.get("attn_impl", "auto"))
+    return out.cpu() if workers.tp_rank() == 0 else None
+
+
+def apply_dit_mesh(pipe, mesh: mesh_mod.Mesh | None, family: str) -> None:
+    """A DiT pipeline's ``apply_mesh``: gather the DiT and stop the previous
+    mesh, then start ``mesh`` and send it the VAE and the DiT (a staged
+    pipeline's when it loads)."""
+    if mesh is not None:
+        mesh_mod.require_data_axis(mesh)
+        mesh_mod.check_rank0(mesh, pipe.device)
+    if pipe.mesh is not None:
+        if pipe.transformer_params is not None:
+            pipe.transformer_params = workers.gather_params("dit", pipe.transformer_params)
+        workers.stop()
+        pipe.mesh = None
+    if mesh is None:
+        return
+    workers.start(mesh)
+    pipe.mesh = mesh
+    workers.send_params("vae", pipe.vae_params.items())
+    send_dit(pipe, family)
+
+
+def send_dit(pipe, family: str) -> None:
+    """Lay a loaded DiT out on the pipeline's mesh (no-op without one):
+    rank 0 keeps its shard, each of its whole tensors freed once sent."""
+    if pipe.mesh is None or pipe.transformer_params is None:
+        return
+    layout = mesh_mod.layout_fn(family, pipe.transformer_config, pipe.mesh.n_model)
+    items, pipe.transformer_params = workers.drain(pipe.transformer_params), None
+    pipe.transformer_params = workers.send_params("dit", items, layout)
+
+
+@contextlib.contextmanager
+def dit_whole(pipe, family: str):
+    """The whole DiT on this process for the enclosed change, laid out on
+    the mesh again after it."""
+    if pipe.mesh is None or not workers.holds("dit"):
+        yield
+        return
+    pipe.transformer_params = workers.gather_params("dit", pipe.transformer_params)
+    yield
+    send_dit(pipe, family)

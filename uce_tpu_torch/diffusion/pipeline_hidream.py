@@ -18,6 +18,13 @@ reference's three-phase load, ``uce_hidream_edit.py:16-28, 51-64, 97-108``).
 ``quantize="w8"|"int8"`` quantizes the DiT tensor by tensor as it loads
 (``quantize.HIDREAM_SKIP``): in w8 it takes about 17 GB, and the whole
 pipeline fits one 80 GB card unstaged.
+
+``apply_mesh`` runs the denoise and the decode on a mesh of processes, as
+the SD and FLUX pipelines do, with the DiT's attention and SwiGLUs laid out
+tensor-parallel and its routed experts expert-parallel over the model axis
+(``mesh.hidream_layout``). The encoders run on rank 0 alone; a staged
+pipeline frees them before the DiT loads there and its shards go out, so
+two ranks sharing a card never hold the encoders and the DiT at once.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion import schedulers
-from uce_tpu_torch.diffusion.pipeline_flux import (compute_shift_mu, cuda_allocated,
-                                                   make_img_ids, release_memory)
+from uce_tpu_torch.diffusion.pipeline import decoded_images, sample_batch
+from uce_tpu_torch.diffusion.pipeline_flux import (apply_dit_mesh, compute_shift_mu,
+                                                   cuda_allocated, dit_whole, make_img_ids,
+                                                   release_memory, send_dit)
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import load_t5_encoder, load_t5_tokenizer
 from uce_tpu_torch.edit.hidream import (load_llama_encoder, load_llama_tokenizer,
@@ -42,6 +51,7 @@ from uce_tpu_torch.models import clip_text, hidream as hd_mod, llama as llama_mo
 from uce_tpu_torch.models import quantize as quantize_mod
 from uce_tpu_torch.models import t5 as t5_mod, unet as unet_mod, vae as vae_mod
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
+from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils import torch_rng
 
 _EDIT_KEY = re.compile(r"caption_projection\.(\d+)\.linear\.weight$")
@@ -110,6 +120,8 @@ class HiDreamPipeline:
     model_dir: str | None = None
     pending_quantize: str | None = None
     pending_edits: list = dataclasses.field(default_factory=list)
+    # the mesh of apply_mesh (None: this process alone)
+    mesh: mesh_mod.Mesh | None = None
 
     @classmethod
     def from_pretrained(cls, model_dir: str, llama_dir: str | None = None,
@@ -170,12 +182,18 @@ class HiDreamPipeline:
         if self.transformer_params is None:
             self.pending_quantize = quantize_mod.check_mode(mode)
             return
-        self.transformer_params = quantize_mod.quantize_params(
-            self.transformer_params, quantize_mod.HIDREAM_SKIP, mode)
+        with dit_whole(self, "hidream"):
+            self.transformer_params = quantize_mod.quantize_params(
+                self.transformer_params, quantize_mod.HIDREAM_SKIP, mode)
 
-    def apply_mesh(self, mesh) -> None:
-        raise NotImplementedError("HiDream apply_mesh is not ported yet (ROADMAP queue 1 "
-                                  "item 4; one GPU for now)")
+    def apply_mesh(self, mesh: mesh_mod.Mesh | None) -> None:
+        """Multi-device generation (uce_tpu's ``apply_mesh``): the image batch
+        is split over the mesh's data axis (per CFG branch) and, with a model
+        axis > 1, the DiT is laid out tensor- and expert-parallel
+        (``mesh.hidream_layout``). On a staged pipeline the DiT's layout
+        waits for its load. ``None`` stops the mesh's processes and puts the
+        DiT back whole on this device."""
+        apply_dit_mesh(self, mesh, "hidream")
 
     def _ensure_transformer(self) -> None:
         if self.transformer_params is not None:
@@ -187,6 +205,7 @@ class HiDreamPipeline:
         for path in self.pending_edits:
             self.load_uce_edits(path)
         self.pending_edits = []
+        send_dit(self, "hidream")
 
     def load_uce_edits(self, safetensors_path: str) -> None:
         """Overlay UCE-edited caption projections (uce_hidream_edit.py's
@@ -197,22 +216,24 @@ class HiDreamPipeline:
             self.pending_edits.append(safetensors_path)
             return
         n_llama = self.transformer_config.num_caption_projections - 1
-        for key, v in read_safetensors(safetensors_path).items():
-            m = _EDIT_KEY.match(key)
-            if m is None:
-                print(f"load_uce_edits: skipped unknown key {key}")
-                continue
-            i = int(m.group(1))
-            if i > n_llama:
-                # Llama and T5 projections share a shape here: an artifact of
-                # another config must not land on the T5 slot
-                raise ValueError(f"{key}: index {i} exceeds this model's {n_llama} "
-                                 "llama + 1 t5 caption projections")
-            old = self.transformer_params[key]
-            if tuple(v.shape) != tuple(old.shape):
-                raise ValueError(f"{key}: shape {tuple(v.shape)} does not match the "
-                                 f"model's caption projection {tuple(old.shape)}")
-            self.transformer_params[key] = v.float().to(device=old.device, dtype=self.dtype)
+        with dit_whole(self, "hidream"):
+            for key, v in read_safetensors(safetensors_path).items():
+                m = _EDIT_KEY.match(key)
+                if m is None:
+                    print(f"load_uce_edits: skipped unknown key {key}")
+                    continue
+                i = int(m.group(1))
+                if i > n_llama:
+                    # Llama and T5 projections share a shape here: an artifact
+                    # of another config must not land on the T5 slot
+                    raise ValueError(f"{key}: index {i} exceeds this model's {n_llama} "
+                                     "llama + 1 t5 caption projections")
+                old = self.transformer_params[key]
+                if tuple(v.shape) != tuple(old.shape):
+                    raise ValueError(f"{key}: shape {tuple(v.shape)} does not match the "
+                                     f"model's caption projection {tuple(old.shape)}")
+                self.transformer_params[key] = v.float().to(device=old.device,
+                                                            dtype=self.dtype)
 
     @torch.inference_mode()
     def encode_prompts(self, prompts: Sequence[str]):
@@ -322,37 +343,64 @@ class HiDreamPipeline:
                               scfg.get("max_image_seq_len", 4096),
                               scfg.get("base_shift", 0.5),
                               scfg.get("max_shift", 1.15)) if use_dyn else None
-        plan = schedulers.flow_match_euler_plan(
-            num_inference_steps, shift=scfg.get("shift", 3.0),
-            use_dynamic_shifting=use_dyn, mu=mu)
+        spec = {"dit_config": self.transformer_config, "vae_config": self.vae_config,
+                "latent_hw": (lh, lw), "img_ids": make_img_ids(lh, lw),
+                "plan": dict(num_steps=num_inference_steps, shift=scfg.get("shift", 3.0),
+                             use_dynamic_shifting=use_dyn, mu=mu),
+                "do_cfg": do_cfg, "guidance_scale": guidance_scale, "fast": fast}
+        n_br = 2 if do_cfg else 1
+        as_dev = lambda e: e.to(self.device, self.dtype)  # noqa: E731
+        tensors = {"latents": (lat, 1), "t5": (as_dev(t5_e), n_br),
+                   "llama": (as_dev(llama_e), n_br, 1),  # [layers, rows, ...]
+                   "pooled": (as_dev(pooled_e), n_br)}
+        return sample_batch(self.mesh, _denoise_decode, spec, tensors,
+                            {"dit": self.transformer_params, "vae": self.vae_params})
 
-        img_ids = make_img_ids(lh, lw)
-        cfg = self.transformer_config
-        t5_e, llama_e, pooled_e = (e.to(self.device, self.dtype)
-                                   for e in (t5_e, llama_e, pooled_e))
-        segments = (fast.segments(plan.num_calls) if fast is not None
-                    else [(0, plan.num_calls, False)])
-        for start, end, cond_only in segments:
-            if cond_only:  # outside the CFG window: the cond rows alone
-                te, le, pe = t5_e[bsz:], llama_e[:, bsz:], pooled_e[bsz:]
-            else:
-                te, le, pe = t5_e, llama_e, pooled_e
-            for i in range(start, end):
-                lat_in = torch.cat([lat, lat]) if do_cfg and not cond_only else lat
-                t = torch.full((lat_in.shape[0],), float(plan.timesteps[i]),
-                               device=self.device)
-                v = -hd_mod.apply(self.transformer_params, lat_in, te, le, pe, t,
-                                  img_ids, cfg)  # HiDream predicts the negated flow
-                if do_cfg and not cond_only:
-                    unc, txt = v.chunk(2)
-                    v = unc.float() + float(guidance_scale) * (txt - unc).float()
-                lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
-        lat = unpack_latents(lat, lh, lw).float()
-        lat = lat / self.vae_config.scaling_factor + self.vae_config.shift_factor
-        imgs = vae_mod.decode(self.vae_params, lat.to(self.dtype), self.vae_config)
-        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
-        imgs = torch.round(imgs * 255.0).to(torch.uint8)
-        return imgs.permute(0, 2, 3, 1).cpu().numpy()
+
+def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
+    """The CFG Euler loop over the MoE DiT (outside a ``fast`` window the
+    cond rows alone) and the VAE decode of one batch (on a mesh: of a data
+    group's rows, on each of its ranks; model ranks other than 0 return
+    None without decoding)."""
+    cfg, vae_config = spec["dit_config"], spec["vae_config"]
+    do_cfg, guidance_scale, fast = spec["do_cfg"], spec["guidance_scale"], spec["fast"]
+    lat, t5_e, llama_e, pooled_e = (batch[k] for k in ("latents", "t5", "llama", "pooled"))
+    bsz, device = lat.shape[0], lat.device
+    plan = schedulers.flow_match_euler_plan(**spec["plan"])
+    segments = (fast.segments(plan.num_calls) if fast is not None
+                else [(0, plan.num_calls, False)])
+    for start, end, cond_only in segments:
+        if cond_only:  # outside the CFG window: the cond rows alone
+            te, le, pe = t5_e[bsz:], llama_e[:, bsz:], pooled_e[bsz:]
+        else:
+            te, le, pe = t5_e, llama_e, pooled_e
+        for i in range(start, end):
+            lat_in = torch.cat([lat, lat]) if do_cfg and not cond_only else lat
+            t = torch.full((lat_in.shape[0],), float(plan.timesteps[i]), device=device)
+            v = -hd_mod.apply(params["dit"], lat_in, te, le, pe, t, spec["img_ids"],
+                              cfg)  # HiDream predicts the negated flow
+            if do_cfg and not cond_only:
+                unc, txt = v.chunk(2)
+                v = unc.float() + float(guidance_scale) * (txt - unc).float()
+            lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+    if workers.tp_rank() != 0:
+        return None
+    lat = unpack_latents(lat, *spec["latent_hw"]).float()
+    lat = lat / vae_config.scaling_factor + vae_config.shift_factor
+    return decoded_images(vae_mod.decode(params["vae"], lat.to(t5_e.dtype), vae_config),
+                          batch["rows"])
+
+
+def denoiser_forward(params: dict, spec: dict, batch: dict):
+    """One DiT forward as a mesh's ranks run it (``workers.run``): ``batch``
+    holds ``latents``, ``t5``, ``llama``, ``pooled`` and ``timesteps``;
+    ``spec`` the ``dit_config``, ``img_ids`` and an optional ``attn_impl``.
+    Model rank 0 of each data group returns its output on the host, the
+    others None."""
+    out = hd_mod.apply(params["dit"], batch["latents"], batch["t5"], batch["llama"],
+                       batch["pooled"], batch["timesteps"], spec["img_ids"],
+                       spec["dit_config"], attn_impl=spec.get("attn_impl", "auto"))
+    return out.cpu() if workers.tp_rank() == 0 else None
 
 
 def cfg_embeddings(uncond, cond):

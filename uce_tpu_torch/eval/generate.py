@@ -2,7 +2,10 @@
 
 CSV columns ``case_number, prompt, evaluation_seed`` -> PNGs named
 ``{case}_{num}.png``, ``--from_case/--till_case`` resume windows, optional
-UCE safetensors overlay.
+UCE safetensors overlay. ``--mesh data=N[,model=M]`` (``--data_parallel``:
+every visible device on the data axis) runs the denoise and decode on a
+mesh of processes (``SDPipeline.apply_mesh``), each data group writing its
+own images.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.diffusion.sampler import FastConfig
 from uce_tpu_torch.eval.table import PANDAS_NA_STRINGS
-from uce_tpu_torch.utils.imaging import case_window, save_case_images, uce_output_folder
+from uce_tpu_torch.parallel import mesh as mesh_mod
+from uce_tpu_torch.utils.imaging import case_image_path, case_window, uce_output_folder
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -49,33 +53,43 @@ def generate_images(
     dtype: str = "bfloat16",
     scheduler: str | None = None,
     batch_rows: int = 1,
+    data_parallel: bool = False,
     exp_name: str | None = None,
     fast: str | None = None,
+    mesh: str | None = None,
 ) -> int:
     """Returns the number of generated cases. ``batch_rows`` rows (each
     with its own seed) share one batched denoise. ``fast`` is a
     ``FastConfig.from_spec`` spec (CFG window, DeepCache), opt-in beyond the
-    reference protocol."""
+    reference protocol. ``mesh`` (a ``mesh_from_spec`` spec) or
+    ``data_parallel`` (a data axis over every visible device of
+    ``device``'s kind; nothing with one) shard the batch after the edit is
+    overlaid."""
     fast_cfg = FastConfig.from_spec(fast) if fast else None
     pipe = SDPipeline.from_pretrained(model_name, dtype=DTYPES[str(dtype)],
                                       device=device)
     if uce_model_path:
         pipe.load_uce_edits(uce_model_path)
+    if mesh:
+        pipe.apply_mesh(mesh_mod.mesh_from_spec(mesh, devices=device))
+    elif data_parallel and len(mesh_mod.visible_devices(device)) > 1:
+        pipe.apply_mesh(mesh_mod.make_mesh(devices=device))
     folder = uce_output_folder(save_path, uce_model_path, exp_name)
     rows = case_window(read_prompts_csv(prompts_path), from_case, till_case)
     step = max(batch_rows, 1)
-    for i in range(0, len(rows), step):
-        chunk = rows[i:i + step]
-        images = pipe([r["prompt"] for r in chunk],
-                      num_inference_steps=ddim_steps,
-                      guidance_scale=guidance_scale,
-                      num_images_per_prompt=num_samples,
-                      seed=[r["evaluation_seed"] for r in chunk],
-                      height=image_size, width=image_size, scheduler=scheduler,
-                      fast=fast_cfg)
-        for j, r in enumerate(chunk):
-            save_case_images(images[j * num_samples:(j + 1) * num_samples],
-                             folder, r["case_number"])
+    try:
+        for i in range(0, len(rows), step):
+            chunk = rows[i:i + step]
+            # each image to its case's file (on a mesh each data group
+            # writes its own)
+            pipe([r["prompt"] for r in chunk], num_inference_steps=ddim_steps,
+                 guidance_scale=guidance_scale, num_images_per_prompt=num_samples,
+                 seed=[r["evaluation_seed"] for r in chunk], height=image_size,
+                 width=image_size, scheduler=scheduler, fast=fast_cfg,
+                 save_paths=[case_image_path(folder, r["case_number"], num)
+                             for r in chunk for num in range(num_samples)])
+    finally:
+        pipe.apply_mesh(None)
     return len(rows)
 
 
@@ -105,6 +119,15 @@ def register_cli(sub, add_device_flag) -> None:
                    "(its hyperparameters, e.g. v-prediction, carry over)")
     p.add_argument("--batch_rows", type=int, default=1,
                    help="fuse N CSV rows into one batched denoise")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard the batch over all visible devices "
+                        "(shorthand for --mesh data=0)")
+    p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
+                   help="multi-device mesh 'data=N[,model=M]': shard the image batch "
+                        "over N data-parallel groups and lay the UNet out "
+                        "tensor-parallel over M devices (data=0 = all remaining "
+                        "devices; one process per rank; on --device cpu, N*M CPU "
+                        "ranks)")
     p.add_argument("--fast", type=str, default=None, metavar="SPEC",
                    help="beyond-protocol accelerations, e.g. "
                         "'cfg_interval=3:25,cache=2,level=1' (CFG only inside "
@@ -124,6 +147,7 @@ def _cmd(args) -> int:
         ddim_steps=args.ddim_steps, num_samples=args.num_samples,
         from_case=args.from_case, till_case=args.till_case, dtype=args.dtype,
         scheduler=args.scheduler, batch_rows=args.batch_rows,
-        exp_name=args.exp_name, fast=args.fast)
+        data_parallel=args.data_parallel, exp_name=args.exp_name, fast=args.fast,
+        mesh=args.mesh)
     print(f"generated {n} cases")
     return 0

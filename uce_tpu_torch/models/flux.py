@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uce_tpu_torch.models.layers import linear, timestep_embedding
+from uce_tpu_torch.models.layers import linear, row_linear, timestep_embedding
 from uce_tpu_torch.ops.attention import dot_product_attention
 
 # diffusers' names of the attention projections of each block family
@@ -112,9 +112,11 @@ def apply_rope(x, cos, sin):
     return (x32 * cos + x_rot * sin).to(x.dtype)
 
 
-def _heads(x, h: int):
+def _heads(x, dh: int):
+    """[B, S, h*dh] -> [B, h, S, dh]: the heads a (possibly sharded)
+    projection holds."""
     b, s, d = x.shape
-    return x.reshape(b, s, h, d // h).transpose(1, 2)
+    return x.reshape(b, s, d // dh, dh).transpose(1, 2)
 
 
 def _unheads(x):
@@ -124,6 +126,10 @@ def _unheads(x):
 
 def _lin(p, name, x):
     return linear(x, p[name + ".weight"], p.get(name + ".bias"))
+
+
+def _row_lin(p, name, x):
+    return row_linear(x, p[name + ".weight"], p.get(name + ".bias"))
 
 
 def _mlp_embed(p, name, v):
@@ -136,9 +142,13 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
     """Forward. latents [B, S_img, in_channels] packed patches; t5_embeds
     [B, S_txt, joint_attention_dim]; pooled [B, pooled_projection_dim];
     timestep [B] in [0, 1] (sigma; x1000 here, as diffusers); ids [S, 3]
-    position grids. Returns the velocity [B, S_img, in_channels]."""
+    position grids. Returns the velocity [B, S_img, in_channels].
+
+    Under tensor parallelism (``parallel/mesh.py::flux_layout``) the blocks'
+    projections hold this rank's heads and MLP columns; ``to_out.0``,
+    ``to_add_out``, ``net.2`` and the single blocks' ``proj_out`` reduce."""
     cfg, p = config, params
-    H = cfg.num_attention_heads
+    dh = cfg.attention_head_dim
     dtype = latents.dtype
 
     x = _lin(p, "x_embedder", latents)
@@ -172,7 +182,7 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
         hx = _ln(x) * (1 + sc_m) + sh_m
         he = _ln(enc) * (1 + csc_m) + csh_m
         a = b + "attn."
-        proj = lambda name, h: _heads(_lin(p, a + name, h), H)
+        proj = lambda name, h: _heads(_lin(p, a + name, h), dh)
         q = _rms(proj("to_q", hx), p[a + "norm_q.weight"])
         k = _rms(proj("to_k", hx), p[a + "norm_k.weight"])
         eq = _rms(proj("add_q_proj", he), p[a + "norm_added_q.weight"])
@@ -181,15 +191,15 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
         out = attention(torch.cat([eq, q], dim=2), torch.cat([ek, k], dim=2),
                         torch.cat([proj("add_v_proj", he), proj("to_v", hx)], dim=2))
         enc_out, x_out = out[:, :s_txt], out[:, s_txt:]
-        x = x + g_m * _lin(p, a + "to_out.0", x_out)
-        enc = enc + cg_m * _lin(p, a + "to_add_out", enc_out)
+        x = x + g_m * _row_lin(p, a + "to_out.0", x_out)
+        enc = enc + cg_m * _row_lin(p, a + "to_add_out", enc_out)
 
         hx = _ln(x) * (1 + sc_f) + sh_f
-        x = x + g_f * _lin(p, b + "ff.net.2",
-                           _gelu_tanh(_lin(p, b + "ff.net.0.proj", hx)))
+        x = x + g_f * _row_lin(p, b + "ff.net.2",
+                               _gelu_tanh(_lin(p, b + "ff.net.0.proj", hx)))
         he = _ln(enc) * (1 + csc_f) + csh_f
-        enc = enc + cg_f * _lin(p, b + "ff_context.net.2",
-                                _gelu_tanh(_lin(p, b + "ff_context.net.0.proj", he)))
+        enc = enc + cg_f * _row_lin(p, b + "ff_context.net.2",
+                                    _gelu_tanh(_lin(p, b + "ff_context.net.0.proj", he)))
 
     h = torch.cat([enc, x], dim=1)
     for i in range(cfg.num_single_layers):
@@ -197,11 +207,12 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
         sh, sc, gate = ada_chunks(b + "norm.linear", 3)
         hn = _ln(h) * (1 + sc) + sh
         a = b + "attn."
-        q = _rms(_heads(_lin(p, a + "to_q", hn), H), p[a + "norm_q.weight"])
-        k = _rms(_heads(_lin(p, a + "to_k", hn), H), p[a + "norm_k.weight"])
-        attn = attention(q, k, _heads(_lin(p, a + "to_v", hn), H))
+        q = _rms(_heads(_lin(p, a + "to_q", hn), dh), p[a + "norm_q.weight"])
+        k = _rms(_heads(_lin(p, a + "to_k", hn), dh), p[a + "norm_k.weight"])
+        attn = attention(q, k, _heads(_lin(p, a + "to_v", hn), dh))
         mlp = _gelu_tanh(_lin(p, b + "proj_mlp", hn))
-        h = h + gate * _lin(p, b + "proj_out", torch.cat([attn, mlp], dim=-1))
+        # sharded, this rank's rows of proj_out are [its heads; its MLP block]
+        h = h + gate * _row_lin(p, b + "proj_out", torch.cat([attn, mlp], dim=-1))
     x = h[:, s_txt:]
 
     # AdaLayerNormContinuous head: chunk order (scale, shift)

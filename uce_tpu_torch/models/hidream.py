@@ -35,10 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uce_tpu_torch.models.flux import _heads, _ln, _unheads, apply_rope, rope_freqs
+from uce_tpu_torch.models.flux import _heads, _ln, _row_lin, _unheads, apply_rope, rope_freqs
 from uce_tpu_torch.models.layers import linear, timestep_embedding
 from uce_tpu_torch.ops import quant
 from uce_tpu_torch.ops.attention import dot_product_attention
+from uce_tpu_torch.parallel import workers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,11 +108,22 @@ class HiDreamConfig:
 I1_FULL_CONFIG = HiDreamConfig(llama_layers=tuple(range(32)) + (31,) * 16)
 
 
-def _rms_full(x, scale, eps: float = 1e-5):
+def _rms_full(x, scale, eps: float = 1e-5, dh: int | None = None):
     """RMSNorm over the whole projected width (before the head split), in
-    fp32 with eps 1e-5 (FLUX's per-head norm uses 1e-6)."""
+    fp32 with eps 1e-5 (FLUX's per-head norm uses 1e-6).
+
+    Under tensor parallelism ``x`` holds this rank's heads (of ``dh``
+    channels) of that width and ``scale`` is whole (replicated, as uce_tpu
+    keeps it): the per-token sum of squares is summed over the model group
+    and divided by the whole width, and this rank's slice of ``scale``
+    applied."""
     x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
+    if workers.tp_size() == 1:
+        var = (x32 * x32).mean(-1, keepdim=True)
+    else:
+        var = workers.model_all_reduce((x32 * x32).sum(-1, keepdim=True)) / scale.shape[0]
+        s, e = workers.tp_range(scale.shape[0] // dh)
+        scale = scale[s * dh:e * dh]
     return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -130,8 +142,10 @@ def _expert_lin(p, name, x):
     return linear(x, w)
 
 
-def _swiglu(p, name, x, lin=_lin):
-    return lin(p, name + ".w2", F.silu(lin(p, name + ".w1", x)) * lin(p, name + ".w3", x))
+def _swiglu(p, name, x, lin=_lin, out_lin=_row_lin):
+    """SwiGLU; sharded, ``w1``/``w3`` are column-parallel and ``w2``
+    (``out_lin``) row-parallel."""
+    return out_lin(p, name + ".w2", F.silu(lin(p, name + ".w1", x)) * lin(p, name + ".w3", x))
 
 
 def moe_gate(p, name, x, num_activated: int):
@@ -147,13 +161,18 @@ def _moe(p, name, x, cfg: HiDreamConfig):
     """Dense routed MoE + shared expert: every expert on every token, its
     output weighted by the gate (zero for the experts not in the top-k). The
     shared expert's projections dispatch as any other linear; the routed
-    experts' take ``_expert_lin``."""
+    experts' take ``_expert_lin``.
+
+    Expert parallelism: a rank holds only its own routed experts (the gate
+    runs on every rank); their fp32 sum is summed over the model group."""
     gate_w = moe_gate(p, name, x, cfg.num_activated_experts).to(x.dtype)
-    routed = None
+    routed = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(cfg.num_routed_experts):
-        y = (_swiglu(p, f"{name}.experts.{e}", x, _expert_lin)
-             * gate_w[..., e:e + 1]).float()
-        routed = y if routed is None else routed + y
+        if f"{name}.experts.{e}.w1.weight" not in p:  # another rank's expert
+            continue
+        routed = routed + (_swiglu(p, f"{name}.experts.{e}", x, _expert_lin, _expert_lin)
+                           * gate_w[..., e:e + 1]).float()
+    routed = workers.model_all_reduce(routed)
     return routed.to(x.dtype) + _swiglu(p, name + ".shared_experts", x)
 
 
@@ -167,11 +186,11 @@ def _mlp_embed(p, name, v):
     return _lin(p, name + ".linear_2", F.silu(_lin(p, name + ".linear_1", v)))
 
 
-def _qkv(p, a, x, heads: int, suffix: str = ""):
-    q = _rms_full(_lin(p, f"{a}to_q{suffix}", x), p[f"{a}q_rms_norm{suffix}.weight"])
-    k = _rms_full(_lin(p, f"{a}to_k{suffix}", x), p[f"{a}k_rms_norm{suffix}.weight"])
+def _qkv(p, a, x, dh: int, suffix: str = ""):
+    q = _rms_full(_lin(p, f"{a}to_q{suffix}", x), p[f"{a}q_rms_norm{suffix}.weight"], dh=dh)
+    k = _rms_full(_lin(p, f"{a}to_k{suffix}", x), p[f"{a}k_rms_norm{suffix}.weight"], dh=dh)
     v = _lin(p, f"{a}to_v{suffix}", x)
-    return _heads(q, heads), _heads(k, heads), _heads(v, heads)
+    return _heads(q, dh), _heads(k, dh), _heads(v, dh)
 
 
 def apply(params: Mapping[str, torch.Tensor], x_packed, t5_embeds, llama_embeds, pooled,
@@ -185,9 +204,14 @@ def apply(params: Mapping[str, torch.Tensor], x_packed, t5_embeds, llama_embeds,
     llama_layers); pooled [B, text_emb_dim]; timesteps [B] in scheduler
     units (0..1000); img_ids [S_img, 3]. Returns the un-negated flow
     prediction [B, S_img, out_channels * p^2] (the pipeline negates it).
+
+    Under tensor parallelism (``parallel/mesh.py::hidream_layout``) the
+    attention and SwiGLU projections hold this rank's heads and columns and
+    the routed experts its own experts; ``to_out``, ``to_out_t``, ``w2`` and
+    the expert sum reduce over the model group.
     """
     cfg, p = config, params
-    H = cfg.num_attention_heads
+    dh = cfg.attention_head_dim
     dtype = x_packed.dtype
 
     x = _lin(p, "x_embedder.proj", x_packed)
@@ -225,13 +249,13 @@ def apply(params: Mapping[str, torch.Tensor], x_packed, t5_embeds, llama_embeds,
         ni = _ln(x) * (1 + sc_mi) + sh_mi
         nt = _ln(txt) * (1 + sc_mt) + sh_mt
         a = b + "attn1."
-        qi, ki, vi = _qkv(p, a, ni, H)
-        qt, kt, vt = _qkv(p, a, nt, H, "_t")
+        qi, ki, vi = _qkv(p, a, ni, dh)
+        qt, kt, vt = _qkv(p, a, nt, dh, "_t")
         # the image first in the joint sequence
         out = attention(torch.cat([qi, qt], dim=2), torch.cat([ki, kt], dim=2),
                         torch.cat([vi, vt], dim=2))
-        x = x + g_mi * _lin(p, a + "to_out", out[:, :s_img])
-        txt = txt + g_mt * _lin(p, a + "to_out_t", out[:, s_img:])
+        x = x + g_mi * _row_lin(p, a + "to_out", out[:, :s_img])
+        txt = txt + g_mt * _row_lin(p, a + "to_out_t", out[:, s_img:])
         ni = _ln(x) * (1 + sc_fi) + sh_fi
         nt = _ln(txt) * (1 + sc_ft) + sh_ft
         x = x + g_fi * _ff_i(p, b + "ff_i", ni, cfg)
@@ -246,7 +270,7 @@ def apply(params: Mapping[str, torch.Tensor], x_packed, t5_embeds, llama_embeds,
         sh_m, sc_m, g_m, sh_f, sc_f, g_f = ada_chunks(b + "adaLN_modulation.1", 6)
         hn = _ln(hc) * (1 + sc_m) + sh_m
         a = b + "attn1."
-        hc = hc + g_m * _lin(p, a + "to_out", attention(*_qkv(p, a, hn, H)))
+        hc = hc + g_m * _row_lin(p, a + "to_out", attention(*_qkv(p, a, hn, dh)))
         hn = _ln(hc) * (1 + sc_f) + sh_f
         hc = hc + g_f * _ff_i(p, b + "ff_i", hn, cfg)
         h = hc[:, :s_all]

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from uce_tpu_torch.ops import quant
+from uce_tpu_torch.parallel import workers
 from uce_tpu_torch.ops.kernels import conv3x3 as conv_kernel
 from uce_tpu_torch.ops.kernels import group_norm as gn_kernel
 
@@ -75,6 +76,21 @@ def linear(x, weight, bias=None):
     if quant.is_quantized(weight):
         return quant.qlinear(x, weight, bias)
     return F.linear(x, weight, bias)
+
+
+def row_linear(x, weight, bias=None):
+    """A row-parallel projection (``parallel/mesh.py``'s row splits): inside
+    a sharded call (``workers.model_parallel``) ``x`` and ``weight`` hold
+    this rank's slice of the input width; the partial products are summed
+    over the model group and the (replicated) bias added once, after the
+    sum. W8A8 weights reduce their activation scale too (``quant.qlinear``).
+    Outside a sharded call, ``linear``."""
+    if workers.tp_size() == 1:
+        return linear(x, weight, bias)
+    if quant.is_quantized(weight):
+        return quant.qlinear(x, weight, bias, reduce=workers.model_all_reduce)
+    y = workers.model_all_reduce(linear(x, weight))
+    return y if bias is None else y + bias
 
 
 def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):

@@ -28,11 +28,13 @@ from uce_tpu_torch.models.layers import (
     kernel_path,
     layer_norm,
     linear,
+    row_linear,
     silu,
     timestep_embedding,
 )
 from uce_tpu_torch.ops.attention import dot_product_attention
 from uce_tpu_torch.ops.quant import QKEY, WKEY, concat_weights, is_quantized
+from uce_tpu_torch.parallel import workers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +160,9 @@ def _attention(p, pre, x, context, heads: int, impl: str):
     Self-attention runs one fused QKV projection, cross-attention one fused
     KV projection, split in that order; a tree that mixes float and
     quantized projections (an edit overlay on a quantized UNet) runs them
-    separately. A W8A8 ``to_q`` selects the int8-QK^T attention kernel."""
+    separately. A W8A8 ``to_q`` selects the int8-QK^T attention kernel.
+    Under tensor parallelism the projections hold this rank's whole heads
+    (``heads`` counts them all) and ``to_out.0`` is row-parallel."""
     b, tq, _ = x.shape
     wq, wk, wv = (p[f"{pre}.{n}.weight"] for n in ("to_q", "to_k", "to_v"))
     wqkv = concat_weights([wq, wk, wv]) if context is None else None
@@ -170,22 +174,30 @@ def _attention(p, pre, x, context, heads: int, impl: str):
         wkv = concat_weights([wk, wv])
         k, v = (linear(ctx, wkv).chunk(2, dim=-1) if wkv is not None
                 else (linear(ctx, wk), linear(ctx, wv)))
-    dh = q.shape[-1] // heads
+    dh = x.shape[-1] // heads  # SD's inner width is its query width
+    local = q.shape[-1] // dh
 
     def split(z):
-        return z.reshape(b, -1, heads, dh).transpose(1, 2)
+        return z.reshape(b, -1, local, dh).transpose(1, 2)
 
     out = dot_product_attention(split(q), split(k), split(v), impl=impl,
                                 qk_int8=is_quantized(wq))
-    out = out.transpose(1, 2).reshape(b, tq, heads * dh)
-    return linear(out, *_w(p, pre + ".to_out.0"))
+    out = out.transpose(1, 2).reshape(b, tq, local * dh)
+    return row_linear(out, *_w(p, pre + ".to_out.0"))
 
 
 def _geglu_ff(p, pre, x):
-    h, gate = linear(x, *_w(p, pre + ".net.0.proj")).chunk(2, dim=-1)
+    w, bias = _w(p, pre + ".net.0.proj")
+    if bias is not None and workers.tp_size() > 1:
+        # the weight holds this rank's rows of both halves [h | gate]; the
+        # bias stays whole (uce_tpu replicates it): take the same rows
+        half = bias.shape[0] // 2
+        s, e = workers.tp_range(half)
+        bias = torch.cat([bias[s:e], bias[half + s:half + e]])
+    h, gate = linear(x, w, bias).chunk(2, dim=-1)
     # uce_tpu uses jax.nn.gelu's default, the tanh form (diffusers: erf)
     h = h * F.gelu(gate, approximate="tanh")
-    return linear(h, *_w(p, pre + ".net.2"))
+    return row_linear(h, *_w(p, pre + ".net.2"))
 
 
 def _transformer_block(p, pre, x, context, heads: int, impl: str):

@@ -67,10 +67,13 @@ def quantize_weight(w: torch.Tensor, weight_only: bool = False) -> dict:
     return {WKEY if weight_only else QKEY: q, "scale": scale}
 
 
-def _quant_act(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic symmetric int8 quantization of activations over ``dims``."""
+def _quant_act(x: torch.Tensor, dims, reduce=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric int8 quantization of activations over ``dims``;
+    ``reduce(amax, "max")`` first takes the absmax over the other shards of
+    a sharded width."""
     x32 = x.float()
-    scale = _scale(x32.abs().amax(dim=dims, keepdim=True))
+    amax = x32.abs().amax(dim=dims, keepdim=True)
+    scale = _scale(amax if reduce is None else reduce(amax, "max"))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -92,10 +95,19 @@ def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, w.t())[:m]
 
 
-def qlinear(x: torch.Tensor, qw: dict, b: torch.Tensor | None = None):
-    """x [..., in] @ int8 weight [out, in]^T, per-token activation scales."""
-    xq, xs = _quant_act(x, (-1,))
+def qlinear(x: torch.Tensor, qw: dict, b: torch.Tensor | None = None, reduce=None):
+    """x [..., in] @ int8 weight [out, in]^T, per-token activation scales.
+
+    ``reduce(t, op)`` makes it a row-parallel layer (``x`` and the payload
+    hold this rank's slice of the input width; ``op`` "max" or "sum" over
+    the model group): the per-token absmax is reduced before quantizing, so
+    every rank quantizes with the whole width's scale, as the unsharded
+    layer does, and the exact int32 products are summed before the one
+    dequantization: the unsharded result, bit for bit."""
+    xq, xs = _quant_act(x, (-1,), reduce)
     y = int8_matmul(xq.reshape(-1, xq.shape[-1]), qw[QKEY])
+    if reduce is not None:
+        y = reduce(y, "sum")
     y = y.reshape(*x.shape[:-1], -1).float() * (xs * qw["scale"])
     if b is not None:
         y = y + b.float()
