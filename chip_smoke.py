@@ -57,9 +57,9 @@ each phase's seconds and the total are printed):
      plain version and against bf16) and one quantized VAE decode, with
      launches;
   9. ``serve --quantize int8`` with the edit overlay through the CLI: a
-     Poisson load through the batch ladder 1,2,4 (JSON report, launches),
-     then the socket server in a subprocess at 10 steps (three concurrent
-     requests, stats, shutdown; PNG checks);
+     Poisson load through the batch ladder 1,2,4 at 20 steps (JSON report,
+     launches), then the socket server in a subprocess at 10 steps (three
+     concurrent requests, stats, shutdown; PNG checks);
  10. img/s on the library path, the kernel path and the int8 pipeline;
  11. SD 2.1 and then SDXL, each: a seeded random-weight snapshot at full
      width (SDXL with both text encoders, its tokenizer_2 padding with "!");
@@ -74,22 +74,29 @@ each phase's seconds and the total are printed):
  14. ``generate`` at 768^2 (DDIM, v-prediction) or 1024^2 (Euler), 50 steps,
      CFG 7.5, with the edit overlay, on both paths (and on SD 2.1 a short
      ``--scheduler lms`` run on the kernel path): PNGs and launches; SDXL
-     ``serve --quantize int8`` (8 steps, ladder 1,2, 3 requests);
+     ``serve --quantize int8`` (8 steps, ladder 1,2, 3 requests) and SDXL
+     ``debias-sd`` at 1024^2 with 17's CLIP (1 concept, 2 images, 8 Euler
+     steps, 1 iteration) with the re-solve on the card and on the host: the
+     same saved tensors bit for bit;
  15. fast mode (CFG window + DeepCache): SD 1.4 ``generate --fast`` on both
      paths, on the kernel path a no-op spec and a CFG window over every call
      (cache 1) equal to the exact images bit for bit, bench.py's
      ``cfg_interval=3:25,cache=2``
      with finite decodes, its distance from the exact images, and launches
      from the segments (full and shallow forwards); img/s fast against exact
-     on both paths; SDXL at 1024^2 with ``cfg_interval=1:40,cache=2``
+     on the kernel path; SDXL at 1024^2 with ``cfg_interval=1:40,cache=2``
      (the cond-only calls slice SDXL's added conditioning);
  16. ``serve --quantize int8 --fast`` with the edit overlay, as in 9;
  17. ``debias-sd`` on SD 1.4 at 512^2 with CLIP ViT-B/32 at its published
      widths (random weights), 2 edit and 2 debias concepts, 4 images each, 20
-     steps, 2 iterations, on the kernel path, once with the re-solve on the
-     card and once on the host: the same safetensors bit for bit (diffusers
-     keys), a telemetry row per iteration and concept, launches, and each
-     iteration's seconds of generation, classification and re-solve;
+     steps, on the kernel path: 2 iterations with the re-solve on the card,
+     1 with it on the host (the same first measurement, and its solver's
+     tensors at that acc bit for bit), then ``--mesh data=2`` (two ranks; each
+     rank's K/V tensors after the loop its shards of the saved weights, bit
+     for bit); every run's saved tensors equal to a host re-solve at its own
+     final acc bit for bit (diffusers keys), a telemetry row per iteration and
+     concept, launches (every rank's), and each iteration's seconds of
+     re-solve, K/V send, generation and classification, data=1 beside data=2;
  18. ``eval-clip-classify`` over the PNGs of 7: one row per case, ratios
      summing to 1;
  18b. the comparison baselines on SD 1.4 (unedited) through their CLIs, on
@@ -129,35 +136,43 @@ each phase's seconds and the total are printed):
  19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
      CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
      on the card (~33.8 GB, its bytes and seconds printed; the host's free
-     memory is checked first), ``edit-flux`` (the two text-entry
+     memory is checked first; T5's tokenizer a tokenizer.json in T5
+     v1.1-XXL's layout at its published 32,000 + 100 ids, its pieces and
+     scores drawn from SEED, whose reader's load and batch times are
+     printed), ``edit-flux`` (the two text-entry
      targets, each held to a float64 solve; ``--method pallas`` refused),
      one DiT forward at 1024^2 on impl="auto" against "plain" (57 d=128
      kernel launches, device and wall ms), a VAE decode on both paths,
      ``generate-flux`` (4 steps, guidance 0) on both paths with the edit
      overlay (PNGs, launches from the steps, seconds per image after the
-     load, the two paths' image distance) and ``serve --family flux``
-     (ladder 1,2, 4 Poisson requests): the JSON report, the served images
-     and launches; the DiT quantized w8 and int8 on the card (sampled
-     payloads and scales bit for bit against the CPU's quantization, bytes
-     against its shapes' reckoning, a forward held to its float emulation
-     and to bf16), ``generate-flux --staged`` (the whole load's image),
-     ``--quantize w8`` and ``--quantize int8`` on the kernel path, and
-     ``serve --family flux --quantize w8``. The snapshot is deleted at the
-     end;
+     load, the two paths' image distance), then FLUX.1-dev's on schnell's
+     weights with a drawn guidance embedder (guidance 3.5, 512 T5 tokens,
+     dynamic shifting, 4 of its 50 steps; the first d=128 call at its
+     shape held to the plain version) on both paths; the DiT quantized w8
+     and int8 on the card (sampled payloads and scales bit for bit against
+     the CPU's quantization, bytes against its shapes' reckoning, a forward
+     held to its float emulation and to bf16), ``generate-flux --staged``
+     (the whole load's image), ``--quantize w8`` and ``--quantize int8`` on
+     the kernel path, and ``serve --family flux`` and ``serve --family flux
+     --quantize w8`` (ladder 1,2, 4 Poisson requests each: the JSON report,
+     the served images and launches). The snapshot is deleted at the end;
  20. HiDream-I1-Full at full width and depth (the 16 + 32-block MoE DiT,
      Llama-3.1-8B, T5-XXL, CLIP-L and bigG, the 16-channel VAE): a seeded
-     random-weight bf16 snapshot drawn on the card (~60.5 GB), ``edit-hidream``
+     random-weight bf16 snapshot drawn on the card (~60.5 GB; T5's and
+     Llama-3.1's tokenizers tokenizer.json files at their published sizes,
+     Llama's 128,000 tokens by drawn merges and its 256 special tokens),
+     ``edit-hidream``
      (49 caption projections, each held to a float64 solve of its own
      stream; ``--method pallas`` refused), the pipeline loaded staged
      (encode, ``free_encoders`` with the HBM before and after, then the
      DiT): one DiT forward at CFG batch 2 and 1024^2 on impl="auto" against
      "plain" on the same expert routing (48 d=128 launches, each held to
      the plain version), a CFG window over every call equal to the exact
-     run bit for bit and a 1:2 window finite and different, then
-     ``generate-hidream --staged`` (2 steps, CFG 5.0) on both paths with
-     the edit overlay: PNGs, launches from the steps, the seconds of the
-     load, encode, DiT load and image; an int8 DiT forward on the bf16
-     forward's expert routing held to its float emulation and to bf16;
+     run bit for bit and a 1:2 window finite and different, an int8 DiT
+     forward on the bf16 forward's expert routing held to its float
+     emulation and to bf16; then ``generate-hidream --staged`` (2 steps, CFG
+     5.0) on both paths with the edit overlay: PNGs, launches from the
+     steps, the seconds of the load, encode, DiT load and image;
      ``generate-hidream --staged --quantize w8``; ``serve --family hidream
      --quantize w8`` loaded whole (the card's allocated bytes after the
      load within 2% of its tensors', the w8 DiT's as its shapes reckon; 2
@@ -170,12 +185,16 @@ NCCL, one card two ranks sharing it over gloo, a correctness run, not a
 scaling number), inside 3, 19 and 20: SD 1.4's generate of 8 images at 50
 steps at data=2 against one device (mean |diff| bound, max printed, img/s
 of both), a UNet forward at UNet batch 16 at model=2 in bf16 and W8A8
-against one rank, ``serve --mesh data=2`` (8 steps, 4 requests); FLUX's and
-HiDream's DiTs at full width, depth cut to 2 + 4 and 2 + 2 blocks, at
-model=2 against one rank (wall ms of both), and ``generate-flux`` /
-``generate-hidream --staged --mesh model=2`` on those cut snapshots (the
-full snapshots' encoders) writing one image each; every mesh run's
-launches checked per rank and summed into the kernels' record.
+against one rank, ``serve --mesh data=2`` (8 steps, 4 requests),
+``debias-sd --mesh data=2`` (17); FLUX's and HiDream's DiTs at full width,
+depth cut to 2 + 4 and 2 + 2 blocks, at model=2 against one rank (wall ms
+of both), and ``generate-flux`` / ``generate-hidream --staged --mesh
+model=2`` on those cut snapshots (the full snapshots' encoders) writing one
+image each; every mesh run's launches checked per rank and summed into the
+kernels' record. For the script's time (1200 s allowed) steps were cut
+(PERF.md section 4): the in-process ``serve`` runs to 20 steps and 4
+requests, concept algebra's and debias-VL's LMS steps to 25; the library
+path's fast img/s is not read.
 The last two lines are the kernels' JSON record (launches summed over the
 main paths' runs on every rank) and the device record.
 """
@@ -221,6 +240,8 @@ from uce_tpu_torch.eval import dreamsim as dreamsim_mod, lpips as lpips_mod
 from uce_tpu_torch.eval import nudenet as nudenet_mod
 from uce_tpu_torch.models import clip as clip_mod, clip_text, flux, hidream, llama, quantize
 from uce_tpu_torch.models import t5, unet, vae, vision_backbones, yolo
+from uce_tpu_torch.models.clip_tokenizer import bytes_to_unicode
+from uce_tpu_torch.models.hf_tokenizer import HFTokenizer
 from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
 from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
@@ -327,8 +348,9 @@ EXP_PER_CLOCK_PER_SM = 16
 # SD 2.1's (768², latents 96²) UNet self-attentions at UNet batch 2, d=64,
 # and their VAE mid-blocks at s=16384 and 9216; then FLUX.1-schnell's joint
 # attention at d=128 over 256 T5 tokens + the packed image at 1024^2 and
-# 512^2 (batch 1, 24 heads); last HiDream-I1's at 1024^2 under CFG (batch 2,
-# 20 heads, 4096 image + 128 T5 + 2 x 128 Llama tokens).
+# 512^2 (batch 1, 24 heads), FLUX.1-dev's over 512 T5 tokens at 1024^2; last
+# HiDream-I1's at 1024^2 under CFG (batch 2, 20 heads, 4096 image + 128 T5 +
+# 2 x 128 Llama tokens).
 ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
               (1, 1, 4096, 4096, 512), (4, 1, 4096, 4096, 512),
@@ -336,7 +358,7 @@ ATTN_SLICE = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80),
               (2, 5, 9216, 9216, 64), (2, 10, 2304, 2304, 64),
               (1, 1, 16384, 16384, 512), (1, 1, 9216, 9216, 512),
               (1, 24, 4352, 4352, 128), (1, 24, 1280, 1280, 128),
-              (2, 20, 4480, 4480, 128),
+              (1, 24, 4608, 4608, 128), (2, 20, 4480, 4480, 128),
               # the mesh's model=2 shards: SD 1.4's heads at batch 8 under
               # CFG, FLUX's and HiDream's joint attentions
               (16, 4, 4096, 4096, 40), (16, 4, 1024, 1024, 80),
@@ -405,6 +427,11 @@ BUILDS = {"sd_attention": sdk.build, "sd_attention_d512": sdk.build_d512,
           "sd_attention_qk8": sdk.build_qk8, "group_norm": gnk.build,
           "conv3x3": convk.build, "uce_solve": solvek.build}
 SOCKET_STEPS = 10
+# serve --quantize int8 (and --fast) in process: 20 PNDM steps, 4 requests
+# (cut from 50 steps and 8 requests for the script's time; the ladder's
+# three rungs still each run a warm-up batch)
+SERVE_STEPS, SERVE_REQUESTS = 20, 4
+SERVE_FAST_SPEC = "cfg_interval=1:10,cache=2"  # FAST_SPEC's window, scaled to 21 calls
 SERVE_PROMPTS = ["a painting by kelly mckernan", "a photo of a dog",
                  "a house in the style of rembrandt"]
 # diffusers' scheduler_config.json of each model.
@@ -484,6 +511,12 @@ DEBIAS_ARGS = ["--edit_concepts", "doctor; nurse", "--debias_concepts",
                "a man; a woman", "--desired_ratios", "0.3", "0.7",
                "--num_images_per_prompt", "4", "--num_inference_steps", "20",
                "--max_iterations", "2"]
+# SDXL at 1024^2, cut: 1 edit concept, 2 images (ratios in halves, so 0.3 /
+# 0.7 is never met either), 8 Euler steps, 1 iteration
+SDXL_DEBIAS_ARGS = ["--edit_concepts", "doctor", "--debias_concepts", "a man; a woman",
+                    "--desired_ratios", "0.3", "0.7", "--num_images_per_prompt", "2",
+                    "--num_inference_steps", "8", "--max_iterations", "1",
+                    "--image_size", "1024"]
 
 # FLUX.1-schnell (black-forest-labs/FLUX.1-schnell, its config.json files) at
 # its published widths and depth: the 19 + 38-block DiT, T5 v1.1-XXL
@@ -500,6 +533,19 @@ FLUX_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 1.0
 FLUX_STEPS = 4
 FLUX_DIT_LAUNCHES = {"sd_attention_d128": 57}
 FLUX_PROMPT = "a painting by kelly mckernan"
+# FLUX.1-dev (black-forest-labs/FLUX.1-dev): schnell's DiT with the guidance
+# embedder (guidance_embeds), 512 T5 tokens (its joint attention at
+# s = 4096 + 512), its scheduler_config.json's dynamic shifting, guidance
+# 3.5 (its model card's). Cut: 4 steps of its 50; the weights are the
+# schnell snapshot's with a guidance embedder drawn from SEED beside them.
+FLUX_DEV = dataclasses.replace(flux.SCHNELL_CONFIG, guidance_embeds=True)
+FLUX_DEV_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 3.0,
+                      "use_dynamic_shifting": True, "base_shift": 0.5, "max_shift": 1.15,
+                      "base_image_seq_len": 256, "max_image_seq_len": 4096,
+                      "num_train_timesteps": 1000}
+FLUX_DEV_STEPS = 4
+FLUX_DEV_GUIDANCE = 3.5
+FLUX_DEV_TOKENS = 512
 
 # HiDream-I1-Full at its published widths and depth (HiDream-ai/HiDream-I1-Full's
 # transformer/config.json, hidream.I1_FULL_CONFIG: 16 + 32 MoE blocks of 20 x
@@ -1050,6 +1096,172 @@ def write_tokenizer(path: str, pad: str) -> None:
     with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
         json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
                    "pad_token": pad, "unk_token": "<|endoftext|>"}, f)
+
+
+# The real tokenizer layouts (tokenizer.json) at their published sizes, with
+# synthetic pieces, scores and merges drawn from SEED: T5 v1.1-XXL's Unigram
+# (32,000 pieces, then the 100 sentinels, as transformers' T5Converter lays
+# them out; Metaspace; "$A </s>"; the Precompiled normalizer left out, the
+# CPU tests hold it) and Llama-3.1's byte-level BPE (128,000 tokens by
+# 127,744 merges with ignore_merges, 256 special tokens after them, the
+# Llama-3 Split pattern, "<|begin_of_text|> $A", no pad token).
+T5_PIECES, T5_EXTRA_IDS = 32_000, 100
+LLAMA_TOKENS = 128_000
+LLAMA_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                 r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA_SPECIALS = (["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+                   "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                   "<|reserved_special_token_2|>", "<|start_header_id|>",
+                   "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+                  + [f"<|reserved_special_token_{i}|>" for i in range(3, 248)])
+
+
+def _added(token_id: int, content: str) -> dict:
+    return {"id": token_id, "content": content, "single_word": False, "lstrip": False,
+            "rstrip": False, "normalized": False, "special": True}
+
+
+def _template(single: list, special: dict) -> dict:
+    pieces = [{"Sequence": {"id": "A", "type_id": 0}} if t == "$A"
+              else {"SpecialToken": {"id": t, "type_id": 0}} for t in single]
+    return {"type": "TemplateProcessing", "single": pieces, "pair": pieces + pieces,
+            "special_tokens": {t: {"id": t, "ids": [i], "tokens": [t]}
+                               for t, i in special.items()}}
+
+
+@functools.lru_cache(maxsize=1)
+def t5_tokenizer_files() -> tuple[str, str]:
+    """(tokenizer.json, tokenizer_config.json) of the T5 layout."""
+    rng = np.random.default_rng(SEED + 11)
+    chars = list(string.ascii_letters + string.digits + string.punctuation)
+    pieces = ["\u2581"] + chars + ["\u2581" + c for c in chars]
+    seen = set(pieces)
+    letters = np.array(list(string.ascii_lowercase))
+    while len(pieces) < T5_PIECES - 3:
+        lengths, marks = rng.integers(2, 9, 4096), rng.random(4096) < 0.5
+        for n, mark in zip(lengths, marks):
+            piece = ("\u2581" if mark else "") + "".join(rng.choice(letters, n))
+            if piece not in seen and len(pieces) < T5_PIECES - 3:
+                seen.add(piece)
+                pieces.append(piece)
+    scores = -np.sort(rng.uniform(2.0, 14.0, len(pieces)))
+    specials = ["<pad>", "</s>", "<unk>"]
+    vocab = ([[t, 0.0] for t in specials] + [[p, float(x)] for p, x in zip(pieces, scores)]
+             + [[f"<extra_id_{i}>", 0.0] for i in range(T5_EXTRA_IDS - 1, -1, -1)])
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [_added(i, t) for i, t in enumerate(specials)]
+            + [_added(len(vocab) - 1 - i, f"<extra_id_{i}>") for i in range(T5_EXTRA_IDS)],
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "\u2581",
+                              "prepend_scheme": "always", "split": True},
+            "post_processor": _template(["$A", "</s>"], {"</s>": 1}),
+            "decoder": {"type": "Metaspace", "replacement": "\u2581",
+                        "prepend_scheme": "always", "split": True},
+            "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False}}
+    config = {"tokenizer_class": "T5Tokenizer", "eos_token": "</s>", "unk_token": "<unk>",
+              "pad_token": "<pad>", "extra_ids": T5_EXTRA_IDS, "legacy": True,
+              "additional_special_tokens": [f"<extra_id_{i}>" for i in range(T5_EXTRA_IDS)],
+              "model_max_length": 512}
+    return json.dumps(spec, ensure_ascii=False), json.dumps(config)
+
+
+@functools.lru_cache(maxsize=1)
+def llama_tokenizer_files() -> tuple[str, str]:
+    """(tokenizer.json, tokenizer_config.json) of the Llama-3.1 layout: the
+    256 byte symbols, then merges of two drawn tokens (shorter ones more
+    often) up to 128,000 tokens."""
+    rng = np.random.default_rng(SEED + 12)
+    tokens = [bytes_to_unicode()[b] for b in range(256)]
+    vocab = {t: i for i, t in enumerate(tokens)}
+    merges = []
+    while len(tokens) < LLAMA_TOKENS:
+        n = len(tokens)
+        picks = (n * rng.random((8192, 2)) ** 3).astype(int)
+        for a, b in picks:
+            new = tokens[a] + tokens[b]
+            if new not in vocab and len(new) <= 16 and len(tokens) < LLAMA_TOKENS:
+                vocab[new] = len(tokens)
+                tokens.append(new)
+                merges.append(f"{tokens[a]} {tokens[b]}")
+    bos = LLAMA_TOKENS
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [_added(LLAMA_TOKENS + i, t) for i, t in enumerate(LLAMA_SPECIALS)],
+            "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": LLAMA_PATTERN},
+                 "behavior": "Isolated", "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                 "use_regex": False}]},
+            "post_processor": {"type": "Sequence", "processors": [
+                {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+                 "use_regex": True},
+                _template(["<|begin_of_text|>", "$A"], {"<|begin_of_text|>": bos})]},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                      "vocab": vocab, "merges": merges}}
+    config = {"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<|begin_of_text|>",
+              "eos_token": "<|eot_id|>", "model_max_length": 131072,
+              "clean_up_tokenization_spaces": True}
+    return json.dumps(spec, ensure_ascii=False), json.dumps(config)
+
+
+def write_tokenizer_json(path: str, files: tuple[str, str]) -> None:
+    os.makedirs(path, exist_ok=True)
+    for name, text in zip(("tokenizer.json", "tokenizer_config.json"), files):
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            f.write(text)
+
+
+TOKENIZER_PROMPTS = ([FLUX_PROMPT, "a house in the style of rembrandt",
+                      "Image of a doctor, 4k, highly detailed  (sharp focus)",
+                      "An astronaut's 12345 steps on Mars <|eot_id|> <extra_id_3>"]
+                     + [c.strip() for c in ART.split(";")] + ["東京の猫 🐱", ""])
+
+
+def phase_tokenizers(t5_dir: str, llama_dir: str | None = None) -> None:
+    """The tokenizer.json readers on the snapshots' files: the seconds of
+    each load, and the ms of one batch of ``TOKENIZER_PROMPTS`` at T5's 256
+    (schnell) and 512 (dev) tokens and Llama's 128 (HiDream), its first call
+    and the median of three more; the ids within the vocab, the template's
+    tokens in place."""
+    checks = [("T5", t5_dir, edit_flux.load_t5_tokenizer, (256, 512))]
+    if llama_dir is not None:
+        checks.append(("Llama-3.1", llama_dir, edit_hd.load_llama_tokenizer, (128,)))
+    for name, path, load, lengths in checks:
+        start = time.perf_counter()
+        tok = (load(os.path.dirname(path), os.path.basename(path)) if name == "T5"
+               else load(path))
+        load_s = time.perf_counter() - start
+        if not isinstance(tok, HFTokenizer):
+            raise AssertionError(f"{path}: read as {type(tok).__name__}, not tokenizer.json")
+        size = len(tok.model.pieces if name == "T5" else tok.model.vocab)
+        times = []
+        for n in lengths:
+            ms = []
+            for _ in range(4):  # the first call, then three more
+                start = time.perf_counter()
+                out = tok(TOKENIZER_PROMPTS, padding="max_length", max_length=n,
+                          truncation=True, return_tensors="np")
+                ms.append((time.perf_counter() - start) * 1e3)
+            ids, mask = out["input_ids"], out["attention_mask"]
+            real = ids[mask == 1]
+            if ids.shape != (len(TOKENIZER_PROMPTS), n) or real.max() >= size + 256:
+                raise AssertionError(f"{name} tokenizer at {n}: ids {ids.shape}, max "
+                                     f"{real.max()}")
+            if name == "T5" and not all(ids[r, m.sum() - 1] == 1 for r, m in enumerate(mask)):
+                raise AssertionError("T5 tokenizer: a row does not end with </s>")
+            if name != "T5" and not (ids[:, 0] == LLAMA_TOKENS).all():
+                raise AssertionError("Llama tokenizer: a row does not start with bos")
+            times.append(f"at {n} tokens first {ms[0]:.1f} ms, then {np.median(ms[1:]):.1f} "
+                         f"ms (longest row {int(mask.sum(1).max())})")
+        print(f"[tokenizer] {name} tokenizer.json ({size} model tokens, "
+              f"{len(tok.added)} added): loaded in {load_s:.2f} s; a batch of "
+              f"{len(TOKENIZER_PROMPTS)} prompts {'; '.join(times)} (median of 3)",
+              flush=True)
 
 
 def write_snapshot(root: str, model: Model) -> None:
@@ -1742,11 +1954,12 @@ def phase_serve_model(snap: str, edit_path: str, model: Model, steps: int = 8,
 
 def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
     """``serve --quantize int8`` (``--fast`` given a spec) with the edit
-    overlay, in process through the CLI: warm-up of the ladder 1,2,4, then 8
-    Poisson requests at 4/s."""
+    overlay, in process through the CLI at ``SERVE_STEPS``: warm-up of the
+    ladder 1,2,4, then ``SERVE_REQUESTS`` Poisson requests at 4/s."""
     argv = ["serve", "--model_id", snap, "--quantize", "int8", "--uce_model_path",
             edit_path, "--batch_sizes", "1,2,4", "--bench", "4", "--bench_requests",
-            "8", "--device", "cuda"] + (["--fast", fast] if fast else [])
+            str(SERVE_REQUESTS), "--num_inference_steps", str(SERVE_STEPS),
+            "--device", "cuda"] + (["--fast", fast] if fast else [])
     out = io.StringIO()
     reset_launches()
     start = time.perf_counter()
@@ -1759,11 +1972,11 @@ def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
     if rc != 0 or len(reports) != 1:
         raise AssertionError(f"serve --bench: rc {rc}, output {out.getvalue()!r}")
     rep = reports[0]
-    if not (rep["n_requests"] == 8 and rep["throughput_rps"] > 0
+    if not (rep["n_requests"] == SERVE_REQUESTS and rep["throughput_rps"] > 0
             and 0 < rep["latency_p50_s"] <= rep["latency_p95_s"]):
         raise AssertionError(f"serve --bench report: {rep}")
     batches = 3 + rep["batches"]  # one warm-up batch per rung
-    full, shallow = fast_forwards(fast, pndm_plan(50).num_calls)
+    full, shallow = fast_forwards(fast, pndm_plan(SERVE_STEPS).num_calls)
     want = {"sd_attention_qk8": batches * (
         full * UNET_LAUNCHES_INT8["sd_attention_qk8"]
         + shallow * UNET_SHALLOW_LAUNCHES_INT8["sd_attention_qk8"]),
@@ -1772,7 +1985,8 @@ def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
     expect_launches(f"serve --quantize int8{mode}, {batches} batches x ({full} full "
                     f"+ {shallow} shallow UNet calls + 1 decode)", launches, want)
     print(f"[serve] {json.dumps(rep)}")
-    print(f"[serve] --quantize int8{mode} --batch_sizes 1,2,4 --bench 4: 8 requests in "
+    print(f"[serve] --quantize int8{mode} --batch_sizes 1,2,4 --bench 4, {SERVE_STEPS} "
+          f"steps: {SERVE_REQUESTS} requests in "
           f"{rep['batches']} batches (+3 warm-up), throughput {rep['throughput_rps']} "
           f"req/s, latency p50 {rep['latency_p50_s']} s, p95 {rep['latency_p95_s']} s; "
           f"{seconds:.1f} s CLI wall (load, warm-up and load run); launches "
@@ -1932,67 +2146,170 @@ def captured(module, name: str, results: list):
         setattr(module, name, fn)
 
 
-def phase_debias(snap: str, clip_snap: str, rows: dict) -> None:
-    """``debias-sd`` through the CLI on the kernel path, with the re-solve on
-    the card and then on the host: equal safetensors with diffusers keys,
-    telemetry, launches (per iteration: the scheduler's calls of the UNet at
-    batch 2 x 2 concepts x 4 images, one VAE decode at batch 8), and each
-    iteration's seconds of generation, classification and re-solve."""
-    calls = plan_from_hf(SD14.scheduler, 20).num_calls
-    out, saved = os.path.join(WORK, "debias"), {}
-    for resident in ("true", "false"):
-        seen, gn_seen, results = (collections.Counter(), collections.Counter(), [])
-        telemetry = os.path.join(out, f"telemetry_{resident}.csv")
-        with kernel_env(True):
-            reset_launches()
-            start = time.perf_counter()
-            with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
-                    gn_seen, rows["group_norm_act"]), finite_decodes(), captured(
-                    debias_mod, "run_debias", results):
-                rc = cli_main(["debias-sd", "--model_id", snap, "--clip_model_id",
-                               clip_snap, *DEBIAS_ARGS, "--save_dir", out,
-                               "--exp_name", f"debias_{resident}", "--telemetry_path",
-                               telemetry, "--device_resident", resident,
-                               "--device", "cuda"])
-            launches = read_launches()
-            seconds = time.perf_counter() - start
-        _, _, history = results[0]
-        iterations = len(history)
-        want = {k: iterations * (calls * SD14.unet_launches[k] + VAE_LAUNCHES[k])
-                for k in SD14.unet_launches}
+@contextlib.contextmanager
+def debias_spy(store: dict):
+    """Keep in ``store``, for the enclosed ``debias-sd`` run: run_debias's
+    result, a host re-solve at its final acc (``make_collapsed_solver`` on
+    the run's own targets and concept embeddings, as a function of acc)
+    and, on a mesh, every rank's K/V tensors after the last iteration (read
+    before the CLI stops the ranks)."""
+    run, resources = debias_mod.run_debias, debias_mod.resources_from_pipe
+
+    def resources_spy(*args, **kwargs):
+        store["resources"] = resources(*args, **kwargs)
+        return store["resources"]
+
+    def run_spy(pipe, clip_model, edit, attrs, preserve=(), settings=None, **kwargs):
+        out = run(pipe, clip_model, edit, attrs, preserve, settings=settings, **kwargs)
+        res = store.pop("resources")
+        embeds = res.encode_concepts(list(edit) + list(attrs) + list(preserve))
+        store["solve"] = debias_mod.make_collapsed_solver(res.targets, embeds, edit, attrs,
+                                                          preserve, settings)
+        if pipe.mesh is not None:
+            store["ranks"] = workers.held_values("unet", list(out[0]), pipe.unet_params)
+            store["layout"] = mesh_mod.layout_fn("unet", pipe.unet_config,
+                                                 pipe.mesh.n_model)
+            store["coords"] = [pipe.mesh.coords(r) for r in range(pipe.mesh.size)]
+        store["result"] = out
+        return out
+
+    debias_mod.run_debias, debias_mod.resources_from_pipe = run_spy, resources_spy
+    try:
+        yield
+    finally:
+        debias_mod.run_debias, debias_mod.resources_from_pipe = run, resources
+
+
+def arg_of(args: list, flag: str) -> str:
+    return args[args.index(flag) + 1]
+
+
+def debias_cli(snap: str, clip_snap: str, rows: dict, model: Model, args: list, tag: str,
+               resident: str = "true", mesh: str | None = None) -> dict:
+    """``debias-sd`` through the CLI on the kernel path (``mesh``: with
+    ``--mesh``, two ranks of ``cli_mesh_devices``): launches of every rank
+    (per iteration and rank: the scheduler's UNet calls and one decode),
+    telemetry, diffusers keys; the saved tensors equal bit for bit to a host
+    re-solve at the run's own final acc, and on a mesh every rank's K/V
+    tensors equal to its shards of them (in the UNet's dtype, as the swap
+    casts them). Returns the run's record."""
+    steps, n_img = int(arg_of(args, "--num_inference_steps")), int(
+        arg_of(args, "--num_images_per_prompt"))
+    calls = plan_from_hf(model.scheduler, steps).num_calls
+    out = os.path.join(WORK, "debias")
+    telemetry = os.path.join(out, f"telemetry_{tag}.csv")
+    seen, gn_seen, spied, workers_store = (collections.Counter(), collections.Counter(),
+                                           {}, {})
+    argv = ["debias-sd", "--model_id", snap, "--clip_model_id", clip_snap, *args,
+            "--save_dir", out, "--exp_name", f"debias_{tag}", "--telemetry_path",
+            telemetry, "--device_resident", resident, "--device", "cuda"] + (
+                ["--mesh", mesh] if mesh else [])
+    with kernel_env(True), cli_mesh_devices(), launches_at_stop(workers_store):
+        reset_launches()
+        start = time.perf_counter()
+        with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
+                gn_seen, rows["group_norm_act"]), finite_decodes(), debias_spy(spied):
+            rc = cli_main(argv)
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+    weights, acc, history = spied["result"]
+    iterations, ranks = len(history), 1 + workers_store.pop("workers", 0)
+    concepts = len(arg_of(args, "--edit_concepts").split(";"))
+    what = (f"{model.name} debias-sd --device_resident {resident}"
+            f"{' --mesh ' + mesh if mesh else ''}, {iterations} iteration(s) x ({calls} "
+            f"UNet calls at batch {2 * concepts * n_img // ranks} + 1 decode of "
+            f"{concepts * n_img // ranks}) a rank")
+    if rc != 0 or iterations != int(arg_of(args, "--max_iterations")):
+        raise AssertionError(f"{what}: rc {rc}, {iterations} iterations")
+    want = {k: iterations * (calls * model.unet_launches[k] + VAE_LAUNCHES[k])
+            for k in model.unet_launches}
+    if mesh:
+        per_rank(what, launches, workers_store, want, rows, ranks - 1)
+    else:
         want["conv3x3_reduce"] = conv_split_sums(seen)
-        what = (f"debias-sd --device_resident {resident}, {iterations} iterations x "
-                f"({calls} UNet calls at batch 16 + 1 decode at batch 8)")
-        if rc != 0 or iterations != 2:
-            raise AssertionError(f"{what}: rc {rc}")
         expect_launches(what, launches, want)
         add_launches(rows, launches)
-        with open(telemetry) as f:
-            tel = list(csv.reader(f))
-        if len(tel) != 1 + 2 * iterations:
-            raise AssertionError(f"{what}: telemetry has {len(tel)} lines")
-        saved[resident] = read_safetensors(os.path.join(out, f"debias_{resident}"
-                                                             ".safetensors"))
-        if len(saved[resident]) != SD14.targets or not all(
-                is_sd_cross_attn_kv(k) and k.endswith(".weight")
-                and bool(torch.isfinite(v).all()) for k, v in saved[resident].items()):
-            raise AssertionError(f"{what}: saved {sorted(saved[resident])[:3]}...")
-        for h in history:
-            sec = h["seconds"]
-            print(f"[debias] --device_resident {resident} iteration {h['iteration']}: "
-                  f"observed {h['observed'].tolist()}; seconds: re-solve "
-                  f"{sec['solve']:.4f}, generate {sec['generate']:.4f}, classify "
-                  f"{sec['classify']:.4f}, total {sum(sec.values()):.4f}")
-        print(f"[debias] {what}: {seconds:.2f} s CLI wall (loads included); "
-              f"telemetry {len(tel) - 1} rows; launches {want}; {len(seen)} conv and "
-              f"{len(gn_seen)} group_norm_act shapes held to the plain version on the "
-              "run's own inputs", flush=True)
-    differ = [k for k in saved["true"] if not torch.equal(saved["true"][k],
-                                                          saved["false"][k])]
-    if saved["true"].keys() != saved["false"].keys() or differ:
-        raise AssertionError(f"debias-sd: the device and host paths differ at {differ}")
-    print(f"[debias] the device-resident and host paths saved the same "
-          f"{SD14.targets} tensors bit for bit", flush=True)
+    with open(telemetry) as f:
+        tel = list(csv.reader(f))
+    saved = read_safetensors(os.path.join(out, f"debias_{tag}.safetensors"))
+    if len(tel) != 1 + concepts * iterations:
+        raise AssertionError(f"{what}: telemetry has {len(tel)} lines")
+    if len(saved) != model.targets or not all(
+            is_sd_cross_attn_kv(k) and k.endswith(".weight")
+            and bool(torch.isfinite(v).all()) for k, v in saved.items()):
+        raise AssertionError(f"{what}: saved {sorted(saved)[:3]}...")
+    host = spied["solve"](acc)
+    differ = [k for k in saved if not torch.equal(saved[k], host[k])]
+    if saved.keys() != host.keys() or differ:
+        raise AssertionError(f"{what}: the saved tensors differ from a host re-solve at "
+                             f"the run's final acc at {differ[:3]}")
+    note = "equal bit for bit to a host re-solve at the run's final acc"
+    if mesh:
+        for rank, (got, (_, m)) in enumerate(zip(spied["ranks"], spied["coords"])):
+            for k, v in saved.items():
+                cast = v.to(torch.bfloat16)
+                want_t = mesh_mod.shard_value(cast, spied["layout"](k, cast), m)
+                if k not in got or not torch.equal(got[k], want_t.cpu()):
+                    raise AssertionError(f"{what}: rank {rank}'s {k} is not its shard of "
+                                         "the saved weights")
+        note += f"; each of the {ranks} ranks' {len(saved)} K/V tensors its shard of them"
+    for h in history:
+        sec = h["seconds"]
+        print(f"[debias] {what}: iteration {h['iteration']} observed "
+              f"{h['observed'].tolist()}; seconds: re-solve {sec['solve']:.4f}, K/V send "
+              f"{sec['send']:.4f}, generate {sec['generate']:.4f}, classify "
+              f"{sec['classify']:.4f}, total {sum(sec.values()):.4f}")
+    print(f"[debias] {what}: {seconds:.2f} s CLI wall (loads included); telemetry "
+          f"{len(tel) - 1} rows; {len(saved)} saved tensors {note}; launches {want} a "
+          f"rank; {len(seen)} conv and {len(gn_seen)} group_norm_act shapes held to the "
+          "plain version on the run's own inputs", flush=True)
+    return {"saved": saved, "acc": acc, "history": history, "solve": spied["solve"],
+            "seconds": seconds}
+
+
+def phase_debias(snap: str, clip_snap: str, rows: dict) -> None:
+    """SD 1.4 ``debias-sd`` (``debias_cli``): 2 iterations with the re-solve
+    on the card; the host path at 1 iteration, whose first measurement and
+    saved tensors equal the device run's first and its solver's at that acc;
+    then ``--mesh data=2``, 2 iterations, its seconds per phase beside the
+    one-rank run's."""
+    one = debias_cli(snap, clip_snap, rows, SD14, DEBIAS_ARGS, "true")
+    args = DEBIAS_ARGS[:DEBIAS_ARGS.index("--max_iterations")] + ["--max_iterations", "1"]
+    host = debias_cli(snap, clip_snap, rows, SD14, args, "false", resident="false")
+    first, hfirst = one["history"][0], host["history"][0]
+    if not np.array_equal(first["observed"], hfirst["observed"]):
+        raise AssertionError("debias-sd: the host path's first measurement "
+                             f"{hfirst['observed']} differs from {first['observed']}")
+    want = one["solve"](host["acc"])
+    differ = [k for k in want if not torch.equal(host["saved"][k], want[k])]
+    if differ:
+        raise AssertionError(f"debias-sd: the device and host paths differ at {differ[:3]}")
+    print(f"[debias] SD 1.4: the host path at 1 iteration measured as the device path's "
+          f"first and saved its solver's {SD14.targets} tensors at that acc bit for bit",
+          flush=True)
+    meshed = debias_cli(snap, clip_snap, rows, SD14, DEBIAS_ARGS, "mesh", mesh="data=2")
+    last = lambda run, key: run["history"][-1]["seconds"][key]
+    print("[debias] SD 1.4 s of the last (warm) iteration, data=1 vs data=2 ("
+          + pipe_mesh_note(2, 1) + "): "
+          + "; ".join(f"{k} {last(one, k):.4f} vs {last(meshed, k):.4f}"
+                      for k in ("solve", "send", "generate", "classify"))
+          + f"; observed alike at every iteration: "
+          f"{all(np.array_equal(a['observed'], b['observed']) for a, b in zip(one['history'], meshed['history']))}",
+          flush=True)
+
+
+def phase_debias_sdxl(snap: str, clip_snap: str, rows: dict) -> None:
+    """SDXL ``debias-sd`` at 1024^2 with the SD 1.4 run's CLIP classifier
+    (``debias_cli``), 1 iteration with the re-solve on the card and on the
+    host: the same saved tensors bit for bit."""
+    runs = {r: debias_cli(snap, clip_snap, rows, SDXL, SDXL_DEBIAS_ARGS, f"sdxl_{r}",
+                          resident=r) for r in ("true", "false")}
+    a, b = runs["true"]["saved"], runs["false"]["saved"]
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if a.keys() != b.keys() or differ:
+        raise AssertionError(f"SDXL debias-sd: the device and host paths differ at {differ[:3]}")
+    print(f"[debias] SDXL: the device-resident and host paths saved the same "
+          f"{SDXL.targets} tensors bit for bit", flush=True)
 
 
 def phase_clip_classify(clip_snap: str, folder: str, cases: list) -> None:
@@ -2014,14 +2331,15 @@ def phase_clip_classify(clip_snap: str, folder: str, cases: list) -> None:
 
 # The comparison baselines on SD 1.4 (unedited, random weights at full
 # width) through their CLIs, each row one pipeline call: SLD (Medium, 50
-# PNDM steps, UNet batch 3), concept algebra (100 LMS steps, UNet batch 5 at
+# PNDM steps, UNet batch 3), concept algebra (LMS, UNet batch 5 at
 # --num_samples 1 and 10 at 2) and debias-VL (the 80 default professions,
-# 100 LMS steps, UNet batch 2). Per row: the plan's calls x the UNet's
+# LMS, UNet batch 2), the two LMS ones cut from their 100 steps to 25 for
+# the script's time. Per row: the plan's calls x the UNet's
 # launches + one decode at batch num_samples (counted on meta tensors at
 # these batches in tests/test_torch_baselines.py: the same per forward as
 # at batch 2).
 SLD_STEPS = 50
-BASELINE_STEPS = 100
+BASELINE_STEPS = 25
 # (CLI command, extra flags, scheduler of the plan, steps, images per row,
 # rows run, save folder under the run's directory)
 BASELINE_RUNS = [
@@ -2046,8 +2364,9 @@ BASELINE_RUNS = [
 COMBINE_REL = 1e-5
 COMBINE_FLIPS_MAX = 0.01
 # The calls captured for that check: SLD's 21st (active past Medium's
-# warmup of 10, momentum carried), concept algebra's 51st.
-SLD_CAPTURE_CALL, CA_CAPTURE_CALL = 20, 50
+# warmup of 10, momentum carried), concept algebra's 13th (mid-run of its
+# BASELINE_STEPS calls).
+SLD_CAPTURE_CALL, CA_CAPTURE_CALL = 20, 12
 # Eval metrics: the card's fp32 run (TF32 off) against the port's CPU run of
 # the same command, relative difference of every number in the CSV.
 EVAL_REL = 1e-4
@@ -2868,16 +3187,15 @@ def run_sd14(rows: dict, seconds: dict) -> None:
         add_launches(rows, phase_serve(snap, edit_path))
         phase_socket(snap, edit_path)
     with timed("SD 1.4 serve --fast", seconds):
-        add_launches(rows, phase_serve(snap, edit_path, FAST_SPEC))
+        add_launches(rows, phase_serve(snap, edit_path, SERVE_FAST_SPEC))
     with timed("SD 1.4 img/s", seconds):
         int8_pipe = copy.copy(pipe)
         int8_pipe.quantize_weights("int8")
         for path, p in (("library", pipe), ("kernels", pipe), ("int8", int8_pipe)):
             phase_throughput(p, path)
         del int8_pipe
-    with timed("SD 1.4 img/s fast", seconds):
-        for path in ("library", "kernels"):
-            phase_fast_rate(pipe, path)
+    with timed("SD 1.4 img/s fast", seconds):  # on the kernel path only, for time
+        phase_fast_rate(pipe, "kernels")
     del pipe
     torch.cuda.empty_cache()
     with timed("mesh: SD 1.4 data and model parallel", seconds):
@@ -2896,13 +3214,14 @@ def run_sd14(rows: dict, seconds: dict) -> None:
 
 def run_model(model: Model, rows: dict, seconds: dict,
               lms_steps: int | None = None, fast: str | None = None,
-              serve: bool = False) -> None:
+              serve: bool = False, debias: bool = False) -> None:
     """SD 2.1 or SDXL at full width: edit with every method, a UNet forward
     at UNet batch 2, a VAE decode, both quantized (int8 and w8), and
     ``generate`` on both paths at 50 steps of the model's scheduler (and,
     given ``lms_steps``, an LMS run on the kernel path; given ``fast``, a
     ``--fast`` run on the kernel path; given ``serve``, ``serve --quantize
-    int8``)."""
+    int8``; given ``debias``, ``debias-sd`` with the SD 1.4 run's CLIP
+    classifier)."""
     snap = os.path.join(WORK, f"{model.tag}_random")
     with timed(f"{model.name} snapshot", seconds):
         write_snapshot(snap, model)
@@ -2931,6 +3250,9 @@ def run_model(model: Model, rows: dict, seconds: dict,
     if serve:
         with timed(f"{model.name} serve --quantize int8", seconds):
             add_launches(rows, phase_serve_model(snap, edit_path, model))
+    if debias:
+        with timed(f"{model.name} debias-sd", seconds):
+            phase_debias_sdxl(snap, os.path.join(WORK, "clip_random"), rows)
     shutil.rmtree(snap)
     torch.cuda.empty_cache()
 
@@ -3043,14 +3365,14 @@ def close_files(fds: list) -> None:
 def write_flux_snapshot(root: str, fds: list) -> int:
     """FLUX.1-schnell at full width and depth with seeded random weights,
     stored in bf16 as a diffusers snapshot whose weight files are held in
-    memory (``write_parts``), character-vocabulary tokenizers for both
-    encoders. Fails before drawing if the host's memory is short. Returns
-    the bytes written."""
+    memory (``write_parts``), a character-vocabulary tokenizer for CLIP and
+    the T5 layout's tokenizer.json for T5. Fails before drawing if the
+    host's memory is short. Returns the bytes written."""
     snapshot_room_check("FLUX", root, {**flux.state_dict_shapes(flux.SCHNELL_CONFIG),
                                        **t5.state_dict_shapes(t5.T5_XXL_CONFIG)}, {})
     written = write_parts(root, flux_parts(), fds)
-    for sub in ("tokenizer", "tokenizer_2"):
-        write_tokenizer(os.path.join(root, sub), "<|endoftext|>")
+    write_tokenizer(os.path.join(root, "tokenizer"), "<|endoftext|>")
+    write_tokenizer_json(os.path.join(root, "tokenizer_2"), t5_tokenizer_files())
     os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
     with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump(FLUX_SCHEDULER, f)
@@ -3193,36 +3515,49 @@ def check_images(what: str, images, size: int | None = None) -> None:
 
 
 def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
-                        flags: tuple = ()) -> tuple:
-    """``generate-flux`` through the CLI, 1 prompt, 4 steps, guidance 0, at
-    1024^2 with the edit overlay, on ``path`` (with ``flags``: --staged,
-    --quantize MODE): the PNG, the launches derived from the steps (57 d=128
-    attentions each, quantized or not) and one decode, and the seconds of
-    the image after the load (of the generation from the embeddings, staged;
-    the DiT's staged load not included)."""
+                        flags: tuple = (), dev: bool = False) -> tuple:
+    """``generate-flux`` through the CLI, 1 prompt at 1024^2 with the edit
+    overlay, on ``path`` (with ``flags``: --staged, --quantize MODE):
+    schnell at 4 steps and guidance 0, or (``dev``) FLUX.1-dev at
+    ``FLUX_DEV_STEPS`` and guidance 3.5, its 512 T5 tokens read from the
+    joint attention's length, its dynamic shift's mu checked, the first
+    attention call at each shape held to the plain version on its own
+    inputs. The PNG,
+    the launches derived from the steps (57 d=128 attentions each,
+    quantized or not) and one decode, and the seconds of the image after the
+    load (of the generation from the embeddings, staged; the DiT's staged
+    load not included)."""
     csv_path = os.path.join(WORK, "prompts_flux.csv")
     with open(csv_path, "w", newline="") as f:
         csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
                                  [0, FLUX_PROMPT, 1]])
-    tag = re.sub(r"[^0-9a-z]+", "_", "".join(flags))
+    tag = re.sub(r"[^0-9a-z]+", "_", "".join(flags)) + ("_dev" if dev else "")
     out = os.path.join(WORK, f"images_flux_{path}{tag}")
     staged = "--staged" in flags
+    steps = FLUX_DEV_STEPS if dev else FLUX_STEPS
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
-    want = {**per_decode, "sd_attention_d128": FLUX_STEPS * FLUX_DIT_LAUNCHES[
+    want = {**per_decode, "sd_attention_d128": steps * FLUX_DIT_LAUNCHES[
         "sd_attention_d128"], "sd_attention_d512": 1}
     want["sd_attention"] = want["sd_attention_d128"] + 1
-    seen, gn_seen, calls = collections.Counter(), collections.Counter(), []
+    seen, gn_seen, calls, attn_seen, mus = (collections.Counter(), collections.Counter(),
+                                           [], collections.Counter(), [])
     spied = "generate_from_embeddings" if staged else "__call__"
     loads = []
+    extra = (["--num_inference_steps", str(steps), "--guidance_scale",
+              str(FLUX_DEV_GUIDANCE)] if dev else [])
     with kernel_env(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                 gn_seen, rows["group_norm_act"]), finite_decodes(), pipe_calls(
-                calls, FluxPipeline, spied), dit_loads(loads, pipeline_flux):
+                calls, FluxPipeline, spied), dit_loads(loads, pipeline_flux), (
+                attention_calls(attn_seen, rows) if dev and path == "kernels"
+                else contextlib.nullcontext()), captured(pipeline_flux, "compute_shift_mu",
+                                                         mus):
             rc = cli_main(["generate-flux", "--model_name", snap, "--prompts_path",
                            csv_path, "--save_path", out, "--uce_model_path", edit_path,
-                           "--image_size", str(FLUX.size), "--device", "cuda", *flags])
+                           "--image_size", str(FLUX.size), "--device", "cuda", *extra,
+                           *flags])
         launches = read_launches()
         seconds = time.perf_counter() - start
     if path == "kernels":
@@ -3230,17 +3565,59 @@ def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
     if rc != 0 or len(calls) != 1 or len(loads) != 1:
         raise AssertionError(f"generate-flux ({path} {flags}): rc {rc}, {len(calls)} "
                              f"calls, {len(loads)} DiT loads")
-    what = (f"FLUX.1-schnell generate-flux {' '.join(flags)} ({path}), 1 row x "
-            f"({FLUX_STEPS} steps + 1 decode)").replace("  ", " ")
+    name = "FLUX.1-dev" if dev else "FLUX.1-schnell"
+    what = (f"{name} generate-flux {' '.join(flags)} ({path}), 1 row x "
+            f"({steps} steps + 1 decode)").replace("  ", " ")
     expect_launches(what, launches, want)
+    note = ""
+    if dev:
+        joint = (1, flux.SCHNELL_CONFIG.num_attention_heads,
+                 FLUX.latent ** 2 // 4 + FLUX_DEV_TOKENS, flux.SCHNELL_CONFIG.attention_head_dim)
+        mu_want = pipeline_flux.compute_shift_mu(FLUX.latent ** 2 // 4)
+        if path == "kernels" and attn_seen[joint] != want["sd_attention_d128"]:
+            raise AssertionError(f"{what}: joint attention shapes {dict(attn_seen)}, want "
+                                 f"{want['sd_attention_d128']} at {joint}")
+        if mus != [mu_want]:
+            raise AssertionError(f"{what}: dynamic shift mu {mus}, want [{mu_want}]")
+        note = (f"; the joint attention at {joint} ({FLUX_DEV_TOKENS} T5 tokens), its "
+                f"first call held to the plain version" if path == "kernels" else "") + (
+                f"; dynamic shift mu {mus[0]:.4f}")
     image = read_case_images(os.path.join(out, "erase_art"), [[0, None, None]])[0]
     check_images(what, [image])
     image_s = calls[0][0] - (loads[0]["s"] if staged else 0.0)
     print(f"[generate] {what}: 1 PNG 1024x1024x3 uint8 in {seconds:.2f} s (CLI wall, "
           f"load included), {image_s:.3f} s for the image after the load; the DiT "
           f"{loads[0]['gb']:.2f} GB on the card, loaded in {loads[0]['s']:.1f} s; "
-          f"launches {launches} (want {want})", flush=True)
+          f"launches {launches} (want {want}){note}", flush=True)
     return launches, image
+
+
+def write_flux_dev_snapshot(schnell: str, root: str) -> int:
+    """FLUX.1-dev beside the schnell snapshot: its encoders, tokenizers and
+    VAE linked, the transformer's weights file linked with a second file
+    beside it holding the guidance embedder (drawn from SEED, as
+    ``flux.init_state_dict`` draws), dev's configs. Returns the new bytes."""
+    os.makedirs(os.path.join(root, "transformer"))
+    for name in os.listdir(schnell):
+        if name not in ("transformer", "scheduler"):
+            os.symlink(os.path.join(schnell, name), os.path.join(root, name))
+    fname = "diffusion_pytorch_model.safetensors"
+    os.symlink(os.path.join(schnell, "transformer", fname),
+               os.path.join(root, "transformer", fname))
+    with open(os.path.join(root, "transformer", "config.json"), "w") as f:
+        json.dump(FLUX_DEV.to_hf(), f)
+    os.makedirs(os.path.join(root, "scheduler"))
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(FLUX_DEV_SCHEDULER, f)
+    gen = torch.Generator("cuda").manual_seed(SEED + 13)
+    sd = {k: (torch.zeros(shape, device="cuda", dtype=torch.bfloat16) if k.endswith(".bias")
+              else torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16).mul_(0.02))
+          for k, shape in flux.state_dict_shapes(FLUX_DEV).items()
+          if ".guidance_embedder." in k}
+    path = os.path.join(root, "transformer", "guidance_embedder.safetensors")
+    save_safetensors(sd, path)
+    return os.path.getsize(path)
 
 
 def phase_flux_serve(snap: str, edit_path: str, quantize: str | None = None) -> dict:
@@ -3455,12 +3832,13 @@ def phase_flux_quant(pipe, rows: dict) -> None:
 
 
 def run_flux(rows: dict, seconds: dict) -> None:
-    """FLUX.1-schnell at full width and depth: snapshot, edit-flux, a DiT
-    forward on both paths, a VAE decode, the DiT quantized w8 and int8,
-    generate-flux on both paths, and with --quantize w8, --quantize int8 and
-    --staged on the kernel path, serve --family flux and serve --family flux
-    --quantize w8."""
-    snap, fds = os.path.join(WORK, "flux_random"), []
+    """FLUX.1-schnell at full width and depth: snapshot, the T5
+    tokenizer.json reader, edit-flux, a DiT forward on both paths, a VAE
+    decode, the DiT quantized w8 and int8, generate-flux on both paths (and
+    FLUX.1-dev's, on schnell's weights), and with --quantize w8, --quantize
+    int8 and --staged on the kernel path, serve --family flux and serve
+    --family flux --quantize w8."""
+    snap, dev, fds = os.path.join(WORK, "flux_random"), os.path.join(WORK, "flux_dev"), []
     print(f"[host] {host_memory()}", flush=True)
     try:
         with timed("FLUX snapshot", seconds):
@@ -3468,6 +3846,8 @@ def run_flux(rows: dict, seconds: dict) -> None:
             nbytes = write_flux_snapshot(snap, fds)
             print(f"[flux] snapshot: {nbytes} bytes written to host memory in "
                   f"{time.perf_counter() - start:.1f} s; {host_memory()}", flush=True)
+        with timed("FLUX tokenizer.json", seconds):
+            phase_tokenizers(os.path.join(snap, "tokenizer_2"))
         with timed("FLUX edit", seconds):
             edit_path = phase_flux_edit(snap)
         with timed("FLUX DiT and VAE", seconds):
@@ -3490,6 +3870,20 @@ def run_flux(rows: dict, seconds: dict) -> None:
             diff = np.abs(kernel_image.astype(int) - library_image.astype(int))
             print(f"[generate] FLUX kernels vs library path: mean |diff| "
                   f"{diff.mean():.3f} uint8 levels, max {int(diff.max())}", flush=True)
+        with timed("FLUX.1-dev generate", seconds):
+            nbytes = write_flux_dev_snapshot(snap, dev)
+            print(f"[flux] FLUX.1-dev snapshot: schnell's files linked, {nbytes} bytes of "
+                  "guidance embedder beside them", flush=True)
+            phase_flux_generate(dev, edit_path, "library", rows, dev=True)
+            launches, dev_image = phase_flux_generate(dev, edit_path, "kernels", rows,
+                                                      dev=True)
+            add_launches(rows, launches)
+            library_image = read_case_images(os.path.join(
+                WORK, "images_flux_library_dev", "erase_art"), [[0, None, None]])[0]
+            diff = np.abs(dev_image.astype(int) - library_image.astype(int))
+            print(f"[generate] FLUX.1-dev kernels vs library path: mean |diff| "
+                  f"{diff.mean():.3f} uint8 levels, max {int(diff.max())}", flush=True)
+            shutil.rmtree(dev)
         with timed("FLUX generate --staged, --quantize", seconds):
             for flags in (("--staged",), ("--quantize", "w8"), ("--quantize", "int8")):
                 launches, image = phase_flux_generate(snap, edit_path, "kernels", rows,
@@ -3509,6 +3903,7 @@ def run_flux(rows: dict, seconds: dict) -> None:
         with timed("mesh: FLUX model=2", seconds):
             phase_mesh_flux(snap, rows, fds)
     finally:
+        shutil.rmtree(dev, ignore_errors=True)
         shutil.rmtree(snap, ignore_errors=True)
         close_files(fds)
         torch.cuda.empty_cache()
@@ -3541,8 +3936,8 @@ def write_hidream_snapshot(root: str, fds: list) -> int:
     """HiDream-I1-Full at full width and depth with seeded random weights,
     stored in bf16 as a diffusers snapshot with the Llama in text_encoder_4
     (60.5 GB: more than a run may write to the disk, so the DiT's 34.2 GB
-    are held in memory, ``write_parts``), and character-vocabulary
-    tokenizers for the four encoders. Fails before drawing if the host's
+    are held in memory, ``write_parts``), character-vocabulary tokenizers
+    for the two CLIPs and the T5 and Llama-3.1 layouts' tokenizer.json. Fails before drawing if the host's
     memory or the disk is short. Returns the bytes written."""
     snapshot_room_check("HiDream", root, hidream.state_dict_shapes(hidream.I1_FULL_CONFIG),
                         {**llama.state_dict_shapes(llama.LLAMA31_8B_CONFIG),
@@ -3550,8 +3945,11 @@ def write_hidream_snapshot(root: str, fds: list) -> int:
     written = write_parts(root, hidream_parts(), fds, lambda sub: sub == "transformer")
     # a Llama snapshot carries its tokenizer beside its weights (edit-hidream
     # reads it there); the pipeline reads tokenizer_4
-    for sub in ("tokenizer", "tokenizer_2", "tokenizer_3", "tokenizer_4", "text_encoder_4"):
+    for sub in ("tokenizer", "tokenizer_2"):
         write_tokenizer(os.path.join(root, sub), "<|endoftext|>")
+    write_tokenizer_json(os.path.join(root, "tokenizer_3"), t5_tokenizer_files())
+    for sub in ("tokenizer_4", "text_encoder_4"):
+        write_tokenizer_json(os.path.join(root, sub), llama_tokenizer_files())
     os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
     with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump(HIDREAM_SCHEDULER, f)
@@ -3982,10 +4380,11 @@ def phase_hidream_serve(snap: str, edit_path: str) -> dict:
 
 
 def run_hidream(rows: dict, seconds: dict) -> None:
-    """HiDream-I1-Full at full width and depth: snapshot, edit-hidream, the
-    staged pipeline's DiT forward on both paths and in int8, its CFG window,
-    generate-hidream --staged on both paths and with --quantize w8, and
-    serve --family hidream --quantize w8."""
+    """HiDream-I1-Full at full width and depth: snapshot, the T5 and
+    Llama-3.1 tokenizer.json readers, edit-hidream, the staged pipeline's DiT
+    forward on both paths and in int8, its CFG window, generate-hidream
+    --staged on both paths and with --quantize w8, serve --family hidream
+    --quantize w8, and the DiT and generate-hidream --staged at model=2."""
     snap, fds = os.path.join(WORK, "hidream_random"), []
     print(f"[host] {host_memory()}", flush=True)
     try:
@@ -3995,6 +4394,9 @@ def run_hidream(rows: dict, seconds: dict) -> None:
             print(f"[hidream] snapshot: {nbytes} bytes written to host memory (the DiT) "
                   f"and disk in {time.perf_counter() - start:.1f} s; {host_memory()}",
                   flush=True)
+        with timed("HiDream tokenizer.json", seconds):
+            phase_tokenizers(os.path.join(snap, "tokenizer_3"),
+                             os.path.join(snap, "tokenizer_4"))
         with timed("HiDream edit", seconds):
             edit_path = phase_hidream_edit(snap)
         with timed("HiDream DiT", seconds):
@@ -4465,7 +4867,7 @@ def main() -> int:
     try:
         run_sd14(rows, seconds)
         run_model(SD21, rows, seconds, lms_steps=LMS_STEPS)
-        run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC, serve=True)
+        run_model(SDXL, rows, seconds, fast=SDXL_FAST_SPEC, serve=True, debias=True)
         run_flux(rows, seconds)
         run_hidream(rows, seconds)
     finally:

@@ -16,9 +16,7 @@ from uce_tpu.cli.main import build_parser as uce_parser
 from uce_tpu_torch.cli.main import build_parser as port_parser
 
 # (subcommand, flag) of uce that the port does not take, each for a reason
-# written in ROADMAP.md §3 (known divergences) or queue 1: none. (debias-sd
-# parses --mesh and rejects it with NotImplementedError, ROADMAP queue 1
-# item 4.)
+# written in ROADMAP.md §3 (known divergences): none.
 NOT_TAKEN = set()
 
 
@@ -54,13 +52,12 @@ def test_not_taken_list_is_current():
 
 @pytest.mark.parametrize("command", sorted(UCE))
 def test_only_mesh_options_are_not_ported(command):
-    """Every flag the port takes runs: only debias-sd's --mesh (ROADMAP queue
-    1 item 4) says it is not ported; the --mesh of generate, generate-flux,
-    generate-hidream and serve, --quantize and --staged of the DiT commands
-    and serve's families run."""
+    """Every flag the port takes runs: no help text says "not ported" (the
+    --mesh of debias-sd, generate, generate-flux, generate-hidream and
+    serve, --quantize and --staged of the DiT commands and serve's families
+    all run)."""
     for action in PORT[command]._actions:
-        if "not ported" in (action.help or ""):
-            assert (command, action.option_strings) == ("debias-sd", ["--mesh"])
+        assert "not ported" not in (action.help or ""), (command, action.option_strings)
     choices = {a.dest: a.choices for a in PORT[command]._actions}
     if command == "serve":
         assert choices["family"] == ["sd", "flux", "hidream"]

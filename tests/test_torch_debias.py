@@ -197,7 +197,7 @@ def test_run_debias_matches_uce_tpu(snaps, tmp_path):
     for h, j in zip(hist, jhist):
         np.testing.assert_array_equal(h["observed"], j["observed"])
         np.testing.assert_array_equal(h["ratios"], j["ratios"])
-        assert set(h["seconds"]) == {"solve", "generate", "classify"}
+        assert set(h["seconds"]) == {"solve", "send", "generate", "classify"}
     np.testing.assert_array_equal(acc, jacc)
     assert list(w) == list(jw)
     for k in w:
@@ -238,13 +238,131 @@ def test_debias_cli_both_applier_paths_agree(snaps, tmp_path):
         assert torch.equal(saved["true"][k], saved["false"][k]), k
 
 
-def test_debias_cli_rejects_mesh_and_ratio_mismatch(snaps):
+def test_debias_cli_rejects_mesh_and_ratio_mismatch(snaps, monkeypatch):
+    """A mesh spec that does not parse, or a mesh whose ranks cannot start,
+    fails the command before the loop (no one-rank fallback); so does a
+    ratio list of the wrong length."""
+    from uce_tpu_torch.cli import debias_cmd
     from uce_tpu_torch.cli.main import main as cli_main
+    from uce_tpu_torch.parallel import workers
 
     base = ["debias-sd", "--model_id", snaps[0], "--clip_model_id", snaps[1],
             "--edit_concepts", "doctor", "--debias_concepts", "male; female",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown --mesh key"):
+        cli_main(base + ["--mesh", "chips=2"])
+    with pytest.raises(ValueError, match="model=M must be >= 1"):
+        cli_main(base + ["--mesh", "data=2,model=0"])
+
+    def no_ranks(mesh):
+        raise RuntimeError("the mesh's ranks did not start")
+
+    loops = []
+    monkeypatch.setattr(workers, "start", no_ranks)
+    monkeypatch.setattr(debias_cmd, "_run", lambda *a: loops.append(a))
+    with pytest.raises(RuntimeError, match="did not start"):
         cli_main(base + ["--mesh", "data=2"])
+    assert loops == []
     with pytest.raises(SystemExit, match="do not match"):
         cli_main(base + ["--desired_ratios", "0.3", "0.3", "0.4"])
+
+
+MESH_KW = dict(num_images_per_prompt=3, num_inference_steps=2, max_iterations=2,
+               desired_ratios=(0.5, 0.5))
+MESH_CONCEPTS = (["doctor", "nurse"], ["nfu", "nxy"], ["chef"])
+
+
+@pytest.fixture(scope="module")
+def one_rank_debias(snaps):
+    """The one-rank port run and its CLIP model, which the mesh runs are
+    held to."""
+    from uce_tpu_torch.models.clip import CLIPModel
+
+    clip = CLIPModel.from_pretrained(snaps[1], device="cpu")
+    return clip, run_debias(_pipe(snaps[0]), clip, *MESH_CONCEPTS,
+                            settings=DebiasSettings(**MESH_KW),
+                            hypothesis_template="{}", image_size=32, verbose=False)
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (1, 2)], ids=["data2", "model2"])
+def test_debias_mesh_matches_one_rank_and_uce_tpu(snaps, one_rank_debias, tmp_path,
+                                                  n_data, n_model):
+    """``run_debias`` on a meshed pipeline (spawned gloo CPU ranks): at data=2
+    the one-rank weights, acc and ratio history bit for bit, at model=2 the
+    weights within SOLVE_TOL; after the loop every rank's K/V tensors are
+    its shards of the saved weights; uce_tpu's meshed run_debias (the same
+    mesh shape on its 8-device CPU mesh, on its host path) sees the same
+    observed ratios and saves weights within SOLVE_TOL. Then ``debias-sd --mesh`` with the host
+    re-solve writes diffusers keys, as one rank does."""
+    import jax
+    import jax.numpy as jnp
+
+    from uce_tpu.diffusion.pipeline import SDPipeline as JaxPipeline
+    from uce_tpu.edit.debias import DebiasSettings as JaxSettings
+    from uce_tpu.edit.debias import run_debias as jrun
+    from uce_tpu.models.clip import CLIPModel as JaxClip
+    from uce_tpu.parallel import mesh as jmesh
+    from uce_tpu_torch.cli.main import main as cli_main
+    from uce_tpu_torch.parallel import mesh as tmesh, workers
+
+    sd_snap, clip_snap = snaps
+    clip, (w1, acc1, hist1) = one_rank_debias
+    common = dict(hypothesis_template="{}", image_size=32, verbose=False)
+    pipe = _pipe(sd_snap)
+    mesh = tmesh.make_mesh(n_data, n_model, devices="cpu", store_dir=str(tmp_path))
+    pipe.apply_mesh(mesh)
+    try:
+        w, acc, hist = run_debias(pipe, clip, *MESH_CONCEPTS,
+                                  settings=DebiasSettings(**MESH_KW), **common)
+        shards = workers.held_values("unet", w, pipe.unet_params)
+        layout = tmesh.layout_fn("unet", pipe.unet_config, n_model)
+    finally:
+        pipe.apply_mesh(None)
+    assert len(hist) == len(hist1) == 2
+    for h, h1 in zip(hist, hist1):
+        np.testing.assert_array_equal(h["observed"], h1["observed"])
+        np.testing.assert_array_equal(h["ratios"], h1["ratios"])
+        assert set(h["seconds"]) == {"solve", "send", "generate", "classify"}
+    np.testing.assert_array_equal(acc, acc1)
+    assert list(w) == list(w1) and len(w) == len(shards[0]) > 0
+    for k in w:
+        if n_model == 1:
+            assert torch.equal(w[k], w1[k]), k
+        else:
+            np.testing.assert_allclose(w[k].numpy(), w1[k].numpy(), **SOLVE_TOL)
+    for rank, got in enumerate(shards):
+        m = mesh.coords(rank)[1]
+        for k, t in got.items():
+            lay = layout(k, w[k]) if n_model > 1 else None
+            assert torch.equal(t, tmesh.shard_value(w[k], lay, m)), (rank, k)
+    # the whole UNet is back on rank 0 and takes the saved weights as they are
+    for k in w:
+        assert torch.equal(pipe.unet_params[k], w[k]), k
+
+    jpipe = JaxPipeline.from_pretrained(sd_snap, dtype=jnp.float32)
+    jpipe.apply_mesh(jmesh.make_mesh(n_data, n_model, devices=jax.devices()[:2]))
+    # uce_tpu's device-resident swap commits the new leaves to one device,
+    # which its data-parallel generate then refuses: its host path
+    jw, jacc, jhist = jrun(jpipe, JaxClip.from_pretrained(clip_snap), *MESH_CONCEPTS,
+                           settings=JaxSettings(**MESH_KW), device_resident=False, **common)
+    assert len(jhist) == len(hist)
+    for h, j in zip(hist, jhist):
+        np.testing.assert_array_equal(h["observed"], j["observed"])
+        np.testing.assert_array_equal(h["ratios"], j["ratios"])
+    for k in w:
+        np.testing.assert_allclose(w[k].numpy(), np.asarray(jw[k]), **SOLVE_TOL)
+
+    saved = {}
+    for spec in (None, f"data={n_data},model={n_model}"):
+        argv = ["debias-sd", "--model_id", sd_snap, "--clip_model_id", clip_snap,
+                "--edit_concepts", "doctor; nurse", "--debias_concepts", "nfu; nxy",
+                "--num_images_per_prompt", "2", "--num_inference_steps", "2",
+                "--max_iterations", "1", "--image_size", "32", "--save_dir", str(tmp_path),
+                "--exp_name", f"deb_{spec}", "--device_resident", "false", "--device", "cpu"]
+        assert cli_main(argv + (["--mesh", spec] if spec else [])) == 0
+        saved[spec] = read_safetensors(str(tmp_path / f"deb_{spec}.safetensors"))
+    got, want = saved[f"data={n_data},model={n_model}"], saved[None]
+    assert got.keys() == want.keys() and len(got) == len(w)
+    assert all(k.endswith(("attn2.to_k.weight", "attn2.to_v.weight")) for k in got)
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **SOLVE_TOL)

@@ -148,15 +148,25 @@ def test_stream_count_mismatch_and_module_order(resources):
         thd_edit.module_index("context_embedder.weight")
 
 
-def test_missing_llama_and_real_tokenizer_raise(tmp_path):
+def test_missing_llama_and_real_tokenizer_files(tmp_path):
     """No llama_dir and no text_encoder_4: the 'pass llama_dir' error before
-    any file is read; a Llama tokenizer given only as tokenizer.json is not
-    read yet."""
+    any file is read; a Llama directory with only spiece.model is refused by
+    name; one with only tokenizer.json is read, padding with eos."""
+    from tests.torch_tokenizer_files import write_llama_tokenizer
+    from uce_tpu_torch.models.hf_tokenizer import HFTokenizer
+
     with pytest.raises(ValueError, match="llama_dir"):
         thd_edit.load_resources(str(tmp_path / "nonexistent"), llama_dir=None, device="cpu")
-    (tmp_path / "tokenizer.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    (tmp_path / "spiece.model").write_bytes(b"\x00")
+    with pytest.raises(NotImplementedError, match="spiece.model but no tokenizer.json"):
         thd_edit.load_llama_tokenizer(str(tmp_path))
+    write_llama_tokenizer(str(tmp_path), vocab_size=300)
+    tok = thd_edit.load_llama_tokenizer(str(tmp_path))
+    assert isinstance(tok, HFTokenizer) and tok.pad_token == "<|eot_id|>"
+    ids, mask = tok(["a cat"], max_length=8)["input_ids"], tok(["a cat"], max_length=8)[
+        "attention_mask"]
+    assert ids[0, 0] == tok.token_to_id("<|begin_of_text|>") and mask[0].sum() < 8
+    assert (ids[0, mask[0] == 0] == tok.pad_id).all()
 
 
 def test_edit_hidream_cli_matches_uce_tpu(hd_snap, tmp_path, monkeypatch):

@@ -1,13 +1,13 @@
 """uce_tpu_torch must run where jax, uce_tpu, safetensors, transformers,
-pandas, PIL, regex, onnx and matplotlib are absent (the CUDA machine has
-none of them): every module imports and the CLI answers --help with all of
-them blocked."""
+pandas, PIL, regex, onnx, matplotlib, tokenizers and sentencepiece are
+absent (the CUDA machine has none of them): every module imports and the
+CLI answers --help with all of them blocked."""
 
 import subprocess
 import sys
 
 BLOCKED = ("jax", "jaxlib", "uce_tpu", "safetensors", "transformers", "pandas",
-           "PIL", "regex", "onnx", "matplotlib")
+           "PIL", "regex", "onnx", "matplotlib", "tokenizers", "sentencepiece")
 
 SCRIPT = f"""
 import importlib, importlib.abc, pkgutil, sys

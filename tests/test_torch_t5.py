@@ -117,12 +117,30 @@ def test_init_state_dict_key_contract(flux_snap, gated):
     assert all(torch.equal(sd[k], again[k]) for k in sd)
 
 
-def test_real_t5_tokenizer_files_are_refused(tmp_path):
-    """A tokenizer_2 with only the real T5's SentencePiece files is not read
-    (the Unigram reader waits for a real file in the repository)."""
-    from uce_tpu_torch.edit.flux import load_t5_tokenizer
+@pytest.mark.parametrize("files", [("spiece.model",), ("spiece.model", "tokenizer.json")])
+def test_t5_tokenizer_json_is_read_and_spiece_alone_refused(tmp_path, files):
+    """A tokenizer_2 holding only SentencePiece's spiece.model is refused
+    by name; with a tokenizer.json beside it, that file is read and gives
+    AutoTokenizer's ids."""
+    from transformers import AutoTokenizer
 
-    (tmp_path / "tokenizer_2").mkdir()
-    (tmp_path / "tokenizer_2" / "spiece.model").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="T5 Unigram tokenizer"):
-        load_t5_tokenizer(str(tmp_path))
+    from tests.torch_tokenizer_files import write_t5_tokenizer
+    from uce_tpu_torch.edit.flux import load_t5_tokenizer
+    from uce_tpu_torch.models.hf_tokenizer import HFTokenizer
+
+    path = tmp_path / "tokenizer_2"
+    path.mkdir()
+    (path / "spiece.model").write_bytes(b"\x00")
+    if "tokenizer.json" not in files:
+        with pytest.raises(NotImplementedError, match="spiece.model but no tokenizer.json"):
+            load_t5_tokenizer(str(tmp_path))
+        return
+    write_t5_tokenizer(str(path), vocab_size=200)
+    tok = load_t5_tokenizer(str(tmp_path))
+    assert isinstance(tok, HFTokenizer)
+    texts = ["a photo of an astronaut", "Ａ ﬁsh <extra_id_7>"]
+    want = AutoTokenizer.from_pretrained(str(path))(texts, padding="max_length", max_length=32,
+                                                     truncation=True, return_tensors="np")
+    got = tok(texts, padding="max_length", max_length=32, truncation=True, return_tensors="np")
+    np.testing.assert_array_equal(got["input_ids"], want["input_ids"])
+    np.testing.assert_array_equal(got["attention_mask"], want["attention_mask"])

@@ -38,7 +38,9 @@ def register_cli(sub, add_device_flag) -> None:
     p.add_argument("--telemetry_path", type=str, default=None,
                    help="CSV to record per-iteration observed/ratio values")
     p.add_argument("--mesh", type=str, default=None, metavar="SPEC",
-                   help="multi-device mesh (not ported yet: ROADMAP queue 1 item 4)")
+                   help="multi-device mesh, 'data=N[,model=M]': the measurement "
+                        "images run on the data ranks, the UNet split over the model "
+                        "ranks; the re-solve and the classifier stay on rank 0")
     p.add_argument("--fast", type=str, default=None, metavar="SPEC",
                    help="beyond-protocol fast path for the measurement "
                         "generations, e.g. 'cfg_interval=3:25,cache=2' (the "
@@ -56,15 +58,8 @@ def _cmd(args) -> int:
     from uce_tpu_torch.cli.main import resolve_device
     from uce_tpu_torch.diffusion.pipeline import SDPipeline
     from uce_tpu_torch.diffusion.sampler import FastConfig
-    from uce_tpu_torch.edit.debias import DebiasSettings, run_debias
-    from uce_tpu_torch.models.clip import CLIPModel
     from uce_tpu_torch.utils.prompts import parse_concepts
 
-    if args.mesh:
-        raise NotImplementedError(
-            "debias-sd --mesh is not ported yet (ROADMAP queue 1 item 4: the debias "
-            "loop overlays new K/V weights every iteration, which every rank would "
-            "need again)")
     edit_concepts = parse_concepts(args.edit_concepts)
     debias_concepts = parse_concepts(args.debias_concepts)
     preserve_concepts = (parse_concepts(args.preserve_concepts)
@@ -82,6 +77,21 @@ def _cmd(args) -> int:
 
     pipe = SDPipeline.from_pretrained(args.model_id, dtype=torch.bfloat16,
                                       device=device)
+    if args.mesh:
+        from uce_tpu_torch.parallel.mesh import mesh_from_spec
+
+        pipe.apply_mesh(mesh_from_spec(args.mesh, devices=device))
+    try:
+        _run(args, pipe, edit_concepts, debias_concepts, preserve_concepts, fast, device)
+    finally:
+        pipe.apply_mesh(None)  # stops the mesh's ranks (a no-op without one)
+    return 0
+
+
+def _run(args, pipe, edit_concepts, debias_concepts, preserve_concepts, fast, device):
+    from uce_tpu_torch.edit.debias import DebiasSettings, run_debias
+    from uce_tpu_torch.models.clip import CLIPModel
+
     clip_model = CLIPModel.from_pretrained(args.clip_model_id, device=device)
     settings = DebiasSettings(
         desired_ratios=args.desired_ratios, max_iterations=args.max_iterations,
@@ -94,4 +104,3 @@ def _cmd(args) -> int:
                image_size=args.image_size, snapshot_every=args.snapshot_every,
                telemetry_path=args.telemetry_path, fast=fast,
                device_resident=args.device_resident == "true")
-    return 0

@@ -30,6 +30,7 @@ from uce_tpu_torch.models import sd_targets, unet as unet_mod
 from uce_tpu_torch.models.hf_loader import save_safetensors
 from uce_tpu_torch.ops.quant import is_quantized, is_weight_only
 from uce_tpu_torch.ops.solver import apply_edit_matrix, full_fp32, uce_edit_matrix
+from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils.observability import DebiasTelemetry
 
 # HF zero-shot-image-classification's default template, which the
@@ -201,14 +202,17 @@ class DeviceDebiasApplier:
         self._cat = apply_edit_matrix(self.w_cat, self.stacks.edit_matrix(acc))
         return self._cat
 
+    def edited(self, acc: np.ndarray) -> dict:
+        """Re-solve for ``acc``: the edited targets of ``params``, each in
+        its leaf's dtype on its device."""
+        cat = self.solve(acc)
+        return {name: cat[a:b].to(device=device, dtype=dtype)
+                for name, a, b, dtype, device in self._swaps}
+
     def overlay(self, params: dict, acc: np.ndarray) -> dict:
         """Re-solve for ``acc`` and swap the edited targets into a shallow
         copy of ``params``, all on the device."""
-        cat = self.solve(acc)
-        edited = dict(params)
-        for name, a, b, dtype, device in self._swaps:
-            edited[name] = cat[a:b].to(device=device, dtype=dtype)
-        return edited
+        return {**params, **self.edited(acc)}
 
     def export(self, acc: np.ndarray | None = None) -> dict[str, torch.Tensor]:
         """Safetensors-ready CPU dict (fp32), one download; the last
@@ -219,10 +223,23 @@ class DeviceDebiasApplier:
         return _split(cat.cpu(), self.names, self.rows)
 
 
-def resources_from_pipe(pipe) -> SDEditResources:
-    """SDEditResources of a live SDPipeline: the edit targets from its UNet
-    params (fp32 copies), the encoders from the pipeline."""
-    flat = {k: v for k, v in pipe.unet_params.items() if sd_targets.is_sd_cross_attn_kv(k)}
+def whole_targets(pipe, keys=None) -> dict:
+    """The ``keys`` leaves (by default the cross-attention to_k/to_v) of a
+    live SDPipeline's UNet, whole: on a mesh with a model axis rank 0 holds
+    a shard of each, so just these keys are gathered, once (every rank
+    keeps its shards)."""
+    if keys is None:
+        keys = [k for k in pipe.unet_params if sd_targets.is_sd_cross_attn_kv(k)]
+    if pipe.mesh is not None and pipe.mesh.n_model > 1:
+        return workers.gather_params("unet", pipe.unet_params, keys)
+    return {k: pipe.unet_params[k] for k in keys}
+
+
+def resources_from_pipe(pipe, targets: Mapping | None = None) -> SDEditResources:
+    """SDEditResources of a live SDPipeline: the edit targets (fp32 copies
+    of ``targets``, by default ``whole_targets(pipe)``), the encoders from
+    the pipeline."""
+    flat = whole_targets(pipe) if targets is None else targets
     if not flat or any(isinstance(v, dict) for v in flat.values()):
         raise ValueError(
             "no float cross-attn to_k/to_v edit targets in the UNet params; if "
@@ -274,7 +291,11 @@ def run_debias(
     """The closed loop on an SD pipeline.
 
     pipe: ``diffusion.pipeline.SDPipeline`` (its UNet params are swapped
-    each iteration, the reference's ``pipe.unet.load_state_dict``).
+    each iteration, the reference's ``pipe.unet.load_state_dict``). On a
+    mesh (``pipe.apply_mesh``) rank 0 re-solves from the whole targets and
+    sends only the changed K/V tensors, each rank keeping its shard of each
+    (``workers.update_params``); the measurement images run on the data
+    ranks, the classifier on rank 0.
     clip_model: ``models.clip.CLIPModel`` (or anything with ``classify``).
     resources: optional ``SDEditResources`` (default: the pipeline's own
     encoders and the targets of its UNet).
@@ -285,8 +306,8 @@ def run_debias(
     iteration), bit-identical.
 
     Returns (weights, acc, history); each history entry also holds the
-    iteration's wall ``seconds`` of its re-solve, generation and
-    classification.
+    iteration's wall ``seconds`` of its re-solve, K/V send (the swap into
+    the UNet, on a mesh to every rank), generation and classification.
     """
     settings = settings or DebiasSettings()
     if len(settings.desired_ratios) != len(debias_concepts):
@@ -297,21 +318,33 @@ def run_debias(
             f"{len(debias_concepts)} debias concepts: they must match")
     start = time.time()
     if resources is None:
-        resources = resources_from_pipe(pipe)
+        kv = whole_targets(pipe)
+        resources = resources_from_pipe(pipe, kv)
+    else:
+        kv = whole_targets(pipe, [k for k in resources.targets if k in pipe.unet_params])
     device = pipe.device
     concepts = list(edit_concepts) + list(debias_concepts) + list(preserve_concepts)
     concept_embeds = resources.encode_concepts(concepts)
     base_params = pipe.unet_params
-    timings = [{}]  # per measurement: the seconds of its solve, generate, classify
+    timings = [{}]  # per measurement: the seconds of its solve, send, generate, classify
+    layout = (mesh_mod.layout_fn("unet", pipe.unet_config, pipe.mesh.n_model)
+              if pipe.mesh is not None else None)
+
+    def swap(edited: dict) -> None:
+        """The whole edited K/V into the UNet: on a mesh each rank takes
+        its shard of each, and rank 0 keeps its own."""
+        if pipe.mesh is not None:
+            edited = workers.update_params("unet", edited.items(), layout)
+        pipe.unet_params = {**base_params, **edited}
 
     if device_resident:
         applier = DeviceDebiasApplier(resources.targets, concept_embeds,
                                       edit_concepts, debias_concepts,
-                                      preserve_concepts, settings, base_params)
+                                      preserve_concepts, settings, kv)
 
         def solve(acc):
-            pipe.unet_params = applier.overlay(base_params, acc)
-            return acc  # a token for the controller: weights stay on the card
+            # a token for the controller: the weights stay on the card
+            return acc, applier.edited(acc)
 
         snapshot_weights = applier.export
     else:
@@ -322,17 +355,18 @@ def run_debias(
 
         def solve(acc):
             host_weights[0] = host_solve(acc)
-            pipe.unet_params = unet_mod.overlay_edits(base_params, host_weights[0],
-                                                      dtype=pipe.dtype)
-            return host_weights[0]
+            return host_weights[0], unet_mod.overlay_edits(kv, host_weights[0],
+                                                           dtype=pipe.dtype)
 
         def snapshot_weights():
             return host_weights[0]
 
     def solve_and_swap(acc):
         t0 = _clock(device)
-        out = solve(acc)
-        timings[-1]["solve"] = _clock(device) - t0
+        out, edited = solve(acc)
+        t1 = _clock(device)
+        swap(edited)
+        timings[-1].update(solve=t1 - t0, send=_clock(device) - t1)
         return out
 
     labels = [hypothesis_template.format(c) for c in debias_concepts]

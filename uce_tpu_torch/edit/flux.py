@@ -25,6 +25,7 @@ from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.sd import load_text_encoder, load_tokenizer
 from uce_tpu_torch.models import clip_text, sd_targets, t5 as t5_mod
 from uce_tpu_torch.models.clip_tokenizer import CLIPTokenizer
+from uce_tpu_torch.models.hf_tokenizer import HFTokenizer, load_tokenizer_dir
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, save_safetensors
 from uce_tpu_torch.ops.solver import apply_edit_matrix, uce_edit_matrix
 
@@ -34,7 +35,7 @@ class FluxEditResources:
     targets: dict[str, torch.Tensor]  # {module.weight: [out, d]} fp32
     t5_params: dict
     t5_config: t5_mod.T5Config
-    t5_tokenizer: CLIPTokenizer
+    t5_tokenizer: CLIPTokenizer | HFTokenizer
     clip_params: dict
     clip_config: clip_text.CLIPTextConfig
     clip_tokenizer: CLIPTokenizer
@@ -60,18 +61,9 @@ def default_max_sequence_length(model_id: str) -> int:
     return 256 if "schnell" in model_id else 512
 
 
-def load_t5_tokenizer(model_dir: str, subfolder: str = "tokenizer_2") -> CLIPTokenizer:
-    """The T5 tokenizer (FLUX's ``tokenizer_2``, HiDream's ``tokenizer_3``)
-    in the CLIP BPE format (vocab.json + merges.txt), the format of the
-    repository's snapshots; a real T5 SentencePiece tokenizer (spiece.model
-    / tokenizer.json alone) is not read yet."""
-    path = os.path.join(model_dir, subfolder)
-    if not all(os.path.exists(os.path.join(path, f)) for f in ("vocab.json", "merges.txt")):
-        raise NotImplementedError(
-            f"{path} holds no vocab.json + merges.txt: the T5 Unigram tokenizer "
-            "(spiece.model / tokenizer.json) is not ported yet (ROADMAP queue 1 "
-            "item 13)")
-    return load_tokenizer(model_dir, subfolder)
+def load_t5_tokenizer(model_dir: str, subfolder: str = "tokenizer_2"):
+    """The T5 tokenizer (FLUX's ``tokenizer_2``, HiDream's ``tokenizer_3``)."""
+    return load_tokenizer_dir(os.path.join(model_dir, subfolder), "T5")
 
 
 def load_t5_encoder(model_dir: str, device="cuda", subfolder: str = "text_encoder_2"):

@@ -26,6 +26,7 @@ from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import load_t5_encoder, load_t5_tokenizer
 from uce_tpu_torch.models import llama as llama_mod, sd_targets, t5 as t5_mod
 from uce_tpu_torch.models.clip_tokenizer import CLIPTokenizer
+from uce_tpu_torch.models.hf_tokenizer import HFTokenizer, load_tokenizer_dir
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, save_safetensors
 from uce_tpu_torch.ops.solver import apply_edit_matrix, uce_edit_matrix_batch
 
@@ -45,10 +46,10 @@ class HiDreamEditResources:
     llama_layers: Sequence[int]
     llama_params: dict
     llama_config: llama_mod.LlamaConfig
-    llama_tokenizer: CLIPTokenizer
+    llama_tokenizer: CLIPTokenizer | HFTokenizer
     t5_params: dict
     t5_config: t5_mod.T5Config
-    t5_tokenizer: CLIPTokenizer
+    t5_tokenizer: CLIPTokenizer | HFTokenizer
     max_sequence_length: int = 128
     device: torch.device = torch.device("cuda")
 
@@ -75,16 +76,10 @@ def load_llama_encoder(llama_dir: str, device="cuda"):
     return llama_mod.convert_hf_state_dict(sd, config), config
 
 
-def load_llama_tokenizer(path: str) -> CLIPTokenizer:
-    """The Llama tokenizer in the CLIP BPE format (vocab.json + merges.txt),
-    the format of the repository's snapshots, padding with eos as diffusers'
-    HiDreamImagePipeline does. Llama-3.1's own byte-level BPE
-    (tokenizer.json) is not read yet."""
-    if not all(os.path.exists(os.path.join(path, f)) for f in ("vocab.json", "merges.txt")):
-        raise NotImplementedError(
-            f"{path} holds no vocab.json + merges.txt: Llama-3.1's byte-level BPE "
-            "tokenizer (tokenizer.json) is not ported yet (ROADMAP queue 1 item 14)")
-    return CLIPTokenizer.from_pretrained(path)
+def load_llama_tokenizer(path: str):
+    """The Llama-3.1 tokenizer, padding with eos where the files name no
+    pad token, as diffusers' HiDreamImagePipeline does."""
+    return load_tokenizer_dir(path, "Llama", pad_to_eos=True)
 
 
 def load_resources(model_dir: str, llama_dir: str | None = None,

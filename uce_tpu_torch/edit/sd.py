@@ -69,6 +69,8 @@ class SDEditResources:
 
 
 def load_tokenizer(model_dir: str, subfolder: str = "tokenizer") -> CLIPTokenizer:
+    """A CLIP tokenizer directory (``vocab.json`` + ``merges.txt``); T5 and
+    Llama directories go through ``models.hf_tokenizer.load_tokenizer_dir``."""
     return CLIPTokenizer.from_pretrained(os.path.join(model_dir, subfolder))
 
 

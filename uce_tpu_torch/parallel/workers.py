@@ -13,12 +13,14 @@ for hours):
 
   * ``send_params``: a slot of weights, one tensor at a time by
     ``broadcast`` from rank 0; each rank keeps its model shard of it (the
-    peak is one whole tensor, never a whole model);
+    peak is one whole tensor, never a whole model); ``update_params``
+    replaces some values of a held slot the same way;
   * ``run``: a module-level function on every rank with its slot params,
     its data slice of the batch tensors and the model group of its data
     group as the tensor-parallel context (``model_all_reduce``); the
     results (host objects) come back up the pipes;
-  * ``gather_params``: the shards back to rank 0, whole again;
+  * ``gather_params``: the shards back to rank 0, whole again (of some
+    keys only, the slot kept);
   * ``stop``.
 
 One mesh per process: torch.distributed's default group is process-wide,
@@ -314,12 +316,27 @@ def send_params(slot: str, items: Iterable[tuple[str, object]],
     keeps its model shard (``layout(key, value)``; None: whole). Returns
     rank 0's shard. The value passed in is dropped from rank 0 as soon as
     it is sent."""
+    return _put(slot, items, layout, fresh=True)
+
+
+def update_params(slot: str, items: Iterable[tuple[str, object]],
+                  layout: Callable | None = None) -> dict:
+    """Replace the values of ``items`` in the held slot ``slot`` on every
+    rank, as ``send_params`` sends them (each rank keeps its shard of each,
+    the rest of the slot stays as it was); returns rank 0's shards of
+    them."""
+    return _put(slot, items, layout, fresh=False)
+
+
+def _put(slot, items, layout, fresh: bool) -> dict:
     s = _controller()
     mesh = s.mesh
-    record, local = {}, {}
+    if not fresh and slot not in s.sent:
+        raise KeyError(f"the mesh holds no slot {slot!r} to update")
+    record, local = ({} if fresh else s.sent[slot]), {}
     with _guard():
         if mesh.size > 1:
-            _command(("params", slot))
+            _command(("params", slot, fresh))
         for key, v in items:
             lay = layout(key, v) if layout is not None and mesh.n_model > 1 else None
             metas = _metas(v)
@@ -337,18 +354,23 @@ def send_params(slot: str, items: Iterable[tuple[str, object]],
     return local
 
 
-def gather_params(slot: str, local: Mapping) -> dict:
+def gather_params(slot: str, local: Mapping, keys: Iterable[str] | None = None) -> dict:
     """The whole of slot ``slot`` on rank 0 again: the other model ranks of
     data group 0 broadcast their shards over its model group; rank 0 (which
-    holds ``local``) puts them back together. The workers drop the slot."""
+    holds ``local``) puts them back together. The workers drop the slot;
+    with ``keys``, only those values come back and every rank keeps it."""
     s = _controller()
     mesh = s.mesh
-    record = s.sent.pop(slot)
+    if keys is None:
+        record = s.sent.pop(slot)
+    else:
+        keys = list(keys)
+        record = {k: s.sent[slot][k] for k in keys}
     if mesh.size == 1:
-        return dict(local)
+        return {k: local[k] for k in record}
     out = {}
     with _guard():
-        _command(("gather", slot))
+        _command(("gather", slot, keys))
         for key, (metas, lay) in record.items():
             if lay is None:
                 out[key] = local[key]
@@ -415,6 +437,17 @@ def run(fn: Callable, static, tensors: Mapping[str, tuple], params: Mapping) -> 
         out = _execute(s, fn, params, static, {n: t for n, (t, _) in tensors.items()},
                        specs, env)
         return _gather_results(s, out)
+
+
+def _slot_values(params, spec, batch) -> dict:
+    slot, keys = spec
+    return {k: params[slot][k].cpu() for k in keys if k in params[slot]}
+
+
+def held_values(slot: str, keys: Iterable[str], local: Mapping) -> list[dict]:
+    """Each rank's own tensors of ``keys`` in slot ``slot`` (its shards on a
+    model axis), on the host, in rank order; rank 0's are ``local``'s."""
+    return run(_slot_values, (slot, list(keys)), {}, {slot: local})
 
 
 def _gather_results(s: _Session, mine) -> list:
@@ -552,7 +585,8 @@ def _worker_main(rank: int, mesh: mesh_mod.Mesh, init: str, conn) -> None:
             if kind == "stop":
                 break
             if kind == "params":
-                slot, params, record = cmd[1], {}, {}
+                slot, fresh = cmd[1], cmd[2]
+                params, record = ({}, {}) if fresh else (s.params[slot], s.sent[slot])
                 while (put := _recv())[0] == "put":
                     _, key, metas, lay = put
                     part = mesh_mod.shard_value(broadcast_from_controller(None, metas), lay, m)
@@ -561,7 +595,11 @@ def _worker_main(rank: int, mesh: mesh_mod.Mesh, init: str, conn) -> None:
                     record[key] = (metas, lay)
                 s.params[slot], s.sent[slot] = params, record
             elif kind == "gather":
-                params, record = s.params.pop(cmd[1]), s.sent.pop(cmd[1])
+                slot, keys = cmd[1], cmd[2]
+                if keys is None:
+                    params, record = s.params.pop(slot), s.sent.pop(slot)
+                else:
+                    params, record = s.params[slot], {k: s.sent[slot][k] for k in keys}
                 if d == 0:
                     _send_back(s, params, record)
             elif kind == "drop":
