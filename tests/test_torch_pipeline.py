@@ -79,3 +79,33 @@ def test_generate_cli_writes_case_pngs(sd_snap, edit_path, tmp_path):
         "0_0.png", "0_1.png", "3_0.png", "3_1.png"]
     img = decode_png((folder / "3_1.png").read_bytes())
     assert img.shape == (32, 32, 3) and img.dtype == np.uint8
+
+
+@pytest.mark.parametrize("fast", [None, "cfg_interval=1:3,cache=2"])
+def test_pipeline_spans(sd_snap, fast):
+    """One call records ``pipe.call`` holding, in order, ``pipe.encode``, a
+    ``pipe.model`` and a ``pipe.step`` span for each of the plan's calls,
+    ``pipe.decode`` and ``pipe.readback``: under ``denoise`` and under
+    ``denoise_fast``."""
+    from uce_tpu_torch.diffusion import schedulers
+    from uce_tpu_torch.diffusion.pipeline import SDPipeline
+    from uce_tpu_torch.diffusion.sampler import FastConfig
+    from uce_tpu_torch.utils import observability
+
+    pipe = SDPipeline.from_pretrained(sd_snap, dtype=torch.float32, device="cpu")
+    done = observability.spans()
+    mark = done[-1]["id"] if done else 0
+    pipe(["a cat", "a dog"], num_inference_steps=4, seed=[1, 2], height=32, width=32,
+         fast=FastConfig.from_spec(fast) if fast else None)
+    got = [s for s in observability.spans() if s["id"] > mark]
+    (call,) = [s for s in got if s["name"] == "pipe.call"]
+    assert call["batch"] == 2 and call["steps"] == 4 and call["parent"] is None
+    inside = [s for s in got if s["parent"] == call["id"]]
+    n = schedulers.plan_from_hf(pipe.scheduler_config, 4).num_calls
+    assert [s["name"] for s in inside] == (["pipe.encode"] + ["pipe.model", "pipe.step"] * n
+                                          + ["pipe.decode", "pipe.readback"])
+    assert [s["call"] for s in inside if s["name"] == "pipe.model"] == list(range(n))
+    assert [s["call"] for s in inside if s["name"] == "pipe.step"] == list(range(n))
+    starts = [s["start_ns"] for s in inside]
+    assert starts == sorted(starts) and all(s["end_ns"] <= call["end_ns"] for s in inside)
+    assert all(s["stream_s"] is None for s in got)

@@ -6,6 +6,7 @@ FLUX and HiDream servers (their DiTs quantized as they load) against
 uce_tpu's pipelines."""
 
 import base64
+import dataclasses
 import json
 import os
 import time
@@ -20,6 +21,7 @@ from uce_tpu_torch.diffusion.pipeline import SDPipeline
 from uce_tpu_torch.serving import socket_api
 from uce_tpu_torch.serving.loadgen import run_load
 from uce_tpu_torch.serving.server import GenerationServer, ServerConfig
+from uce_tpu_torch.utils import observability
 from uce_tpu_torch.utils.imaging import decode_png
 
 CFG = dict(num_inference_steps=2, height=32, width=32)
@@ -187,6 +189,78 @@ def test_family_without_scheduler_or_negatives():
         assert srv.generate("a cat", seed=5).shape == (32, 32, 3)
         with pytest.raises(ValueError, match="negative"):
             srv.submit("a cat", seed=1, negative_prompt="blurry")
+
+
+def _spans_since(mark):
+    return [s for s in observability.spans() if s["id"] > mark]
+
+
+def _last_span_id():
+    done = observability.spans()
+    return done[-1]["id"] if done else 0
+
+
+def test_spans_cover_each_request_and_batch():
+    """Each submitted request has one ``serve.queue`` span inside the
+    ``serve.batch`` it ran in (same batch id); warm-up batches say so and
+    hold no request's span; ``ServerStats`` sums the same waits."""
+    mark = _last_span_id()
+    cfg = ServerConfig(batch_size=4, max_wait_ms=200, warmup=True, **CFG)
+    with GenerationServer(_NoSchedulerPipe(), cfg) as srv:
+        futures = [srv.submit(f"p{i}", seed=i) for i in range(6)]
+        for f in futures:
+            f.result(timeout=60)
+        stats = dataclasses.replace(srv.stats)
+    got = _spans_since(mark)
+    batches = {s["id"]: s for s in got if s["name"] == "serve.batch"}
+    queued = [s for s in got if s["name"] == "serve.queue"]
+    assert sorted(s["request"] for s in queued) == sorted(set(s["request"] for s in queued))
+    assert len(queued) == 6
+    for q in queued:
+        b = batches[q["parent"]]
+        assert b["batch"] == q["batch"] and not b["warmup"]
+        assert q["end_ns"] == b["start_ns"] and q["host_s"] >= 0
+    warm = [b for b in batches.values() if b["warmup"]]
+    assert len(warm) == 1 and warm[0]["n_real"] == 4
+    served = [b for b in batches.values() if not b["warmup"]]
+    assert sum(b["n_real"] for b in served) == 6 == stats.requests
+    assert stats.queue_wait_seconds == pytest.approx(sum(q["host_s"] for q in queued))
+    fills = [s for s in got if s["name"] == "serve.fill"]
+    assert stats.fill_wait_seconds == pytest.approx(sum(f["host_s"] for f in fills))
+
+
+def test_part_full_batch_waits_in_fill():
+    """A batch that does not fill waits out max_wait_ms in ``serve.fill``,
+    after the batcher's ``serve.idle`` and before its ``serve.batch``."""
+    mark = _last_span_id()
+    cfg = ServerConfig(batch_size=4, max_wait_ms=30, warmup=False, **CFG)
+    with GenerationServer(_NoSchedulerPipe(), cfg) as srv:
+        srv.generate("a cat", seed=1)
+        fill_s = srv.stats.fill_wait_seconds
+    got = _spans_since(mark)
+    names = [s["name"] for s in got]
+    i = names.index("serve.batch")
+    assert names[i - 2:i] == ["serve.idle", "serve.fill"]
+    fill, batch = got[i - 1], got[i]
+    assert batch["n_real"] == 1 and batch["n_pad"] == 3
+    assert 0.03 <= fill["host_s"] and fill["end_ns"] <= batch["start_ns"]
+    assert fill_s == pytest.approx(fill["host_s"])
+
+
+def test_socket_stats_report_the_waits(tmp_path):
+    sock = str(tmp_path / "uce.sock")
+    srv = GenerationServer(_NoSchedulerPipe(), ServerConfig(
+        batch_size=2, max_wait_ms=20, warmup=False, **CFG)).start()
+    frontend = socket_api.SocketFrontend(srv, sock).start_background()
+    try:
+        assert socket_api.request(sock, {"prompt": "a cat", "seed": 7})["status"] == "ok"
+        stats = socket_api.request(sock, {"cmd": "stats"})
+    finally:
+        frontend.close()
+        srv.close()
+    assert stats["requests"] == 1
+    assert stats["queue_wait_seconds"] == srv.stats.queue_wait_seconds > 0
+    assert stats["fill_wait_seconds"] == srv.stats.fill_wait_seconds >= 0.02
 
 
 def test_fast_spec_served(pipe):

@@ -1,7 +1,9 @@
 """Text-to-image pipeline for SD v1.x / v2.x and SDXL (two text encoders):
 tokenize -> CLIP encode -> guided scheduler loop over the UNet (CFG, or a
 comparison baseline's guidance: ``diffusion/guidance.py``) -> VAE decode ->
-uint8 images.
+uint8 images. Each call is a ``pipe.call`` span holding its ``pipe.encode``,
+the sampler's ``pipe.model`` and ``pipe.step`` spans, ``pipe.decode`` and
+``pipe.readback`` (``utils/observability``).
 
 ``apply_mesh`` runs the denoise and the decode on a mesh of processes
 (``parallel/workers.py``), as uce_tpu's sharded generate call: the image
@@ -28,6 +30,7 @@ from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safe
 from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils import torch_rng
 from uce_tpu_torch.utils.imaging import save_png
+from uce_tpu_torch.utils.observability import span
 
 
 @dataclasses.dataclass
@@ -226,56 +229,58 @@ class SDPipeline:
                          for _ in range(num_images_per_prompt)]
             if len(negatives) != bsz:
                 raise ValueError("len(negative_prompt) must match len(prompt)")
-        if self.is_sdxl:  # encode once: the pooled vectors feed added_cond
-            cond, pooled_cond = self.encode_prompts_sdxl(prompts)
-            uncond, pooled_uncond = self.encode_prompts_sdxl(negatives)
-        else:
-            cond, uncond = self.encode_prompts(prompts), self.encode_prompts(negatives)
+        with span("pipe.call", self.device, batch=bsz, steps=num_inference_steps):
+            with span("pipe.encode", self.device):
+                if self.is_sdxl:  # encode once: the pooled vectors feed added_cond
+                    cond, pooled_cond = self.encode_prompts_sdxl(prompts)
+                    uncond, pooled_uncond = self.encode_prompts_sdxl(negatives)
+                else:
+                    cond, uncond = self.encode_prompts(prompts), self.encode_prompts(negatives)
 
-        if mode == "concept_algebra":
-            if concepts_to_project is None or len(concepts_to_project) != 3:
-                raise ValueError("concept_algebra needs exactly 3 concepts_to_project")
-            extra = [self.encode_prompts([c]).repeat(bsz, 1, 1)
-                     for c in concepts_to_project]
-        elif mode == "sld":
-            safety = safety_concept or guidance.DEFAULT_SAFETY_CONCEPT
-            extra = [self.encode_prompts([safety]).repeat(bsz, 1, 1)]
-        else:
-            extra = []
-            if mode == "debias_vl":
-                if debias_projection is None:
-                    raise ValueError(
-                        "mode='debias_vl' needs a debias_projection matrix "
-                        "(guidance.debias_vl_calibration)")
-                proj = torch.as_tensor(np.asarray(debias_projection, np.float32),
-                                       device=self.device)
-                cond = (cond.float() @ proj.T).to(self.dtype)
-        context = torch.cat([uncond, cond, *extra])
-        n_branches = 2 + len(extra)
-        added_cond = None
-        if self.is_sdxl:
-            added_cond = self._sdxl_added_cond(pooled_cond, pooled_uncond, height,
-                                               width, n_branches)
+                if mode == "concept_algebra":
+                    if concepts_to_project is None or len(concepts_to_project) != 3:
+                        raise ValueError("concept_algebra needs exactly 3 concepts_to_project")
+                    extra = [self.encode_prompts([c]).repeat(bsz, 1, 1)
+                             for c in concepts_to_project]
+                elif mode == "sld":
+                    safety = safety_concept or guidance.DEFAULT_SAFETY_CONCEPT
+                    extra = [self.encode_prompts([safety]).repeat(bsz, 1, 1)]
+                else:
+                    extra = []
+                    if mode == "debias_vl":
+                        if debias_projection is None:
+                            raise ValueError(
+                                "mode='debias_vl' needs a debias_projection matrix "
+                                "(guidance.debias_vl_calibration)")
+                        proj = torch.as_tensor(np.asarray(debias_projection, np.float32),
+                                               device=self.device)
+                        cond = (cond.float() @ proj.T).to(self.dtype)
+                context = torch.cat([uncond, cond, *extra])
+                n_branches = 2 + len(extra)
+                added_cond = None
+                if self.is_sdxl:
+                    added_cond = self._sdxl_added_cond(pooled_cond, pooled_uncond, height,
+                                                       width, n_branches)
 
-        vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
-        if height % vae_scale or width % vae_scale:
-            raise ValueError(f"height/width must be multiples of {vae_scale} "
-                             f"(got {height}x{width})")
-        latents = torch_rng.draw_prompt_latents(
-            (height // vae_scale, width // vae_scale, self.unet_config.in_channels),
-            seed, n_prompts, num_images_per_prompt).to(self.device, self.dtype)
-        spec = {"unet_config": self.unet_config, "vae_config": self.vae_config,
-                # a per-call scheduler changes the type only; the model's
-                # scheduler hyperparameters (prediction_type, betas, ...) carry over
-                "plan": (scheduler, self.scheduler_config, num_inference_steps),
-                "mode": mode, "guidance_scale": guidance_scale,
-                "sld_config": sld_config, "fast": fast, "save_paths": save_paths}
-        tensors = {"latents": (latents, 1), "context": (context, n_branches)}
-        if added_cond is not None:
-            tensors.update({f"added.{k}": (v, n_branches) for k, v in added_cond.items()})
-        images = sample_batch(self.mesh, _denoise_decode, spec, tensors,
-                         {"unet": self.unet_params, "vae": self.vae_params})
-        return None if save_paths is not None else images
+            vae_scale = 2 ** (len(self.vae_config.block_out_channels) - 1)
+            if height % vae_scale or width % vae_scale:
+                raise ValueError(f"height/width must be multiples of {vae_scale} "
+                                 f"(got {height}x{width})")
+            latents = torch_rng.draw_prompt_latents(
+                (height // vae_scale, width // vae_scale, self.unet_config.in_channels),
+                seed, n_prompts, num_images_per_prompt).to(self.device, self.dtype)
+            spec = {"unet_config": self.unet_config, "vae_config": self.vae_config,
+                    # a per-call scheduler changes the type only; the model's
+                    # scheduler hyperparameters (prediction_type, betas, ...) carry over
+                    "plan": (scheduler, self.scheduler_config, num_inference_steps),
+                    "mode": mode, "guidance_scale": guidance_scale,
+                    "sld_config": sld_config, "fast": fast, "save_paths": save_paths}
+            tensors = {"latents": (latents, 1), "context": (context, n_branches)}
+            if added_cond is not None:
+                tensors.update({f"added.{k}": (v, n_branches) for k, v in added_cond.items()})
+            images = sample_batch(self.mesh, _denoise_decode, spec, tensors,
+                             {"unet": self.unet_params, "vae": self.vae_params})
+            return None if save_paths is not None else images
 
 
 def sample_batch(mesh, fn, spec: dict, tensors: dict, params: dict) -> np.ndarray:
@@ -378,17 +383,19 @@ def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
             guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
     if workers.tp_rank() != 0:
         return None
-    scaled = (final.float() / vae_config.scaling_factor).to(latents.dtype)
-    return decoded_images(vae_mod.decode(params["vae"], scaled, vae_config), batch["rows"],
-                      spec["save_paths"])
+    with span("pipe.decode", final.device):
+        scaled = (final.float() / vae_config.scaling_factor).to(latents.dtype)
+        imgs = vae_mod.decode(params["vae"], scaled, vae_config)
+    return decoded_images(imgs, batch["rows"], spec["save_paths"])
 
 
 def decoded_images(imgs: torch.Tensor, rows: torch.Tensor,
                    save_paths=None) -> np.ndarray | None:
     """Decoded images in [-1, 1] -> uint8 [N, H, W, 3]; given
     ``save_paths``, each row's PNG is written instead (the padding's not)."""
-    imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
-    imgs = torch.round(imgs * 255.0).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+    with span("pipe.readback", imgs.device):
+        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0)
+        imgs = torch.round(imgs * 255.0).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
     if save_paths is None:
         return imgs
     for img, row in zip(imgs, rows.tolist()):

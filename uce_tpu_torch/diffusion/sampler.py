@@ -1,6 +1,7 @@
 """Denoising loop: one batched model call over the guidance branches (CFG's
 two, or a baseline's three or five), the guidance combine, and the
-scheduler's table-driven step, per plan call.
+scheduler's table-driven step, per plan call; each call is a ``pipe.model``
+span and its combine and step a ``pipe.step`` span (``utils/observability``).
 ``denoise_fast`` adds uce_tpu's opt-in fast mode (``FastConfig``): CFG only
 inside a window of calls, and DeepCache's reuse of the deep UNet feature."""
 
@@ -12,6 +13,7 @@ from typing import Callable
 import torch
 
 from uce_tpu_torch.diffusion.schedulers import Plan
+from uce_tpu_torch.utils.observability import span
 
 
 def cfg_combine(eps_branches: torch.Tensor, guidance_scale: float) -> torch.Tensor:
@@ -120,15 +122,17 @@ def denoise(
     hist = plan.init_carry(lat)
     state = guidance_state
     for i in range(plan.num_calls):
-        lat_in = plan.scale_model_input(torch.cat([lat] * num_branches), i)
-        eps_branches = model_fn(lat_in, float(plan.timesteps[i]))
-        if guidance_state is None:
-            eps = guidance_fn(eps_branches)
-        else:
-            eps, state = guidance_fn(eps_branches, i, state)
-        eps = eps.to(lat.dtype)
-        new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
-        lat = new_lat.to(lat.dtype)
+        with span("pipe.model", lat.device, call=i):
+            lat_in = plan.scale_model_input(torch.cat([lat] * num_branches), i)
+            eps_branches = model_fn(lat_in, float(plan.timesteps[i]))
+        with span("pipe.step", lat.device, call=i):
+            if guidance_state is None:
+                eps = guidance_fn(eps_branches)
+            else:
+                eps, state = guidance_fn(eps_branches, i, state)
+            eps = eps.to(lat.dtype)
+            new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
+            lat = new_lat.to(lat.dtype)
     return lat
 
 
@@ -182,16 +186,18 @@ def denoise_fast(
             else:
                 deep = None  # no valid cache: the segment's first call is full
         for i in range(seg_start, seg_end):
-            lat_in = lat if cond_only else torch.cat([lat, lat])
-            lat_in = plan.scale_model_input(lat_in, i)
-            t = float(plan.timesteps[i])
-            if n_cache == 1:
-                eps = f_full(lat_in, t)
-            elif deep is None or i % n_cache == 0:
-                eps, deep = f_deep(lat_in, t)
-            else:
-                eps = f_cached(lat_in, t, deep)
-            eps = guidance(eps).to(lat.dtype)
-            new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
-            lat = new_lat.to(lat.dtype)
+            with span("pipe.model", lat.device, call=i):
+                lat_in = lat if cond_only else torch.cat([lat, lat])
+                lat_in = plan.scale_model_input(lat_in, i)
+                t = float(plan.timesteps[i])
+                if n_cache == 1:
+                    eps = f_full(lat_in, t)
+                elif deep is None or i % n_cache == 0:
+                    eps, deep = f_deep(lat_in, t)
+                else:
+                    eps = f_cached(lat_in, t, deep)
+            with span("pipe.step", lat.device, call=i):
+                eps = guidance(eps).to(lat.dtype)
+                new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
+                lat = new_lat.to(lat.dtype)
     return lat

@@ -19,11 +19,18 @@ once and keeps the card busy:
 
 All torch work happens on the single batcher thread; submit() is
 thread-safe and returns a Future.
+
+Spans (``utils/observability``): ``serve.idle`` while the batcher waits on
+an empty queue, ``serve.fill`` while it waits out ``max_wait_ms`` for
+stragglers, ``serve.batch`` around each batch (the parent of the pipeline's
+spans) and, per request, ``serve.queue`` from submit() to the start of its
+batch. ``ServerStats`` sums the queue and fill waits at the same bounds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -33,6 +40,7 @@ from concurrent.futures import Future
 import numpy as np
 
 from uce_tpu_torch.diffusion.sampler import FastConfig
+from uce_tpu_torch.utils.observability import record, span
 
 logger = logging.getLogger(__name__)
 
@@ -83,6 +91,8 @@ class Request:
     seed: int
     negative_prompt: str = ""
     future: Future = dataclasses.field(default_factory=Future)
+    id: int = 0
+    submitted_ns: int | None = None  # perf_counter_ns at submit(); None: warm-up
 
 
 @dataclasses.dataclass
@@ -91,6 +101,8 @@ class ServerStats:
     requests: int = 0
     padded_slots: int = 0
     total_batch_seconds: float = 0.0
+    queue_wait_seconds: float = 0.0  # summed over requests: submit() to their batch's start
+    fill_wait_seconds: float = 0.0  # waiting out max_wait_ms with a batch begun
 
     @property
     def occupancy(self) -> float:
@@ -130,6 +142,8 @@ class GenerationServer:
         self._thread: threading.Thread | None = None
         self._closed = False
         self._lock = threading.Lock()  # orders submit() against close()
+        self._request_ids = itertools.count(1)
+        self._batch_ids = itertools.count(1)
         self._pipe_param_names = self._inspect_pipe_params()
 
     def _inspect_pipe_params(self) -> frozenset | None:
@@ -162,7 +176,7 @@ class GenerationServer:
         if self._fast is not None and not self._pipe_supports("fast"):
             raise ValueError("this pipeline family takes no fast config")
         if self.config.warmup:
-            t0 = time.time()
+            t0 = time.perf_counter()
             # largest rung first: an out-of-memory fails startup before
             # the cheap rungs waste warm-up time; a pinned server only
             # ever runs the top rung, so skip warming the others
@@ -173,7 +187,7 @@ class GenerationServer:
                     [Request(prompt="", seed=0) for _ in range(size)])
             logger.info("serving signature(s) warmed in %.1f s "
                         "(batches=%s %dx%d steps=%d)",
-                        time.time() - t0, list(self.batch_sizes),
+                        time.perf_counter() - t0, list(self.batch_sizes),
                         self.config.height, self.config.width,
                         self.config.num_inference_steps)
             # warmup batches do not count toward serving stats
@@ -228,7 +242,8 @@ class GenerationServer:
             raise ValueError(
                 "this pipeline family takes no negative prompts")
         req = Request(prompt=prompt, seed=int(seed),
-                      negative_prompt=negative_prompt)
+                      negative_prompt=negative_prompt, id=next(self._request_ids),
+                      submitted_ns=time.perf_counter_ns())
         with self._lock:
             if self._closed:
                 raise RuntimeError("server is closed")
@@ -244,23 +259,26 @@ class GenerationServer:
     def _gather(self) -> list[Request] | None:
         """Block for the first request, then collect up to batch_size,
         waiting at most max_wait_ms for stragglers."""
-        first = self._queue.get()
+        with span("serve.idle"):
+            first = self._queue.get()
         if first is None:
             return None
         batch = [first]
-        deadline = time.monotonic() + self.config.max_wait_ms / 1000.0
-        while len(batch) < self.batch_sizes[-1]:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._queue.put(None)  # re-post shutdown for the loop
-                break
-            batch.append(nxt)
+        with span("serve.fill") as fill:
+            deadline = time.monotonic() + self.config.max_wait_ms / 1000.0
+            while len(batch) < self.batch_sizes[-1]:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._queue.put(None)  # re-post shutdown for the loop
+                    break
+                batch.append(nxt)
+        self.stats.fill_wait_seconds += (fill.t1 - fill.t0) / 1e9
         return batch
 
     def _pipe_kwargs(self, negatives: list[str]) -> dict:
@@ -296,18 +314,26 @@ class GenerationServer:
         prompts = [r.prompt for r in batch] + [""] * n_pad
         seeds = [r.seed for r in batch] + [0] * n_pad
         negatives = [r.negative_prompt for r in batch] + [""] * n_pad
-        t0 = time.time()
-        images = self.pipe(
-            prompts,
-            num_inference_steps=cfg.num_inference_steps,
-            guidance_scale=cfg.guidance_scale,
-            num_images_per_prompt=1,
-            seed=seeds,
-            height=cfg.height,
-            width=cfg.width,
-            **self._pipe_kwargs(negatives),
-        )
-        dt = time.time() - t0
+        batch_id = next(self._batch_ids)
+        warmup = all(r.submitted_ns is None for r in batch)  # start()'s, never submitted
+        with span("serve.batch", getattr(self.pipe, "device", None), batch=batch_id,
+                  n_real=n_real, n_pad=n_pad, warmup=warmup) as run:
+            for r in batch:
+                if r.submitted_ns is not None:
+                    record("serve.queue", r.submitted_ns, run.t0, request=r.id, batch=batch_id)
+                    self.stats.queue_wait_seconds += (run.t0 - r.submitted_ns) / 1e9
+            t0 = time.perf_counter()
+            images = self.pipe(
+                prompts,
+                num_inference_steps=cfg.num_inference_steps,
+                guidance_scale=cfg.guidance_scale,
+                num_images_per_prompt=1,
+                seed=seeds,
+                height=cfg.height,
+                width=cfg.width,
+                **self._pipe_kwargs(negatives),
+            )
+            dt = time.perf_counter() - t0
         self.stats.batches += 1
         self.stats.requests += n_real
         self.stats.padded_slots += n_pad

@@ -12,7 +12,9 @@ Response (one line)::
     {"status": "ok", "png_base64": "..."}             # otherwise
     {"status": "error", "error": "..."}
 
-A request line ``{"cmd": "stats"}`` returns serving statistics;
+A request line ``{"cmd": "stats"}`` returns serving statistics (``ServerStats``:
+batches, requests, padded slots, occupancy, the seconds in batches, and the
+queue and fill waits);
 ``{"cmd": "shutdown"}`` stops the listener. Concurrent client
 connections are each handled on their own thread; batching happens in
 GenerationServer regardless of which connection a request arrived on.
@@ -104,6 +106,8 @@ class SocketFrontend:
                     "requests": s.requests, "padded_slots": s.padded_slots,
                     "occupancy": s.occupancy,
                     "total_batch_seconds": s.total_batch_seconds,
+                    "queue_wait_seconds": s.queue_wait_seconds,
+                    "fill_wait_seconds": s.fill_wait_seconds,
                     "batch_sizes": list(self.gen_server.batch_sizes)}
         if cmd == "shutdown":
             threading.Thread(target=self._sock.shutdown,
