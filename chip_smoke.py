@@ -40,12 +40,12 @@ each phase's seconds and the total are printed):
      each, held to a float64 solve of the same embeddings within a bound set
      from cond(mat2), and general and pallas to collapsed;
   5. full-width UNet forwards at batch 4: impl="auto" (attention kernel)
-     against impl="plain", and with UCE_CONV_IMPL=UCE_GN_IMPL=pallas (all
-     kernels) against the library path, with the launches per forward (the
-     conv's by kernel: wgmma, mma.sync, split-K sums);
+     against impl="plain", and on the kernel path (all kernels, the default)
+     against the library path (``route(False)``), with the launches per
+     forward (the conv's by kernel: wgmma, mma.sync, split-K sums);
   6. one VAE decode at 512x512 on both paths, with its launches;
   7. ``generate`` through the CLI at 512px, PNDM, 50 steps, CFG 7.5, with the
-     edit overlay, on the default path and on the kernel path: PNG checks and
+     edit overlay, on the library path and on the kernel path: PNG checks and
      every kernel's launch count;
      in 5-7 (and 12-14) the first conv call at each (shape, Cout) and the
      first group_norm_act call at each (shape, groups, eps, act) are also
@@ -243,13 +243,13 @@ from uce_tpu_torch.models import t5, unet, vae, vision_backbones, yolo
 from uce_tpu_torch.models.clip_tokenizer import bytes_to_unicode
 from uce_tpu_torch.models.hf_tokenizer import HFTokenizer
 from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
-from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
 from uce_tpu_torch.ops import attention, quant
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.serving import socket_api
+from uce_tpu_torch.tools.trace_prof import route
 from uce_tpu_torch.utils.imaging import decode_png, encode_png, load_image
 from uce_tpu_torch.utils.prompts import resolve_edit_request
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng, draw_prompt_latents
@@ -298,7 +298,7 @@ PALLAS_VS_COLLAPSED_MAX = 5e-3
 # Full-width bf16 forwards, one path against another: relative L2 bound.
 REL_L2_MAX = 5e-2
 # Per forward at SD 1.4 (UNet) and per decode (VAE): kernel launches on the
-# kernel path (UCE_CONV_IMPL=UCE_GN_IMPL=pallas), attention on "auto". The
+# kernel path (the bf16 models' own route), attention on "auto". The
 # latent-input conv (Cin = 4) takes the mma.sync conv kernel, every other
 # 3x3 conv the wgmma one; the split-K sums are counted from the convs'
 # shapes (conv_split_sums). The library path launches only the
@@ -306,7 +306,7 @@ REL_L2_MAX = 5e-2
 UNET_LAUNCHES = {"conv3x3": 49, "conv3x3_wgmma": 48, "conv3x3_mma": 1,
                  "group_norm_act": 61, "sd_attention": 10}
 VAE_LAUNCHES = {"conv3x3": 33, "conv3x3_wgmma": 32, "conv3x3_mma": 1,
-                "group_norm_act": 28, "sd_attention": 1}
+                "group_norm_act": 30, "sd_attention": 1}
 VAE_LAUNCHES_LIBRARY = {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
                         "sd_attention": 1}
 # A W8A8 UNet forward sends its ten long self-attentions to the int8-QK^T
@@ -571,25 +571,6 @@ def library_launches(per_call: dict) -> dict:
     """The library path's launches for a kernel path's: the attention only."""
     return {"conv3x3": 0, "conv3x3_reduce": 0, "group_norm_act": 0,
             "sd_attention": per_call["sd_attention"]}
-
-
-@contextlib.contextmanager
-def kernel_env(on: bool = True):
-    """Set (on) or clear both kernel variables for the enclosed calls."""
-    saved = {k: os.environ.get(k) for k in KERNEL_VARS}
-    for k in KERNEL_VARS:
-        if on:
-            os.environ[k] = KERNEL_IMPL
-        else:
-            os.environ.pop(k, None)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def max_sm_clock_hz() -> float:
@@ -1478,7 +1459,7 @@ def phase_unet(pipe, rows: dict, model: Model, prompts: list[str]) -> None:
             fwd = lambda: unet.apply(pipe.unet_params, x, 981.0, context,
                                      pipe.unet_config, attn_impl=impl,
                                      added_cond=added_cond)
-            with kernel_env(kernels):
+            with route(kernels):
                 reset_launches()
                 with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                         gn_seen, rows["group_norm_act"]):
@@ -1524,7 +1505,7 @@ def phase_vae(pipe, rows: dict, model: Model) -> None:
     with torch.inference_mode():
         for name in ("library", "kernels"):
             dec = lambda: vae.decode(pipe.vae_params, lat, pipe.vae_config)
-            with kernel_env(name == "kernels"):
+            with route(name == "kernels"):
                 reset_launches()
                 with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                         gn_seen, rows["group_norm_act"]):
@@ -1647,7 +1628,7 @@ def phase_generate(snap: str, edit_path: str, path: str, rows: dict, model: Mode
     gn_seen = collections.Counter()
     extra = ["--scheduler", scheduler] if scheduler else []
     extra += ["--fast", fast] if fast else []
-    with kernel_env(path == "kernels"):
+    with route(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
@@ -1817,7 +1798,7 @@ def phase_quant_unet(pipe) -> None:
           f"int8: rel L2 against the same forward on the qk8 plain version "
           f"{rel:.3e}, against the bf16 forward {rel_bf:.3e} (gross-fault bound "
           f"{INT8_VS_BF16_REL_L2}), cosine to bf16 {cos:.6f}; launches "
-          f"{UNET_LAUNCHES_INT8}; median of 5: W8A8 {int8_ms:.2f} ms, bf16 library "
+          f"{UNET_LAUNCHES_INT8}; median of 5: W8A8 {int8_ms:.2f} ms, bf16 kernel "
           f"path {bf16_ms:.2f} ms", flush=True)
 
 
@@ -1903,7 +1884,7 @@ def phase_quant_model(pipe, rows: dict, model: Model) -> None:
                   f"{size}x{size} {rel_dec:.3e} (gross-fault bound "
                   f"{INT8_VS_BF16_REL_L2}); {n_attn} d=64 self-attentions on the "
                   f"{'int8-QK^T' if int8 else 'bf16'} kernel; median of 5: UNet {ms:.2f} "
-                  f"ms (bf16 library path {bf16_ms:.2f} ms), decode {dec_ms:.2f} ms "
+                  f"ms (bf16 kernel path {bf16_ms:.2f} ms), decode {dec_ms:.2f} ms "
                   "(median of 3)", flush=True)
 
 
@@ -2061,7 +2042,7 @@ def phase_socket(snap: str, edit_path: str) -> None:
 
 def phase_throughput(pipe, path: str, fast: str | None = None) -> float:
     prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
-    with kernel_env(path == "kernels"):
+    with route(path == "kernels"):
         torch.cuda.synchronize()
         start = time.perf_counter()
         imgs = pipe(prompts, num_inference_steps=50, guidance_scale=7.5, seed=[1, 2],
@@ -2088,7 +2069,7 @@ def phase_fast_rate(pipe, path: str) -> None:
                                             else None))
     prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
     ms = {}
-    with torch.inference_mode(), kernel_env(path == "kernels"):
+    with torch.inference_mode(), route(path == "kernels"):
         x, context, _ = unet_inputs(pipe, SD14, prompts)
         for cond_only, (xb, cb) in ((False, (x, context)), (True, (x[2:], context[2:]))):
             fwd = lambda **kw: unet.apply(pipe.unet_params, xb, 981.0, cb,
@@ -2204,7 +2185,7 @@ def debias_cli(snap: str, clip_snap: str, rows: dict, model: Model, args: list, 
             "--save_dir", out, "--exp_name", f"debias_{tag}", "--telemetry_path",
             telemetry, "--device_resident", resident, "--device", "cuda"] + (
                 ["--mesh", mesh] if mesh else [])
-    with kernel_env(True), cli_mesh_devices(), launches_at_stop(workers_store):
+    with route(True), cli_mesh_devices(), launches_at_stop(workers_store):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
@@ -2505,7 +2486,7 @@ def phase_baseline(snap: str, csv_path: str, path: str, i: int, rows: dict,
     seen, gn_seen, attn_seen, records = (collections.Counter(), collections.Counter(),
                                          collections.Counter(), [])
     with contextlib.ExitStack() as stack:
-        stack.enter_context(kernel_env(path == "kernels"))
+        stack.enter_context(route(path == "kernels"))
         for ctx in (conv_shapes(seen, rows["conv3x3"]),
                     gn_shapes(gn_seen, rows["group_norm_act"]),
                     attention_calls(attn_seen, rows), finite_decodes(), pipe_calls(records)):
@@ -2589,7 +2570,7 @@ def phase_baseline_identities(pipe, path: str) -> dict:
     kw = dict(height=SD14.size, width=SD14.size, seed=[1], guidance_scale=7.5)
     prompt = ["a painting by kelly mckernan"]
     out = {}
-    with kernel_env(path == "kernels"):
+    with route(path == "kernels"):
         cfg_lms = pipe(prompt, num_inference_steps=20, scheduler="lms", **kw)
         dvl = pipe(prompt, num_inference_steps=20, scheduler="lms", mode="debias_vl",
                    debias_projection=np.eye(pipe.text_config.hidden_size), **kw)
@@ -2710,7 +2691,7 @@ def phase_eval(original: str, folders: dict, csv_path: str, clip_snap: str) -> N
                                 weights["resnet50"], "--prompts_path", csv_path],
          prompt_header + ["num"] + top5 + ["correct"]),
     ]
-    with kernel_env(False):
+    with route(False):
         reset_launches()
         for command, args, header in runs:
             tables, secs = {}, {}
@@ -3062,7 +3043,7 @@ def phase_eval_suite(original: str, folders: dict, csv_path: str) -> None:
     root = os.path.join(WORK, "eval_suite")
     os.makedirs(root, exist_ok=True)
     write_dreamsim_weights(os.path.join(root, "dreamsim_ensemble.safetensors"))
-    with kernel_env(False):
+    with route(False):
         # the new processes first: they run beside the in-process work
         dream = start_fresh(["eval-dreamsim", *dreamsim_args(
             original, folders["sld"], csv_path, root), "--save_path",
@@ -3545,7 +3526,7 @@ def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
     loads = []
     extra = (["--num_inference_steps", str(steps), "--guidance_scale",
               str(FLUX_DEV_GUIDANCE)] if dev else [])
-    with kernel_env(path == "kernels"):
+    with route(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
@@ -4268,7 +4249,7 @@ def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict,
         "sd_attention_d128"], "sd_attention_d512": 1}
     want["sd_attention"] = want["sd_attention_d128"] + 1
     seen, gn_seen, record, loads = collections.Counter(), collections.Counter(), {}, []
-    with kernel_env(path == "kernels"):
+    with route(path == "kernels"):
         reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
@@ -4576,7 +4557,7 @@ def phase_mesh_sd(snap: str, edit_path: str, rows: dict) -> None:
     kw = dict(num_inference_steps=50, seed=MESH_SEEDS, height=512, width=512)
     calls = plan_from_hf(SD14.scheduler, 50).num_calls
     n_data = len(mesh_devices())
-    with kernel_env():
+    with route():
         torch.cuda.synchronize()
         start = time.perf_counter()
         single = pipe(MESH_PROMPTS, **kw)
@@ -4613,7 +4594,7 @@ def phase_mesh_sd(snap: str, edit_path: str, rows: dict) -> None:
     spec = {"unet_config": pipe.unet_config}
     qpipe = copy.copy(pipe)
     qpipe.quantize_weights("int8")
-    with kernel_env(), torch.inference_mode():
+    with route(), torch.inference_mode():
         single, one_ms = wall_ms(lambda: pipeline.denoiser_forward(
             {"unet": pipe.unet_params}, spec, batch), 1)
         qsingle, q_one_ms = wall_ms(lambda: pipeline.denoiser_forward(
@@ -4666,7 +4647,7 @@ def phase_mesh_serve(snap: str, edit_path: str, rows: dict) -> None:
     ladder 1,2, 4 Poisson requests at 8 steps, each batch split over the
     data groups; the JSON report and the launches per rank."""
     out, store = io.StringIO(), {}
-    with kernel_env(), cli_mesh_devices(), launches_at_stop(store), \
+    with route(), cli_mesh_devices(), launches_at_stop(store), \
             contextlib.redirect_stdout(out):
         reset_launches()
         rc = cli_main(["serve", "--model_id", snap, "--uce_model_path", edit_path,
@@ -4710,7 +4691,7 @@ def mesh_dit_forward(what: str, family: str, module, config, params: dict, spec:
     of each, d=128 launches per rank); rank 0's whole params are freed as
     their shards go out."""
     spec = {"dit_config": config, **spec}
-    with kernel_env(), torch.inference_mode():
+    with route(), torch.inference_mode():
         single, one_ms = wall_ms(lambda: module.denoiser_forward({"dit": params}, spec, batch))
         free_card(what)
         workers.start(mesh_of(1, 2))
@@ -4765,7 +4746,7 @@ def mesh_dit_cli(what: str, command: str, cut: str, rows: dict, extra: list,
         csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
                                  [0, FLUX_PROMPT, 1]])
     out_dir, store = os.path.join(WORK, f"images_mesh_{command}"), {}
-    with kernel_env(), cli_mesh_devices(), launches_at_stop(store):
+    with route(), cli_mesh_devices(), launches_at_stop(store):
         reset_launches()
         start = time.perf_counter()
         rc = cli_main([command, "--model_name", cut, "--prompts_path", csv_path,

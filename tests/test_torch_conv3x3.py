@@ -150,7 +150,7 @@ class _ShapeRng:
 def _conv_calls(model: str, batch: int) -> tuple:
     """((x shape NHWC, Cout), calls) of the conv3x3 wrapper in one SD 1.4
     UNet forward at 64x64 latents or one VAE decode to 512x512, run on meta
-    tensors (shapes only) with UCE_CONV_IMPL=pallas."""
+    bf16 tensors (shapes only)."""
     seen = collections.Counter()
 
     def spy(x, w, bias=None):
@@ -164,7 +164,8 @@ def _conv_calls(model: str, batch: int) -> tuple:
     meta = dict(device="meta", dtype=torch.bfloat16)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(layers.conv_kernel, "conv3x3", spy)
-        mp.setenv("UCE_CONV_IMPL", layers.KERNEL_IMPL)
+        mp.setattr(layers.gn_kernel, "group_norm_act", lambda x, *a, **kw: torch.empty(
+            x.shape, device="meta", dtype=x.dtype))
         if model == "unet":
             unet.apply(params, torch.empty(batch, 4, 64, 64, **meta), 981.0,
                        torch.empty(batch, 77, 768, **meta), cfg)

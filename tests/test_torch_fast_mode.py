@@ -448,8 +448,6 @@ def _shallow_calls(cfg, size, ctx_width, added):
         mp.setattr(layers.conv_kernel, "conv3x3", conv_spy)
         mp.setattr(layers.gn_kernel, "group_norm_act", gn_spy)
         mp.setattr(tunet, "dot_product_attention", attn_spy)
-        for var in layers.KERNEL_VARS:
-            mp.setenv(var, layers.KERNEL_IMPL)
         out = tunet.apply(params, torch.empty(2, 4, size, size, **meta), 981.0,
                           torch.empty(2, 77, ctx_width, **meta), cfg,
                           added_cond=added_cond, deep_feature=deep)

@@ -109,3 +109,74 @@ def test_pipeline_spans(sd_snap, fast):
     starts = [s["start_ns"] for s in inside]
     assert starts == sorted(starts) and all(s["end_ns"] <= call["end_ns"] for s in inside)
     assert all(s["stream_s"] is None for s in got)
+
+
+@pytest.fixture
+def counted_launches(monkeypatch):
+    """The conv3x3 and group_norm_act plain versions count a launch each, as
+    the CUDA kernels do (a CPU tensor's plain version leaves the counters
+    alone)."""
+    from uce_tpu_torch.ops.kernels import conv3x3 as ck, group_norm as gk
+
+    for module, name in ((ck, "conv3x3_reference"), (gk, "group_norm_act_reference")):
+        plain = getattr(module, name)
+
+        def wrapped(*args, _module=module, _plain=plain, **kwargs):
+            _module.launches += 1
+            return _plain(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapped)
+    return ck, gk
+
+
+def _model_spans_of(pipe, steps):
+    """The spans one call of ``pipe`` records."""
+    from uce_tpu_torch.utils import observability
+
+    done = observability.spans()
+    mark = done[-1]["id"] if done else 0
+    pipe(["a cat"], num_inference_steps=steps, seed=[1], height=32, width=32)
+    return [s for s in observability.spans() if s["id"] > mark]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_model_spans_count_kernel_launches(sd_snap, monkeypatch, counted_launches, dtype):
+    """Each ``pipe.model`` span carries the conv3x3 and group_norm_act
+    launches of its call: one UNet forward's, every 3x3 conv and GroupNorm
+    in bf16, none in fp32."""
+    from uce_tpu_torch.diffusion.pipeline import SDPipeline
+    from uce_tpu_torch.models import unet as unet_mod
+
+    ck, gk = counted_launches
+    forwards = []
+    apply = unet_mod.apply
+
+    def counted(*args, **kwargs):
+        before = (ck.launches, gk.launches)
+        out = apply(*args, **kwargs)
+        forwards.append((ck.launches - before[0], gk.launches - before[1]))
+        return out
+    monkeypatch.setattr(unet_mod, "apply", counted)
+    pipe = SDPipeline.from_pretrained(sd_snap, dtype=dtype, device="cpu")
+    got = [(s["conv3x3"], s["group_norm_act"]) for s in _model_spans_of(pipe, 3)
+           if s["name"] == "pipe.model"]
+    assert len(got) >= 3 and got == forwards
+    assert all(n > 0 for n in got[0]) if dtype == torch.bfloat16 else got[0] == (0, 0)
+
+
+def test_conv_gn_kernels_metric_reads_the_model_spans(sd_snap, counted_launches):
+    """``perfbench``'s ``conv_gn_kernels_per_call.eval`` reads the median
+    conv3x3 + group_norm_act launches of the ``pipe.model`` spans, and None
+    from spans without the attrs (a program that does not count them)."""
+    from perfbench.core import harness
+    from uce_tpu_torch.diffusion.pipeline import SDPipeline
+
+    metric = harness.load("metrics", "conv_gn_kernels_per_call.eval")
+    pipe = SDPipeline.from_pretrained(sd_snap, dtype=torch.bfloat16, device="cpu")
+    spans = _model_spans_of(pipe, 10)
+    calls = [s["conv3x3"] + s["group_norm_act"] for s in spans if s["name"] == "pipe.model"]
+    assert len(calls) >= 10 and len(set(calls)) == 1 and calls[0] > 0
+    assert metric.value(spans) == calls[0]
+    bare = [{k: v for k, v in s.items() if k not in ("conv3x3", "group_norm_act")}
+            for s in spans]
+    assert metric.value(bare) is None
+    assert metric.value(spans[:3]) is None  # fewer than 10 calls

@@ -112,12 +112,10 @@ def test_conv2d_matches_uce_tpu(weight_only, ksize, stride, padding):
 
 
 def test_quantized_conv_skips_conv_kernel_and_takes_channels_last(monkeypatch):
-    """Under UCE_CONV_IMPL=pallas a quantized 3x3 conv still runs qconv2d
-    (never the conv3x3 kernel), on channels_last input as on NCHW."""
+    """A quantized 3x3 conv on bf16 activations still runs qconv2d (never
+    the conv3x3 kernel), on channels_last input as on NCHW."""
     from uce_tpu_torch.ops.kernels import conv3x3 as ck
 
-    monkeypatch.setenv("UCE_CONV_IMPL", "pallas")
-    monkeypatch.setenv("UCE_GN_IMPL", "pallas")
     monkeypatch.setattr(ck, "conv3x3_reference", lambda *a: pytest.fail("kernel"))
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((2, 16, 8, 8)).astype(np.float32))

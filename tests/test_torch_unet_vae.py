@@ -132,15 +132,13 @@ def _rel_l2(got, want):
 
 @pytest.fixture
 def kernel_path(monkeypatch):
-    """Both kernel variables set; count calls of the kernels' plain versions
-    (what a CPU tensor takes on the kernel path), and record the shape of
-    every activation whose NHWC view for a kernel was a copy rather than a
-    view of the model's own (channels_last) memory."""
+    """Count calls of the kernels' plain versions (what a CPU tensor takes
+    on the kernel route), and record the shape of every activation whose
+    NHWC view for a kernel was a copy rather than a view of the model's own
+    (channels_last) memory."""
     from uce_tpu_torch.models import layers
     from uce_tpu_torch.ops.kernels import conv3x3 as ck, group_norm as gk
 
-    monkeypatch.setenv("UCE_CONV_IMPL", "pallas")
-    monkeypatch.setenv("UCE_GN_IMPL", "pallas")
     calls = {"conv3x3": 0, "group_norm_act": 0}
 
     def spy(name, fn):
@@ -172,10 +170,10 @@ BF16_REL_L2 = 3e-2
 
 
 def test_unet_kernel_path_bf16_matches_uce_tpu(kernel_path):
-    """SD 1.4's topology at 1/40 width in bf16 with UCE_CONV_IMPL and
-    UCE_GN_IMPL set: every 3x3 stride-1 conv and every group_norm_act takes
-    the kernels' wrappers (49 and 61 per forward, SD 1.4's counts), each on
-    a free NHWC view of the activation."""
+    """SD 1.4's topology at 1/40 width in bf16, nothing set: every 3x3
+    stride-1 conv and every GroupNorm takes the kernels' wrappers (49 and 61
+    per forward, SD 1.4's counts), each on a free NHWC view of the
+    activation."""
     cfg_kw = dict(block_out_channels=(8, 16, 32, 32), layers_per_block=2,
                   cross_attention_dim=24, attention_head_dim=2, norm_num_groups=4)
     jcfg, tcfg = junet.UNetConfig(**cfg_kw), tunet.UNetConfig(**cfg_kw)
@@ -198,9 +196,10 @@ def test_unet_kernel_path_bf16_matches_uce_tpu(kernel_path):
 
 
 def test_vae_kernel_path_bf16_matches_uce_tpu(kernel_path):
-    """The SD VAE decoder's topology at 1/16 width in bf16 with both kernel
-    variables set (33 conv3x3 and 28 group_norm_act calls, SD's counts, each
-    on a free NHWC view)."""
+    """The SD VAE decoder's topology at 1/16 width in bf16, nothing set: 33
+    conv3x3 and 30 group_norm_act calls (SD's counts: conv_norm_out with its
+    SiLU and the mid-block attention's norm among them), each on a free NHWC
+    view."""
     cfg_kw = dict(block_out_channels=(8, 16, 32, 32), layers_per_block=2,
                   norm_num_groups=4)
     jcfg, tcfg = jvae.VAEConfig(**cfg_kw), tvae.VAEConfig(**cfg_kw)
@@ -212,7 +211,81 @@ def test_vae_kernel_path_bf16_matches_uce_tpu(kernel_path):
     got = tvae.decode(tunet.load_params(flat, dtype=torch.bfloat16, device="cpu"),
                       _nchw(lat).bfloat16(), tcfg)
     calls, copies = kernel_path
-    assert calls == {"conv3x3": 33, "group_norm_act": 28}
+    assert calls == {"conv3x3": 33, "group_norm_act": 30}
     assert copies == []
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     assert _rel_l2(_nhwc(got.float()), want) < BF16_REL_L2
+
+
+SD_TOPOLOGY = dict(block_out_channels=(8, 16, 32, 32), layers_per_block=2,
+                   norm_num_groups=4)
+
+
+def _run_model(model, dtype):
+    """One forward of SD 1.4's UNet (``unet``; ``unet_linear``: with linear
+    projections, as SD 2.1 and SDXL) or VAE decoder topology at a tiny width,
+    on the CPU in ``dtype``."""
+    rng = np.random.default_rng(5)
+    if model == "vae":
+        cfg = tvae.VAEConfig(**SD_TOPOLOGY)
+        p = tunet.load_params(tvae.init_state_dict(cfg, rng, scale=0.1),
+                              dtype=dtype, device="cpu")
+        return tvae.decode(p, torch.randn(1, 4, 8, 8, dtype=dtype), cfg)
+    cfg = tunet.UNetConfig(**SD_TOPOLOGY, cross_attention_dim=24, attention_head_dim=2,
+                           use_linear_projection=model == "unet_linear")
+    p = tunet.load_params(tunet.init_state_dict(cfg, rng, scale=0.1), dtype=dtype,
+                          device="cpu")
+    return tunet.apply(p, torch.randn(2, 4, 16, 16, dtype=dtype), 500.0,
+                       torch.randn(2, 7, 24, dtype=dtype), cfg)
+
+
+@pytest.mark.parametrize("model", ["unet", "unet_linear", "vae"])
+def test_bf16_forward_keeps_channels_last(model):
+    """Every op of a bf16 forward whose 4-D inputs are channels_last gives a
+    channels_last result: the time-embedding and residual adds, the skip
+    concatenation, the nearest upsample, the 1x1 convs and the transformer's
+    permutes. Only the model's last op, the copy back to NCHW, leaves the
+    layout."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def channels_last(t):
+        return t.is_contiguous(memory_format=torch.channels_last)
+
+    def spatial(t):
+        return t.ndim == 4 and t.shape[1] > 1 and t.shape[2] * t.shape[3] > 1
+
+    class Layouts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.checked, self.left = 0, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [a for a in tree_leaves((args, kwargs))
+                   if isinstance(a, torch.Tensor) and a.ndim == 4]
+            if ins and all(map(channels_last, ins)) and any(map(spatial, ins)):
+                self.checked += 1
+                stores = {a.untyped_storage().data_ptr() for a in ins}
+                for o in tree_leaves(out):
+                    # a view (the NHWC view of an activation) is no copy
+                    if (isinstance(o, torch.Tensor) and spatial(o) and not channels_last(o)
+                            and o.untyped_storage().data_ptr() not in stores):
+                        self.left.append((str(func), tuple(o.shape)))
+            return out
+
+    with Layouts() as mode:
+        out = _run_model(model, torch.bfloat16)
+    assert mode.checked > 50
+    assert mode.left == [("aten.clone.default", tuple(out.shape))]
+    assert out.is_contiguous()
+
+
+@pytest.mark.parametrize("model", ["unet", "vae"])
+def test_fp32_forward_takes_no_kernel(kernel_path, model):
+    """fp32 activations keep the library calls: no conv or GroupNorm takes
+    a kernel's wrapper, and the forward stays NCHW."""
+    out = _run_model(model, torch.float32)
+    calls, copies = kernel_path
+    assert calls == {"conv3x3": 0, "group_norm_act": 0} and copies == []
+    assert out.dtype == torch.float32 and out.is_contiguous()

@@ -1,19 +1,19 @@
 """Shared NN building blocks, NCHW layout, diffusers weight layouts
 (conv OIHW, linear [out, in]). Norm statistics are computed in fp32.
 
-``UCE_CONV_IMPL=pallas`` and ``UCE_GN_IMPL=pallas`` (read per call, the
-values uce_tpu reads) route every eligible bf16 3x3 stride-1 conv and every
-``group_norm_act`` to the hand-written kernels (``ops/kernels/conv3x3.py``,
-``ops/kernels/group_norm.py``), which take NHWC: a CUDA tensor launches the
-kernel, a CPU tensor takes its plain version. The models hold activations
-in ``torch.channels_last`` on that path, so the NHWC view of an NCHW tensor
-is free. Unset, the library calls run.
+bf16 activations (``kernel_route``) take the hand-written kernels wherever
+the kernel takes the shape: every 3x3 stride-1 conv of an unquantized
+weight (``ops/kernels/conv3x3.py``) and every GroupNorm, SiLU fused
+(``ops/kernels/group_norm.py``). The kernels take NHWC: a CUDA tensor
+launches the kernel, a CPU tensor takes its plain version. The models hold
+bf16 activations in ``torch.channels_last``, so the NHWC view of an NCHW
+tensor is free. fp32 activations and the other shapes take the library
+calls.
 """
 
 from __future__ import annotations
 
 import math
-import os
 
 import torch
 import torch.nn.functional as F
@@ -24,18 +24,22 @@ from uce_tpu_torch.parallel import workers
 from uce_tpu_torch.ops.kernels import conv3x3 as conv_kernel
 from uce_tpu_torch.ops.kernels import group_norm as gn_kernel
 
-KERNEL_IMPL = "pallas"
-KERNEL_VARS = ("UCE_CONV_IMPL", "UCE_GN_IMPL")
-
 # Derived copies of parameters (packed conv weights, fp32 norm affines),
 # made once per parameter tensor and dropped with it. Parameters are never
 # modified in place (overlay_edits builds new tensors).
 _derived = WeakTensorKeyDictionary()
 
 
-def kernel_path() -> bool:
-    """Whether either kernel variable selects the hand-written kernels."""
-    return any(os.environ.get(k) == KERNEL_IMPL for k in KERNEL_VARS)
+def kernel_route(x) -> bool:
+    """Whether the activations ``x`` take the hand-written kernels (and,
+    in the UNet and the VAE, channels_last): a bf16 map [B, C, H, W]."""
+    return x.dtype == torch.bfloat16 and x.ndim == 4
+
+
+def kernel_launches() -> dict[str, int]:
+    """The conv3x3 and group_norm_act kernels' launches so far (the
+    difference over a call counts that call's)."""
+    return {"conv3x3": conv_kernel.launches, "group_norm_act": gn_kernel.launches}
 
 
 def _derive(param: torch.Tensor, kind: str, fn):
@@ -62,9 +66,8 @@ def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 1):
         return quant.wconv2d(x, weight, bias, stride, padding)
     if quant.is_quantized(weight):
         return quant.qconv2d(x, weight, bias, stride, padding)
-    if (os.environ.get("UCE_CONV_IMPL") == KERNEL_IMPL
-            and x.dtype == torch.bfloat16 and x.ndim == 4 and stride == 1
-            and padding == 1 and tuple(weight.shape[2:]) == (3, 3)):
+    if (kernel_route(x) and stride == 1 and padding == 1
+            and tuple(weight.shape[2:]) == (3, 3)):
         w = _derive(weight, "ohwi", conv_kernel.pack_weight)
         return conv_kernel.conv3x3(_nhwc(x), w, bias).permute(0, 3, 1, 2)
     return F.conv2d(x, weight, bias, stride=stride, padding=padding)
@@ -93,23 +96,18 @@ def row_linear(x, weight, bias=None):
     return y if bias is None else y + bias
 
 
-def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-5):
-    """GroupNorm over the channel dim 1, statistics and affine in fp32."""
-    y = F.group_norm(x.float(), num_groups, scale.float(), bias.float(), eps)
-    return y.to(x.dtype)
-
-
 def group_norm_act(x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
                    act: str = "none"):
-    """GroupNorm followed by an optional SiLU."""
-    if (os.environ.get("UCE_GN_IMPL") == KERNEL_IMPL and x.ndim == 4
-            and gn_kernel.supported_shape(tuple(_nhwc_shape(x)), num_groups,
-                                          x.dtype)):
+    """GroupNorm over the channel dim 1, statistics and affine in fp32,
+    followed by an optional SiLU."""
+    if kernel_route(x) and gn_kernel.supported_shape(_nhwc_shape(x), num_groups,
+                                                     x.dtype):
         y = gn_kernel.group_norm_act(
             _nhwc(x), _derive(scale, "fp32", torch.Tensor.float),
             _derive(bias, "fp32", torch.Tensor.float), num_groups, eps, act)
         return y.permute(0, 3, 1, 2)
-    y = group_norm(x, scale, bias, num_groups, eps)
+    y = F.group_norm(x.float(), num_groups, scale.float(), bias.float(), eps)
+    y = y.to(x.dtype)
     return F.silu(y) if act == "silu" else y
 
 

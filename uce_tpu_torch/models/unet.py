@@ -5,12 +5,12 @@ Params are the diffusers checkpoint's own tensors (conv OIHW, linear
 [out, in]) keyed by their module paths, so HF checkpoints and UCE
 safetensors overlays map 1:1. Self-attention at the long sequence lengths
 (64x64 and 32x32 latents at 512px) runs the sd_attention kernel through
-``ops.attention.dot_product_attention(impl="auto")``. With ``UCE_CONV_IMPL``
-or ``UCE_GN_IMPL`` set to ``pallas`` (``models/layers.py``) the forward holds
-its activations in ``torch.channels_last``, the layout of the conv3x3 and
-group_norm_act kernels, and returns a contiguous NCHW tensor. Weights may be
-the int8 dicts of ``ops/quant.py`` (``SDPipeline.quantize_weights``); a W8A8
-``to_q`` sends its self-attention to the int8-QK^T kernel.
+``ops.attention.dot_product_attention(impl="auto")``. A bf16 forward
+(``layers.kernel_route``) holds its activations in ``torch.channels_last``,
+the layout of the conv3x3 and group_norm_act kernels, and returns a
+contiguous NCHW tensor. Weights may be the int8 dicts of ``ops/quant.py``
+(``SDPipeline.quantize_weights``); a W8A8 ``to_q`` sends its self-attention
+to the int8-QK^T kernel.
 """
 
 from __future__ import annotations
@@ -22,10 +22,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from uce_tpu_torch.models import layers
 from uce_tpu_torch.models.layers import (
     conv2d,
     group_norm_act,
-    kernel_path,
     layer_norm,
     linear,
     row_linear,
@@ -299,7 +299,7 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
         add = linear(silu(add), *_w(p, "add_embedding.linear_2"))
         emb = emb + add.to(emb.dtype)
     ehs = encoder_hidden_states
-    kernels = kernel_path()
+    kernels = layers.kernel_route(sample)
     if kernels:
         sample = sample.contiguous(memory_format=torch.channels_last)
 

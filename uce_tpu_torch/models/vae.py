@@ -1,8 +1,8 @@
 """AutoencoderKL (SD and FLUX VAE) decoder, NCHW, over a flat diffusers state
 dict (latents -> pixels; the caller divides by ``scaling_factor`` first and,
-for FLUX's VAE, adds ``shift_factor``). With
-``UCE_CONV_IMPL`` or ``UCE_GN_IMPL`` set to ``pallas`` the decoder holds its
-activations in ``torch.channels_last``, as the UNet does."""
+for FLUX's VAE, adds ``shift_factor``). A bf16 decode
+(``layers.kernel_route``) holds its activations in ``torch.channels_last``,
+as the UNet does."""
 
 from __future__ import annotations
 
@@ -13,14 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uce_tpu_torch.models.layers import (
-    conv2d,
-    group_norm,
-    group_norm_act,
-    kernel_path,
-    linear,
-    silu,
-)
+from uce_tpu_torch.models import layers
+from uce_tpu_torch.models.layers import conv2d, group_norm_act, linear
 from uce_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -78,7 +72,7 @@ def _attn(p, pre, x, groups):
     is s=4096, d=512: on the card it runs the sd_attention kernel's D-split
     variant (uce_tpu runs JAX's TPU flash kernel there)."""
     b, c, h, w = x.shape
-    y = group_norm(x, *_w(p, pre + ".group_norm"), groups, eps=1e-6)
+    y = group_norm_act(x, *_w(p, pre + ".group_norm"), groups, eps=1e-6)
     y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
     q = linear(y, *_w(p, pre + ".to_q"))[:, None]
     k = linear(y, *_w(p, pre + ".to_k"))[:, None]
@@ -93,7 +87,7 @@ def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
     [B, 3, H, W] in [-1, 1]."""
     cfg, p = config, params
     g = cfg.norm_num_groups
-    kernels = kernel_path()
+    kernels = layers.kernel_route(latents)
     if kernels:
         latents = latents.contiguous(memory_format=torch.channels_last)
     x = conv2d(latents, *_w(p, "post_quant_conv"), padding=0)
@@ -108,8 +102,8 @@ def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
         if up + ".weight" in p:
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             x = conv2d(x, *_w(p, up))
-    x = group_norm(x, *_w(p, "decoder.conv_norm_out"), g, eps=1e-6)
-    x = conv2d(silu(x), *_w(p, "decoder.conv_out"))
+    x = group_norm_act(x, *_w(p, "decoder.conv_norm_out"), g, eps=1e-6, act="silu")
+    x = conv2d(x, *_w(p, "decoder.conv_out"))
     return x.contiguous() if kernels else x
 
 

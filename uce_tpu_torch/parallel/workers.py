@@ -51,8 +51,6 @@ import torch.multiprocessing as mp
 
 from uce_tpu_torch.parallel import mesh as mesh_mod
 
-# Read per call by models/layers.py: each command carries the controller's.
-ENV_VARS = ("UCE_CONV_IMPL", "UCE_GN_IMPL")
 TIMEOUT = datetime.timedelta(minutes=2)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -422,20 +420,18 @@ def run(fn: Callable, static, tensors: Mapping[str, tuple], params: Mapping) -> 
     takes it whole) or (axis, n_branches): a batch already padded by
     ``mesh.pad_batch_branched``, of which each rank takes its data group's
     rows. ``params`` are rank 0's slots; the workers use the ones sent to
-    them. ``fn`` runs under ``torch.inference_mode`` with the controller's
-    kernel variables and its data group's model group as the
-    tensor-parallel context."""
+    them. ``fn`` runs under ``torch.inference_mode`` with its data group's
+    model group as the tensor-parallel context."""
     s = _controller()
     mesh = s.mesh
-    env = {k: os.environ.get(k) for k in ENV_VARS}
     specs = [(name, _metas(t), batch) for name, (t, batch) in tensors.items()]
     with _guard():
         if mesh.size > 1:
-            _command(("run", fn, static, specs, env))
+            _command(("run", fn, static, specs))
             for name, (t, _) in tensors.items():
                 broadcast_from_controller(t)
         out = _execute(s, fn, params, static, {n: t for n, (t, _) in tensors.items()},
-                       specs, env)
+                       specs)
         return _gather_results(s, out)
 
 
@@ -459,25 +455,7 @@ def _gather_results(s: _Session, mine) -> list:
     return [mine] + [conn.recv() for conn in s.conns]
 
 
-@contextlib.contextmanager
-def _environ(env: Mapping):
-    saved = {k: os.environ.get(k) for k in env}
-    try:
-        for k, v in env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
-def _execute(s: _Session, fn, params, static, tensors, specs, env):
+def _execute(s: _Session, fn, params, static, tensors, specs):
     mesh = s.mesh
     d, m = mesh.coords(s.rank)
     local = {}
@@ -488,7 +466,7 @@ def _execute(s: _Session, fn, params, static, tensors, specs, env):
             t = mesh_mod.data_shard(t, mesh.n_data, d, n_branches, axis)
         local[name] = t
     group = s.model_group if mesh.size > 1 else None
-    with model_parallel(group, m, mesh.n_model), torch.inference_mode(), _environ(env):
+    with model_parallel(group, m, mesh.n_model), torch.inference_mode():
         return fn(params, static, local)
 
 
@@ -606,11 +584,11 @@ def _worker_main(rank: int, mesh: mesh_mod.Mesh, init: str, conn) -> None:
                 s.params.pop(cmd[1], None)
                 s.sent.pop(cmd[1], None)
             elif kind == "run":
-                _, fn, static, specs, env = cmd
+                _, fn, static, specs = cmd
                 tensors = {name: broadcast_from_controller(None, metas)
                            for name, metas, _ in specs}
                 try:
-                    out = _execute(s, fn, s.params, static, tensors, specs, env)
+                    out = _execute(s, fn, s.params, static, tensors, specs)
                 except BaseException:
                     # leave at once: the controller's next collective fails
                     # instead of waiting for this rank

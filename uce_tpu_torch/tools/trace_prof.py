@@ -1,7 +1,8 @@
 """Device-time profile of the port's UNet forward and VAE decode on one CUDA
-card, on the library path, on the kernel path
-(UCE_CONV_IMPL=UCE_GN_IMPL=pallas) and W8A8-quantized (``serve --quantize
-int8``: the library path on int8 weights), via torch.profiler.
+card, on the kernel path (the bf16 models' own route: the conv3x3 and
+group_norm_act kernels, channels_last), on the library path (``route``:
+every conv and GroupNorm the library call, NCHW) and W8A8-quantized
+(``serve --quantize int8``, on both paths), via torch.profiler.
 
     python -m uce_tpu_torch.tools.trace_prof [--model sd14|sd21|sdxl|flux|hidream]
         [--batch 4] [--runs 5]
@@ -47,7 +48,7 @@ from __future__ import annotations
 
 import argparse
 import collections
-import os
+import contextlib
 import re
 import subprocess
 import sys
@@ -57,8 +58,7 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion.pipeline_flux import make_img_ids
-from uce_tpu_torch.models import flux, hidream, quantize, unet, vae
-from uce_tpu_torch.models.layers import KERNEL_IMPL, KERNEL_VARS
+from uce_tpu_torch.models import flux, hidream, layers, quantize, unet, vae
 from uce_tpu_torch.ops.kernels import conv3x3, group_norm, uce_solve
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng
 
@@ -84,13 +84,20 @@ CATEGORIES = [
 ]
 
 
-def select_path(kernels: bool) -> None:
-    """Set (kernel path) or clear both kernel variables."""
-    for k in KERNEL_VARS:
-        if kernels:
-            os.environ[k] = KERNEL_IMPL
-        else:
-            os.environ.pop(k, None)
+@contextlib.contextmanager
+def route(kernels: bool = True):
+    """The enclosed calls on the kernel path, or on the library path: the
+    models' route test (``layers.kernel_route``) answering no, so every conv
+    and GroupNorm runs the library call on NCHW activations."""
+    if kernels:
+        yield
+        return
+    saved = layers.kernel_route
+    layers.kernel_route = lambda x: False
+    try:
+        yield
+    finally:
+        layers.kernel_route = saved
 
 
 def category(name: str) -> str:
@@ -157,7 +164,6 @@ def conv_shapes(fn) -> collections.Counter:
         return launch(x, w, bias)
 
     conv3x3.conv3x3 = spy
-    select_path(True)
     try:
         fn()
     finally:
@@ -225,7 +231,6 @@ def gn_shapes(fn) -> collections.Counter:
         return launch(x, scale, bias, groups, eps, act)
 
     group_norm.group_norm_act = spy
-    select_path(True)
     try:
         fn()
     finally:
@@ -357,16 +362,15 @@ def dit_profile(model: str, batch: int, runs: int) -> None:
                                torch.bfloat16, "cuda")
     dec_lat = rand(1, 16, 128, 128)
     with torch.inference_mode():
-        select_path(False)
         for impl in ("auto", "plain"):
             report(f"{model} dit attention {impl} batch {batch}",
                    profile(lambda: forward(impl), runs))
         del params
         torch.cuda.empty_cache()
         for path in ("library", "kernels"):
-            select_path(path == "kernels")
-            report(f"{model} vae {path} batch 1", profile(
-                lambda: vae.decode(vparams, dec_lat, vae.FLUX_VAE_CONFIG), runs))
+            with route(path == "kernels"):
+                report(f"{model} vae {path} batch 1", profile(
+                    lambda: vae.decode(vparams, dec_lat, vae.FLUX_VAE_CONFIG), runs))
 
 
 def main(argv=None) -> int:
@@ -416,10 +420,10 @@ def main(argv=None) -> int:
     def unet_call(params):
         return lambda: unet.apply(params, x, 981.0, ctx, ucfg, added_cond=added)
 
-    params = {"library": (uparams, vparams), "kernels": (uparams, vparams)}
+    params = {"": (uparams, vparams)}
     if args.model == "sd14":  # W8A8 is ported for SD 1.4 only
-        params["int8"] = (quantize.quantize_params(uparams, quantize.UNET_SKIP, "int8"),
-                          quantize.quantize_params(vparams, quantize.VAE_SKIP, "int8"))
+        params["int8 "] = (quantize.quantize_params(uparams, quantize.UNET_SKIP, "int8"),
+                           quantize.quantize_params(vparams, quantize.VAE_SKIP, "int8"))
     with torch.inference_mode():
         if args.gn:
             gn_table(f"unet batch {args.batch}", gn_shapes(
@@ -428,13 +432,13 @@ def main(argv=None) -> int:
                 lambda: vae.decode(vparams, lat, vae.SD_VAE_CONFIG)))
             print(f"[card] {card}")
             return 0
-        for path, (up, vp) in params.items():
-            select_path(path == "kernels")
-            report(f"{args.model} unet {path} batch {args.batch}", profile(
-                unet_call(up),
-                args.runs))
-            report(f"{args.model} vae {path} batch 1", profile(
-                lambda: vae.decode(vp, lat, vae.SD_VAE_CONFIG), args.runs))
+        for weights, (up, vp) in params.items():
+            for path in ("library", "kernels"):
+                with route(path == "kernels"):
+                    report(f"{args.model} unet {weights}{path} batch {args.batch}",
+                           profile(unet_call(up), args.runs))
+                    report(f"{args.model} vae {weights}{path} batch 1", profile(
+                        lambda: vae.decode(vp, lat, vae.SD_VAE_CONFIG), args.runs))
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for what, fn in ((f"unet kernels batch {args.batch}", unet_call(uparams)),
                          ("vae kernels batch 1", lambda: vae.decode(
