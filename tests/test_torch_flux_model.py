@@ -101,3 +101,23 @@ def test_config_and_init_state_dict_contract():
     full = tflux.SCHNELL_CONFIG
     n_params = sum(int(np.prod(s)) for s in tflux.state_dict_shapes(full).values())
     assert 11.8e9 < n_params < 12.0e9  # FLUX.1's ~11.9 B parameters
+
+
+def test_rope_tables_built_once_per_ids():
+    """A generation asks for the same RoPE tables at every forward: they are
+    built once per (ids, axes, theta, device), and other ids get their own;
+    tables built in inference mode still serve a forward under autograd."""
+    from uce_tpu_torch.diffusion.pipeline_flux import make_img_ids
+
+    ids = np.concatenate([np.zeros((3, 3)), make_img_ids(4, 6)])
+    with torch.inference_mode():
+        cos, sin = tflux.rope_freqs(ids, (4, 6, 6))
+    again = tflux.rope_freqs(ids.copy(), [4, 6, 6])
+    assert again[0] is cos and again[1] is sin
+    other = tflux.rope_freqs(np.concatenate([np.zeros((3, 3)), make_img_ids(6, 4)]), (4, 6, 6))
+    assert other[0] is not cos and not torch.equal(other[0], cos)
+    angle = ids[5, 1] * 1.0 / (10000.0 ** (2 / 6))  # axis 1, second frequency
+    assert cos[5, 6] == torch.tensor(np.cos(angle), dtype=torch.float32)
+    x = torch.randn(1, 2, len(ids), 16, requires_grad=True)
+    tflux.apply_rope(x, cos, sin).sum().backward()
+    assert x.grad is not None

@@ -7,10 +7,14 @@ tests/test_pipeline_parity.py), also with a UCE edit overlay and with
 per-prompt seeds, and with the DiT quantized as it loads (w8, int8); the
 staged load equal to the whole one, with the edits and quantization asked
 for before it deferred to it. And the generate-flux CLI's file contract,
-with --staged and --quantize."""
+with --staged and --quantize. FLUX.1's VAE, which has no post_quant_conv,
+loads and decodes as a decode through an exact identity conv; each call
+records the SD pipeline's spans."""
 
 import csv
+import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -97,6 +101,118 @@ def test_vae_shift_factor_read_as_uce_tpu():
     assert got.shift_factor == jvae.VAEConfig.from_hf(hf).shift_factor
     assert tvae.VAEConfig.from_hf(dict(hf, shift_factor=None)).shift_factor == 0.0
     assert tvae.SD_VAE_CONFIG.shift_factor == 0.0
+
+
+def test_vae_config_reads_use_post_quant_conv():
+    """diffusers' default (true) where the key is absent, as in every SD VAE;
+    FLUX.1's published VAE sets it false and has no such weight."""
+    hf = {k: v for k, v in tvae.SD_VAE_CONFIG.to_hf().items() if k != "use_post_quant_conv"}
+    assert tvae.VAEConfig.from_hf(hf).use_post_quant_conv
+    assert tvae.VAEConfig.from_hf(tvae.SD_VAE_CONFIG.to_hf()).use_post_quant_conv
+    assert not tvae.VAEConfig.from_hf(tvae.FLUX_VAE_CONFIG.to_hf()).use_post_quant_conv
+    sd_layout = tvae.VAEConfig(block_out_channels=(8, 16), norm_num_groups=4)
+    assert "post_quant_conv.weight" in tvae.init_state_dict(sd_layout,
+                                                            np.random.default_rng(0))
+
+
+def _with_identity_conv(params: dict, lc: int) -> dict:
+    """``params`` with a post_quant_conv that changes nothing (identity
+    weight, zero bias: exact in fp32)."""
+    return {**params, "post_quant_conv.weight": torch.eye(lc)[:, :, None, None],
+            "post_quant_conv.bias": torch.zeros(lc)}
+
+
+def test_flux_vae_without_post_quant_conv_loads_and_decodes(tmp_path):
+    """A FLUX.1-layout VAE snapshot (``use_post_quant_conv: false``, no such
+    weight) loads as ``FluxPipeline.from_pretrained`` loads it and decodes
+    bit for bit as the same weights with an identity post_quant_conv."""
+    from uce_tpu_torch.models import unet as tunet
+    from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, save_safetensors
+
+    cfg = tvae.VAEConfig(latent_channels=16, block_out_channels=(8, 16), layers_per_block=1,
+                         norm_num_groups=4, scaling_factor=0.3611, shift_factor=0.1159,
+                         use_post_quant_conv=False)
+    sd = tvae.init_state_dict(cfg, np.random.default_rng(3), scale=0.1)
+    assert not any(k.startswith("post_quant_conv") for k in sd)
+    os.makedirs(tmp_path / "vae")
+    with open(tmp_path / "vae" / "config.json", "w") as f:
+        json.dump(cfg.to_hf(), f)
+    save_safetensors({k: torch.as_tensor(v) for k, v in sd.items()},
+                     str(tmp_path / "vae" / "diffusion_pytorch_model.safetensors"))
+    got_cfg = tvae.VAEConfig.from_hf(load_json(str(tmp_path / "vae" / "config.json")))
+    params = tunet.load_params(load_state_dict(str(tmp_path), "vae"), torch.float32, "cpu")
+    assert got_cfg == cfg and "post_quant_conv.weight" not in params
+    z = torch.as_tensor(np.random.default_rng(4).standard_normal((2, 16, 8, 8)),
+                        dtype=torch.float32)
+    got = tvae.decode(params, z, got_cfg)
+    assert got.shape == (2, 3, 16, 16)
+    with_conv = tvae.VAEConfig(**{**vars(cfg), "use_post_quant_conv": True})
+    assert torch.equal(got, tvae.decode(_with_identity_conv(params, 16), z, with_conv))
+
+
+def test_flux_pipeline_decodes_a_vae_without_post_quant_conv(flux_snap, pipes, tmp_path):
+    """The tiny snapshot with its VAE in FLUX.1's layout: the same images as
+    its VAE with an identity post_quant_conv."""
+    from uce_tpu_torch.models.hf_loader import save_safetensors
+
+    snap = str(tmp_path / "snap")
+    shutil.copytree(flux_snap, snap)
+    vae_dir = os.path.join(snap, "vae")
+    with open(os.path.join(vae_dir, "config.json")) as f:
+        hf = json.load(f)
+    with open(os.path.join(vae_dir, "config.json"), "w") as f:
+        json.dump(dict(hf, use_post_quant_conv=False), f)
+    weights = os.path.join(vae_dir, "diffusion_pytorch_model.safetensors")
+    save_safetensors({k: v for k, v in read_safetensors(weights).items()
+                      if not k.startswith("post_quant_conv")}, weights)
+    bare = tpf.FluxPipeline.from_pretrained(snap, dtype=torch.float32, max_sequence_length=16,
+                                            device="cpu")
+    assert not bare.vae_config.use_post_quant_conv
+    assert "post_quant_conv.weight" not in bare.vae_params
+    identity = pipes[1]
+    saved = identity.vae_params
+    identity.vae_params = _with_identity_conv(bare.vae_params,
+                                              identity.vae_config.latent_channels)
+    try:
+        want = identity("a cat on mars", **GEN, seed=4)
+    finally:
+        identity.vae_params = saved
+    np.testing.assert_array_equal(bare("a cat on mars", **GEN, seed=4), want)
+
+
+def test_flux_call_records_the_pipeline_spans(pipes, monkeypatch):
+    """A ``pipe.call`` (batch, steps) holds ``pipe.encode``, a ``pipe.model``
+    and a ``pipe.step`` per Euler step, ``pipe.decode`` and ``pipe.readback``;
+    each ``pipe.model`` counts the attention kernel's launches of its DiT
+    forward (here the plain version, made to count as the kernel does)."""
+    from uce_tpu_torch.models import flux as tflux
+    from uce_tpu_torch.ops.kernels import sd_attention as sdk
+    from uce_tpu_torch.utils import observability
+
+    attend = tflux.dot_product_attention
+
+    def counted(*args, **kwargs):
+        sdk.launches += 1
+        return attend(*args, **kwargs)
+    monkeypatch.setattr(tflux, "dot_product_attention", counted)
+    tpipe = pipes[1]
+    done = observability.spans()
+    mark = done[-1]["id"] if done else 0
+    tpipe(["a cat"], **dict(GEN, num_inference_steps=3), seed=[2], num_images_per_prompt=2)
+    got = [s for s in observability.spans() if s["id"] > mark]
+    (call,) = [s for s in got if s["name"] == "pipe.call"]
+    assert call["batch"] == 2 and call["steps"] == 3 and call["parent"] is None
+    inside = [s for s in got if s["parent"] == call["id"]]
+    assert [s["name"] for s in inside] == (["pipe.encode"] + ["pipe.model", "pipe.step"] * 3
+                                          + ["pipe.decode", "pipe.readback"])
+    models = [s for s in inside if s["name"] == "pipe.model"]
+    blocks = tpipe.transformer_config.num_layers + tpipe.transformer_config.num_single_layers
+    assert [s["sd_attention"] for s in models] == [blocks] * 3
+    assert all(s["conv3x3"] == s["group_norm_act"] == 0 for s in models)
+    assert [s["call"] for s in models] == [0, 1, 2]
+    assert [s["call"] for s in inside if s["name"] == "pipe.step"] == [0, 1, 2]
+    starts = [s["start_ns"] for s in inside]
+    assert starts == sorted(starts) and all(s["end_ns"] <= call["end_ns"] for s in inside)
 
 
 @pytest.fixture(scope="module")

@@ -5,6 +5,13 @@
 decode with ``shift_factor`` (schnell: 4 steps, guidance 0, 256 T5 tokens;
 dev: an embedded guidance scale and dynamic sigma shifting).
 
+Each call records the spans the SD pipeline records
+(``utils/observability``): a ``pipe.call`` holding ``pipe.encode`` (the T5
+and CLIP encodes), a ``pipe.model`` per DiT forward (with its kernel
+launches, ``sampler.model_span``), a ``pipe.step`` per Euler step,
+``pipe.decode`` (the unpack, the scale and shift, the VAE) and
+``pipe.readback``.
+
 ``from_pretrained(quantize="w8"|"int8")`` quantizes the DiT as it loads,
 tensor by tensor on the device (``quantize.FLUX_SKIP``), so the bf16 DiT
 (23.7 GB at FLUX.1's widths, about 12 GB in int8) is never whole there.
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion import schedulers
+from uce_tpu_torch.diffusion.sampler import model_span
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import (default_max_sequence_length, load_t5_encoder,
                                      load_t5_tokenizer)
@@ -40,6 +48,7 @@ from uce_tpu_torch.diffusion.pipeline import decoded_images, sample_batch
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
 from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils import torch_rng
+from uce_tpu_torch.utils.observability import span
 
 # The edit slots of the DiT (uce_flux_edit.py's two text-entry projections).
 EDIT_SLOTS = ("context_embedder.weight", "time_text_embed.text_embedder.linear_1.weight")
@@ -244,15 +253,15 @@ class FluxPipeline:
         if self.t5_params is None or self.clip_params is None:
             raise RuntimeError("encoders were freed (free_encoders); encode prompts "
                                "before freeing, then use generate_from_embeddings")
+        # both id tensors go to the device before any encoder runs: a copy
+        # from pageable memory waits for the device's queue to drain
         ids, _ = emb.tokenize_batch(self.t5_tokenizer, list(prompts),
                                     self.max_sequence_length)
-        t5_out = t5_mod.encode_tokens(self.t5_params,
-                                      torch.as_tensor(ids, device=self.device), None,
-                                      self.t5_config)
         cids, _ = emb.tokenize_batch(self.clip_tokenizer, list(prompts),
                                      self.clip_config.max_position_embeddings)
-        _, pooled, _ = clip_text.encode_tokens(
-            self.clip_params, torch.as_tensor(cids, device=self.device), self.clip_config)
+        ids, cids = (torch.as_tensor(x, device=self.device) for x in (ids, cids))
+        t5_out = t5_mod.encode_tokens(self.t5_params, ids, None, self.t5_config)
+        _, pooled, _ = clip_text.encode_tokens(self.clip_params, cids, self.clip_config)
         return t5_out.to(self.dtype), pooled.to(self.dtype)
 
     def __call__(self, prompt: str | Sequence[str], num_inference_steps: int = 4,
@@ -263,12 +272,14 @@ class FluxPipeline:
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         n_prompts = len(prompts)
         prompts = [p for p in prompts for _ in range(num_images_per_prompt)]
-        t5_embeds, pooled = self.encode_prompts(prompts)
-        return self.generate_from_embeddings(
-            t5_embeds, pooled, n_prompts=n_prompts,
-            num_images_per_prompt=num_images_per_prompt,
-            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-            seed=seed, height=height, width=width)
+        with span("pipe.call", self.device, batch=len(prompts), steps=num_inference_steps):
+            with span("pipe.encode", self.device):
+                t5_embeds, pooled = self.encode_prompts(prompts)
+            return self.generate_from_embeddings(
+                t5_embeds, pooled, n_prompts=n_prompts,
+                num_images_per_prompt=num_images_per_prompt,
+                num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                seed=seed, height=height, width=width)
 
     @torch.inference_mode()
     def generate_from_embeddings(self, t5_embeds, pooled, n_prompts: int | None = None,
@@ -298,7 +309,12 @@ class FluxPipeline:
         lh, lw = height // vae_scale, width // vae_scale
         latents = torch_rng.draw_prompt_latents(
             (lh, lw, self.vae_config.latent_channels), seed, n_prompts,
-            num_images_per_prompt).to(self.device, self.dtype)
+            num_images_per_prompt)
+        if torch.device(self.device).type == "cuda":
+            # from pinned memory the copy does not wait for the encodes queued
+            # ahead of it, so the device does not idle while the host catches up
+            latents = latents.pin_memory().to(self.device, non_blocking=True)
+        latents = latents.to(self.device, self.dtype)
         lat = pack_latents(latents)
         scfg = self.scheduler_config
         use_dyn = scfg.get("use_dynamic_shifting", False)
@@ -332,17 +348,20 @@ def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
     for i in range(plan.num_calls):
         # the transformer re-scales by 1000
         t = np.float32(plan.timesteps[i]) / np.float32(1000.0)
-        v = flux_mod.apply(params["dit"], lat, t5_embeds, pooled,
-                           torch.full((bsz,), float(t), device=device),
-                           spec["img_ids"], spec["txt_ids"], cfg,
-                           guidance=batch.get("guidance"))
-        lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+        with model_span(device, i):
+            v = flux_mod.apply(params["dit"], lat, t5_embeds, pooled,
+                               torch.full((bsz,), float(t), device=device),
+                               spec["img_ids"], spec["txt_ids"], cfg,
+                               guidance=batch.get("guidance"))
+        with span("pipe.step", device, call=i):
+            lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
     if workers.tp_rank() != 0:
         return None
-    lat = unpack_latents(lat, *spec["latent_hw"]).float()
-    lat = lat / vae_config.scaling_factor + vae_config.shift_factor
-    return decoded_images(vae_mod.decode(params["vae"], lat.to(t5_embeds.dtype), vae_config),
-                          batch["rows"])
+    with span("pipe.decode", device):
+        lat = unpack_latents(lat, *spec["latent_hw"]).float()
+        lat = lat / vae_config.scaling_factor + vae_config.shift_factor
+        imgs = vae_mod.decode(params["vae"], lat.to(t5_embeds.dtype), vae_config)
+    return decoded_images(imgs, batch["rows"])
 
 
 def denoiser_forward(params: dict, spec: dict, batch: dict):

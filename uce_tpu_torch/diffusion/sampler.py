@@ -1,9 +1,9 @@
 """Denoising loop: one batched model call over the guidance branches (CFG's
 two, or a baseline's three or five), the guidance combine, and the
 scheduler's table-driven step, per plan call; each call is a ``pipe.model``
-span, with the conv3x3 and group_norm_act kernel launches of the call as its
-``conv3x3`` and ``group_norm_act`` attrs, and its combine and step a
-``pipe.step`` span (``utils/observability``).
+span, with the conv3x3, group_norm_act and sd_attention kernel launches of
+the call as its ``conv3x3``, ``group_norm_act`` and ``sd_attention`` attrs,
+and its combine and step a ``pipe.step`` span (``utils/observability``).
 ``denoise_fast`` adds uce_tpu's opt-in fast mode (``FastConfig``): CFG only
 inside a window of calls, and DeepCache's reuse of the deep UNet feature."""
 
@@ -21,9 +21,9 @@ from uce_tpu_torch.utils.observability import span
 
 
 @contextlib.contextmanager
-def _model_span(device, call: int):
+def model_span(device, call: int):
     """The ``pipe.model`` span of denoiser call ``call``; once it is left,
-    its attrs count the conv3x3 and group_norm_act launches made inside."""
+    its attrs count the kernel launches made inside (``kernel_launches``)."""
     before = kernel_launches()
     with span("pipe.model", device, call=call) as s:
         yield
@@ -136,7 +136,7 @@ def denoise(
     hist = plan.init_carry(lat)
     state = guidance_state
     for i in range(plan.num_calls):
-        with _model_span(lat.device, i):
+        with model_span(lat.device, i):
             lat_in = plan.scale_model_input(torch.cat([lat] * num_branches), i)
             eps_branches = model_fn(lat_in, float(plan.timesteps[i]))
         with span("pipe.step", lat.device, call=i):
@@ -200,7 +200,7 @@ def denoise_fast(
             else:
                 deep = None  # no valid cache: the segment's first call is full
         for i in range(seg_start, seg_end):
-            with _model_span(lat.device, i):
+            with model_span(lat.device, i):
                 lat_in = lat if cond_only else torch.cat([lat, lat])
                 lat_in = plan.scale_model_input(lat_in, i)
                 t = float(plan.timesteps[i])

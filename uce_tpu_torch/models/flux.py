@@ -18,6 +18,7 @@ head dim 128 on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -91,16 +92,26 @@ def _gelu_tanh(x):
 def rope_freqs(ids: np.ndarray, axes_dims, theta: float = 10000.0, device="cpu"):
     """ids [S, n_axes] -> (cos, sin) [S, sum(axes_dims)] fp32 on ``device``,
     interleaved-pair convention (diffusers FluxPosEmbed); the angles are
-    computed in float64 on the host."""
+    computed in float64 on the host. Every forward of a generation asks for
+    the same tables, so they are built once per (ids, axes, theta, device)
+    and reused (read only)."""
+    ids = np.ascontiguousarray(ids, dtype=np.float64)
+    return _rope_tables(ids.shape, ids.tobytes(), tuple(axes_dims), float(theta),
+                        torch.device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_tables(shape, data: bytes, axes_dims, theta, device):
+    ids = np.frombuffer(data, dtype=np.float64).reshape(shape)
     cos_parts, sin_parts = [], []
     for axis, dim in enumerate(axes_dims):
         freqs = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
-        angles = np.asarray(ids)[:, axis:axis + 1].astype(np.float64) * freqs
+        angles = ids[:, axis:axis + 1] * freqs
         cos_parts.append(np.repeat(np.cos(angles), 2, axis=-1))
         sin_parts.append(np.repeat(np.sin(angles), 2, axis=-1))
-    as_t = lambda parts: torch.as_tensor(np.concatenate(parts, -1), dtype=torch.float32,
-                                         device=device)
-    return as_t(cos_parts), as_t(sin_parts)
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return tuple(torch.as_tensor(np.concatenate(parts, -1), dtype=torch.float32,
+                                     device=device) for parts in (cos_parts, sin_parts))
 
 
 def apply_rope(x, cos, sin):

@@ -1,6 +1,8 @@
 """AutoencoderKL (SD and FLUX VAE) decoder, NCHW, over a flat diffusers state
 dict (latents -> pixels; the caller divides by ``scaling_factor`` first and,
-for FLUX's VAE, adds ``shift_factor``). A bf16 decode
+for FLUX's VAE, adds ``shift_factor``). FLUX.1's VAE has no
+``post_quant_conv`` (``use_post_quant_conv: false``), so its state dict has
+no such key and the decode starts at ``decoder.conv_in``. A bf16 decode
 (``layers.kernel_route``) holds its activations in ``torch.channels_last``,
 as the UNet does."""
 
@@ -28,6 +30,7 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0  # FLUX's VAE: 0.1159
+    use_post_quant_conv: bool = True  # FLUX's VAE: False
 
     @classmethod
     def from_hf(cls, cfg: Mapping) -> "VAEConfig":
@@ -40,6 +43,7 @@ class VAEConfig:
             norm_num_groups=cfg.get("norm_num_groups", 32),
             scaling_factor=cfg.get("scaling_factor", 0.18215),
             shift_factor=cfg.get("shift_factor") or 0.0,
+            use_post_quant_conv=cfg.get("use_post_quant_conv", True),
         )
 
     def to_hf(self) -> dict:
@@ -50,7 +54,8 @@ class VAEConfig:
 
 SD_VAE_CONFIG = VAEConfig()
 # black-forest-labs/FLUX.1-schnell vae/config.json (FLUX.1-dev's is the same)
-FLUX_VAE_CONFIG = VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
+FLUX_VAE_CONFIG = VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+                            use_post_quant_conv=False)
 
 
 def _w(p, name):
@@ -90,7 +95,9 @@ def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
     kernels = layers.kernel_route(latents)
     if kernels:
         latents = latents.contiguous(memory_format=torch.channels_last)
-    x = conv2d(latents, *_w(p, "post_quant_conv"), padding=0)
+    x = latents
+    if cfg.use_post_quant_conv:
+        x = conv2d(x, *_w(p, "post_quant_conv"), padding=0)
     x = conv2d(x, *_w(p, "decoder.conv_in"))
     x = _resnet(p, "decoder.mid_block.resnets.0", x, g)
     x = _attn(p, "decoder.mid_block.attentions.0", x, g)
@@ -110,7 +117,8 @@ def decode(params: Mapping[str, torch.Tensor], latents, config: VAEConfig):
 def init_state_dict(config: VAEConfig, rng: np.random.Generator,
                     scale: float = 0.02) -> dict[str, np.ndarray]:
     """Random flat state dict (encoder and decoder) in diffusers naming, with
-    the same draws as uce_tpu's, so both packages build equal weights."""
+    the same draws as uce_tpu's, so both packages build equal weights (a
+    config without ``post_quant_conv`` leaves that key out)."""
     cfg = config
     sd: dict[str, np.ndarray] = {}
 
@@ -161,7 +169,8 @@ def init_state_dict(config: VAEConfig, rng: np.random.Generator,
     conv("encoder.conv_out", ch[-1], 2 * lc)
     conv("quant_conv", 2 * lc, 2 * lc, k=1)
 
-    conv("post_quant_conv", lc, lc, k=1)
+    if cfg.use_post_quant_conv:
+        conv("post_quant_conv", lc, lc, k=1)
     conv("decoder.conv_in", lc, ch[-1])
     resnet("decoder.mid_block.resnets.0", ch[-1], ch[-1])
     attn("decoder.mid_block.attentions.0", ch[-1])
