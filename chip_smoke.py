@@ -9,7 +9,7 @@ them.
 Phases (each raises on failure; the exit code is non-zero unless all pass;
 each phase's seconds and the total are printed):
   1. the card: CUDA must be available; print its name and power limit;
-  2. the kernels: build the six libraries from csrc/ (one nvcc each, all at
+  2. the kernels: build the seven libraries from csrc/ (one nvcc each, all at
      once; ptxas's registers and spills of the TMA + wgmma attention and
      conv kernels; the bf16 attention at d=64 must not spill), compare each
      kernel with its plain PyTorch version at the main paths' shapes (SD
@@ -20,7 +20,9 @@ each phase's seconds and the total are printed):
      conv_in (Cin = 16, mma.sync),
      uce_solve at d=1024; the baselines' UNet batches 3, 5 and 10 and the
      d=512 decode at batch 2) and on the Pallas tests' cases (elementwise and
-     relative L2 bounds; the conv's split-K path at the shapes that split),
+     relative L2 bounds; the conv's split-K path at the shapes that split;
+     FLUX's q/k RMSNorm + RoPE kernel, which has no Pallas counterpart, bit
+     for bit: it sums the squares in the order of PyTorch's CUDA mean),
      and time the kernel, the plain version and one
      library call for the same function (CUDA events; the int8-QK^T
      attention has no such call, so the bf16 kernel and SDPA are timed
@@ -131,7 +133,7 @@ each phase's seconds and the total are printed):
      folder against itself within 1e-6, seconds per image; the drawn
      YOLOv8-n weights as they are, printed beside; ``eval-compare`` (a
      grid per complete case, each panel its source) and ``info`` in a new
-     process (rc 0, the card, six libraries built); the six new processes
+     process (rc 0, the card, seven libraries built); the six new processes
      run at once, beside the in-process work; no kernel launched;
  19. FLUX.1-schnell at full width and depth (the 19 + 38-block DiT, T5-XXL,
      CLIP-L, the 16-channel VAE): a seeded random-weight bf16 snapshot drawn
@@ -246,6 +248,7 @@ from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, sa
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
 from uce_tpu_torch.ops import attention, quant
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
+from uce_tpu_torch.ops.kernels import qk_norm_rope as qknk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.serving import socket_api
@@ -417,15 +420,25 @@ QK8_CASES = [(2, 2, 256, 256, 40), (1, 4, 512, 512, 80), (2, 2, 200, 200, 40),
              (1, 2, 64, 64, 80), (2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80)]
 
+# FLUX's q/k RMSNorm + RoPE, (B, H, T5 tokens, image tokens, one segment):
+# a double-stream block of FLUX.1-schnell at 1024^2 and batch 2 (the
+# benchmark's cell) and of FLUX.1-dev (512 T5 tokens), a single-stream
+# block (the joined sequence as one segment), the mesh's model=2 shard (12
+# heads a rank), batch 1 at 512^2; then small cases.
+QK_SLICE = [(2, 24, 256, 4096, False), (2, 24, 512, 4096, False),
+            (2, 24, 256, 4096, True), (1, 12, 256, 4096, False),
+            (1, 24, 256, 1024, False)]
+QK_CASES = [(1, 2, 3, 12, False), (3, 1, 5, 16, True), (2, 3, 77, 64, False)]
+
 # Steps of the LMS run through generate on SD 2.1 (the third new scheduler).
 LMS_STEPS = 5
 ART = "Kelly McKernan; Thomas Kinkade; Tyler Edlin; Kilian Eng; Ajin Demi Human"
 PRESERVE = "Van Gogh; Rembrandt; Pablo Picasso"
 KERNEL_MODULES = {"sd_attention": sdk, "group_norm_act": gnk, "conv3x3": convk,
-                  "uce_solve": solvek}
+                  "uce_solve": solvek, "qk_norm_rope": qknk}
 BUILDS = {"sd_attention": sdk.build, "sd_attention_d512": sdk.build_d512,
           "sd_attention_qk8": sdk.build_qk8, "group_norm": gnk.build,
-          "conv3x3": convk.build, "uce_solve": solvek.build}
+          "conv3x3": convk.build, "uce_solve": solvek.build, "qk_norm_rope": qknk.build}
 SOCKET_STEPS = 10
 # serve --quantize int8 (and --fast) in process: 20 PNDM steps, 4 requests
 # (cut from 50 steps and 8 requests for the script's time; the ladder's
@@ -531,7 +544,7 @@ FLUX_VAE = vae.FLUX_VAE_CONFIG
 FLUX_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 1.0,
                   "use_dynamic_shifting": False, "num_train_timesteps": 1000}
 FLUX_STEPS = 4
-FLUX_DIT_LAUNCHES = {"sd_attention_d128": 57}
+FLUX_DIT_LAUNCHES = {"sd_attention_d128": 57, "qk_norm_rope": 57}
 FLUX_PROMPT = "a painting by kelly mckernan"
 # FLUX.1-dev (black-forest-labs/FLUX.1-dev): schnell's DiT with the guidance
 # embedder (guidance_embeds), 512 T5 tokens (its joint attention at
@@ -564,7 +577,7 @@ HIDREAM_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 
                      "use_dynamic_shifting": False, "num_train_timesteps": 1000}
 HIDREAM_STEPS = 2
 HIDREAM_GUIDANCE = 5.0
-HIDREAM_DIT_LAUNCHES = {"sd_attention_d128": 48}
+HIDREAM_DIT_LAUNCHES = {"sd_attention_d128": 48, "qk_norm_rope": 0}
 
 
 def library_launches(per_call: dict) -> dict:
@@ -1051,6 +1064,61 @@ def phase_qk8(gen, rows: dict) -> None:
         print(line, flush=True)
 
 
+def qk_inputs(gen, b: int, h: int, s_txt: int, s_img: int, joined: bool):
+    """(segments, cos, sin) of one block: projection outputs with an offset,
+    norm scales near 1, the RoPE tables of T5 ids and an image grid (square
+    where s_img is a square)."""
+    side = int(round(s_img ** 0.5))
+    lh, lw = (side, side) if side * side == s_img else (1, s_img)
+    ids = np.concatenate([np.zeros((s_txt, 3)), make_img_ids(2 * lh, 2 * lw)])
+    cos, sin = flux.rope_freqs(ids, flux.SCHNELL_CONFIG.axes_dims_rope, device="cuda")
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    segments = []
+    for s in ([s_txt + s_img] if joined else [s_txt, s_img]):
+        src = lambda: (rnd(b, s, h * qknk.HEAD_DIM) * 2 + 0.3).bfloat16()
+        scale = lambda: (1 + 0.2 * rnd(qknk.HEAD_DIM)).bfloat16()
+        segments.append((src(), src(), scale(), scale()))
+    return segments, cos, sin
+
+
+def phase_qk_norm_rope(gen, rows: dict) -> None:
+    """The kernel against its plain version and a second call, bit for bit;
+    at the main paths' shapes also its time against its bound (bytes) and
+    the plain version's."""
+    row = rows["qk_norm_rope"]
+    for b, h, s_txt, s_img, joined in QK_SLICE + QK_CASES:
+        key = (b, h, s_txt, s_img, joined)
+        segments, cos, sin = qk_inputs(gen, b, h, s_txt, s_img, joined)
+        got = qknk.qk_norm_rope(segments, cos, sin)
+        torch.cuda.synchronize()
+        want = qknk.qk_norm_rope_reference(segments, cos, sin)
+        again = qknk.qk_norm_rope(segments, cos, sin)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"qk_norm_rope {key}: results differ run to run")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            equal = float(sum((g == w).sum() for g, w in zip(got, want))) / (2 * got[0].numel())
+            raise AssertionError(f"qk_norm_rope {key}: {equal:.6f} of outputs equal to the "
+                                 "plain version's, not all")
+        line = f"[kernel] qk_norm_rope {key}: bit for bit the plain version's outputs"
+        if key in QK_SLICE:
+            call = lambda: qknk.qk_norm_rope(segments, cos, sin)
+            ms = median_ms(call)
+            plain_ms = median_ms(lambda: qknk.qk_norm_rope_reference(segments, cos, sin))
+            loop_kernel = loop_ms(call)
+            # q and k read and written once, the tables and scales read once
+            n = 2 * sum(q.numel() for q, *_ in segments)
+            nbytes = 2.0 * n * 2 + 2 * cos.numel() * 4 + 2 * len(segments) * 2 * 2 * 128
+            bound_ms, by = bound(0.0, nbytes)
+            if key == QK_SLICE[0]:
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                           bound_by=by)
+            line += (f"; kernel {ms:.4f} ms, back to back {loop_kernel:.4f} ms a call "
+                     f"({nbytes / loop_kernel / 1e6:.0f} GB/s, {bound_ms / loop_kernel:.1%} "
+                     f"of the bound), plain version {plain_ms:.4f} ms (median of 10), bound "
+                     f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+        print(line, flush=True)
+
+
 def phase_kernels(rows: dict) -> None:
     gen = torch.Generator("cuda").manual_seed(SEED)
     phase_attention(gen, rows)
@@ -1058,6 +1126,7 @@ def phase_kernels(rows: dict) -> None:
     phase_group_norm(gen, rows)
     phase_conv(gen, rows)
     phase_solve(gen, rows)
+    phase_qk_norm_rope(gen, rows)
 
 
 def write_tokenizer(path: str, pad: str) -> None:
@@ -3129,7 +3198,8 @@ def timed(what: str, seconds: dict):
 
 def add_launches(rows: dict, launches: dict) -> None:
     """Add a main-path run's launches to the kernels' rows."""
-    for k in ("conv3x3", "group_norm_act", "sd_attention_d512", "sd_attention_qk8"):
+    for k in ("conv3x3", "group_norm_act", "sd_attention_d512", "sd_attention_qk8",
+              "qk_norm_rope"):
         rows[k]["launches"] += launches[k]
     rows["sd_attention"]["launches"] += (launches["sd_attention"]
                                          - launches["sd_attention_d512"])
@@ -3459,7 +3529,8 @@ def phase_flux_dit(pipe, rows: dict) -> None:
             with attention_calls(seen, rows):
                 outs[impl] = fwd().float()
             got = read_launches()
-            want = FLUX_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0}
+            want = FLUX_DIT_LAUNCHES if impl == "auto" else {
+                "sd_attention_d128": 0, "qk_norm_rope": FLUX_DIT_LAUNCHES["qk_norm_rope"]}
             expect_launches(f"FLUX DiT forward ({impl})", got, want)
             device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
             walls = []
@@ -3518,7 +3589,8 @@ def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
     steps = FLUX_DEV_STEPS if dev else FLUX_STEPS
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
     want = {**per_decode, "sd_attention_d128": steps * FLUX_DIT_LAUNCHES[
-        "sd_attention_d128"], "sd_attention_d512": 1}
+        "sd_attention_d128"], "sd_attention_d512": 1,
+        "qk_norm_rope": steps * FLUX_DIT_LAUNCHES["qk_norm_rope"]}
     want["sd_attention"] = want["sd_attention_d128"] + 1
     seen, gn_seen, calls, attn_seen, mus = (collections.Counter(), collections.Counter(),
                                            [], collections.Counter(), [])
@@ -3631,7 +3703,8 @@ def phase_flux_serve(snap: str, edit_path: str, quantize: str | None = None) -> 
         raise AssertionError(f"serve --family flux{mode} report: {rep}")
     batches = 2 + rep["batches"]  # one warm-up batch per rung
     want = {"sd_attention_d128": batches * FLUX_STEPS * FLUX_DIT_LAUNCHES[
-        "sd_attention_d128"], "sd_attention_d512": batches, "sd_attention_qk8": 0}
+        "sd_attention_d128"], "sd_attention_d512": batches, "sd_attention_qk8": 0,
+        "qk_norm_rope": batches * FLUX_STEPS * FLUX_DIT_LAUNCHES["qk_norm_rope"]}
     expect_launches(f"serve --family flux{mode}, {batches} batches", launches, want)
     served = [img for _, images in calls[2:] for img in images]
     check_images(f"serve --family flux{mode}", served)
@@ -4133,7 +4206,8 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
                     routes[run], replay=replay):
                 outs[run] = fwd().float()
             got = read_launches()
-            want = HIDREAM_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0}
+            want = HIDREAM_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0,
+                                                                "qk_norm_rope": 0}
             expect_launches(f"HiDream DiT forward ({run})", got, want)
             if impl == "auto" and dict(seen) != {joint: want["sd_attention_d128"]}:
                 raise AssertionError(f"HiDream DiT attention calls: {dict(seen)}")
@@ -4246,7 +4320,7 @@ def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict,
     out = os.path.join(WORK, f"images_hidream_{path}{tag}")
     per_decode = VAE_LAUNCHES if path == "kernels" else VAE_LAUNCHES_LIBRARY
     want = {**per_decode, "sd_attention_d128": HIDREAM_STEPS * HIDREAM_DIT_LAUNCHES[
-        "sd_attention_d128"], "sd_attention_d512": 1}
+        "sd_attention_d128"], "sd_attention_d512": 1, "qk_norm_rope": 0}
     want["sd_attention"] = want["sd_attention_d128"] + 1
     seen, gn_seen, record, loads = collections.Counter(), collections.Counter(), {}, []
     with route(path == "kernels"):
@@ -4494,7 +4568,8 @@ def worker_launches() -> dict:
             "sd_attention_d512_merge": get("sd_attention", "launches_merge"),
             "conv3x3_wgmma": get("conv3x3", "launches_wgmma"),
             "conv3x3_mma": get("conv3x3", "launches_mma"),
-            "conv3x3_reduce": get("conv3x3", "launches_reduce")}
+            "conv3x3_reduce": get("conv3x3", "launches_reduce"),
+            "qk_norm_rope": get("qk_norm_rope", "launches")}
 
 
 def mesh_reset() -> None:
@@ -4719,7 +4794,8 @@ def mesh_dit_forward(what: str, family: str, module, config, params: dict, spec:
     if not rel <= bound:
         raise AssertionError(f"{what} DiT at model=2: rel L2 {rel:.3e}")
     per_rank(f"{what} DiT forward at model=2, x4", own, theirs,
-             {"sd_attention_d128": 4 * per_forward}, rows)
+             {"sd_attention_d128": 4 * per_forward,
+              "qk_norm_rope": 4 * per_forward if family == "flux" else 0}, rows)
 
 
 def free_card(what: str) -> None:
@@ -4763,7 +4839,9 @@ def mesh_dit_cli(what: str, command: str, cut: str, rows: dict, extra: list,
           f"{pipe_mesh_note(1, 2)}", flush=True)
     n_workers = store.pop("workers")
     per_rank(f"{what} {command} --mesh model=2 ({forwards} DiT forwards)", own, store,
-             {"sd_attention_d128": forwards * per_forward}, rows, n_workers)
+             {"sd_attention_d128": forwards * per_forward,
+              "qk_norm_rope": forwards * per_forward if command == "generate-flux" else 0},
+             rows, n_workers)
 
 
 def phase_mesh_flux(snap: str, rows: dict, fds: list) -> None:
@@ -4835,7 +4913,9 @@ def main() -> int:
                  "uce_tpu/ops/pallas/sd_attention.py:166"),
                 ("group_norm_act", "group_norm.cu", "uce_tpu/ops/pallas/group_norm.py:112"),
                 ("conv3x3", "conv3x3.cu", "uce_tpu/ops/pallas/conv3x3.py:91"),
-                ("uce_solve", "uce_solve.cu", "uce_tpu/ops/pallas/uce_solve.py:151"))}
+                ("uce_solve", "uce_solve.cu", "uce_tpu/ops/pallas/uce_solve.py:151"),
+                ("qk_norm_rope", "qk_norm_rope.cu",
+                 "none: uce_tpu/models/flux.py:69-100 leaves it to XLA"))}
     seconds = {}
     start = time.perf_counter()
     with timed("build", seconds):

@@ -102,7 +102,7 @@ def test_info_reports_without_a_card(tmp_path, monkeypatch, capsys):
     assert f"torch {torch.__version__}" in out
     assert "CUDA available: no" in out
     libs = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert len(libs) == 6
+    assert len(libs) == 7  # six ported kernels and FLUX's q/k norm + RoPE
     for name in libs:
         state = f"built {built}" if name == "group_norm" else "not built"
         assert f"  {name}: {state}" in out

@@ -12,7 +12,11 @@ Params are the flat diffusers state dict (linear weights [out, in]); the
 blocks run as a Python loop over their per-layer keys. The joint attention
 goes through ``ops/attention.dot_product_attention``: under ``"auto"`` it is
 long, mask-free self-attention, which the sd_attention kernel takes at
-head dim 128 on the card.
+head dim 128 on the card. Each block's per-head q/k RMSNorm, RoPE and (in
+double-stream blocks) the text/image join run in one call of
+``ops/kernels/qk_norm_rope``: the hand-written kernel for bf16 activations
+on the card at head dim 128, else its plain version (``_rms``,
+``torch.cat``, ``apply_rope``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 
 from uce_tpu_torch.models.layers import linear, row_linear, timestep_embedding
 from uce_tpu_torch.ops.attention import dot_product_attention
+from uce_tpu_torch.ops.kernels import qk_norm_rope as qk_kernel
 
 # diffusers' names of the attention projections of each block family
 _DOUBLE_LINEARS = ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj",
@@ -181,9 +186,15 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
     def ada_chunks(name, n):
         return [c[:, None] for c in _lin(p, name, temb_act).chunk(n, dim=-1)]
 
-    def attention(q, k, v):
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        return _unheads(dot_product_attention(q, k, v, scale=q.shape[-1] ** -0.5,
+    norm_rope = (qk_kernel.qk_norm_rope
+                 if qk_kernel.routes_to_kernel(dtype, latents.device.type, dh)
+                 else qk_kernel.qk_norm_rope_reference)
+
+    def attention(segments, v):
+        """segments: (q, k, q norm scale, k norm scale) projection outputs,
+        text first; v [B, H, S, dh]."""
+        q, k = norm_rope(segments, cos, sin, dh)
+        return _unheads(dot_product_attention(q, k, v, scale=dh ** -0.5,
                                               impl=attn_impl))
 
     for i in range(cfg.num_layers):
@@ -193,14 +204,13 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
         hx = _ln(x) * (1 + sc_m) + sh_m
         he = _ln(enc) * (1 + csc_m) + csh_m
         a = b + "attn."
-        proj = lambda name, h: _heads(_lin(p, a + name, h), dh)
-        q = _rms(proj("to_q", hx), p[a + "norm_q.weight"])
-        k = _rms(proj("to_k", hx), p[a + "norm_k.weight"])
-        eq = _rms(proj("add_q_proj", he), p[a + "norm_added_q.weight"])
-        ek = _rms(proj("add_k_proj", he), p[a + "norm_added_k.weight"])
+        img = (_lin(p, a + "to_q", hx), _lin(p, a + "to_k", hx),
+               p[a + "norm_q.weight"], p[a + "norm_k.weight"])
+        txt = (_lin(p, a + "add_q_proj", he), _lin(p, a + "add_k_proj", he),
+               p[a + "norm_added_q.weight"], p[a + "norm_added_k.weight"])
         # the text stream first in the joint sequence (diffusers' order)
-        out = attention(torch.cat([eq, q], dim=2), torch.cat([ek, k], dim=2),
-                        torch.cat([proj("add_v_proj", he), proj("to_v", hx)], dim=2))
+        out = attention([txt, img], torch.cat([_heads(_lin(p, a + "add_v_proj", he), dh),
+                                               _heads(_lin(p, a + "to_v", hx), dh)], dim=2))
         enc_out, x_out = out[:, :s_txt], out[:, s_txt:]
         x = x + g_m * _row_lin(p, a + "to_out.0", x_out)
         enc = enc + cg_m * _row_lin(p, a + "to_add_out", enc_out)
@@ -218,9 +228,9 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
         sh, sc, gate = ada_chunks(b + "norm.linear", 3)
         hn = _ln(h) * (1 + sc) + sh
         a = b + "attn."
-        q = _rms(_heads(_lin(p, a + "to_q", hn), dh), p[a + "norm_q.weight"])
-        k = _rms(_heads(_lin(p, a + "to_k", hn), dh), p[a + "norm_k.weight"])
-        attn = attention(q, k, _heads(_lin(p, a + "to_v", hn), dh))
+        qk = (_lin(p, a + "to_q", hn), _lin(p, a + "to_k", hn), p[a + "norm_q.weight"],
+              p[a + "norm_k.weight"])
+        attn = attention([qk], _heads(_lin(p, a + "to_v", hn), dh))
         mlp = _gelu_tanh(_lin(p, b + "proj_mlp", hn))
         # sharded, this rank's rows of proj_out are [its heads; its MLP block]
         h = h + gate * _row_lin(p, b + "proj_out", torch.cat([attn, mlp], dim=-1))

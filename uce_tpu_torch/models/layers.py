@@ -23,6 +23,7 @@ from uce_tpu_torch.ops import quant
 from uce_tpu_torch.parallel import workers
 from uce_tpu_torch.ops.kernels import conv3x3 as conv_kernel
 from uce_tpu_torch.ops.kernels import group_norm as gn_kernel
+from uce_tpu_torch.ops.kernels import qk_norm_rope as qk_kernel
 from uce_tpu_torch.ops.kernels import sd_attention as attn_kernel
 
 # Derived copies of parameters (packed conv weights, fp32 norm affines),
@@ -38,10 +39,11 @@ def kernel_route(x) -> bool:
 
 
 def kernel_launches() -> dict[str, int]:
-    """The conv3x3, group_norm_act and bf16 sd_attention kernels' launches
-    so far (the difference over a call counts that call's)."""
+    """The conv3x3, group_norm_act, bf16 sd_attention and qk_norm_rope
+    kernels' launches so far (the difference over a call counts that
+    call's)."""
     return {"conv3x3": conv_kernel.launches, "group_norm_act": gn_kernel.launches,
-            "sd_attention": attn_kernel.launches}
+            "sd_attention": attn_kernel.launches, "qk_norm_rope": qk_kernel.launches}
 
 
 def _derive(param: torch.Tensor, kind: str, fn):

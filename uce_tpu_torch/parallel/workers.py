@@ -480,10 +480,11 @@ def data_leaders(results: list, mesh: mesh_mod.Mesh) -> list:
 # ---------------------------------------------------------------------------
 
 def _counter_modules():
-    from uce_tpu_torch.ops.kernels import conv3x3, group_norm, sd_attention, uce_solve
+    from uce_tpu_torch.ops.kernels import (conv3x3, group_norm, qk_norm_rope,
+                                           sd_attention, uce_solve)
 
     return {"sd_attention": sd_attention, "conv3x3": conv3x3, "group_norm": group_norm,
-            "uce_solve": uce_solve}
+            "uce_solve": uce_solve, "qk_norm_rope": qk_norm_rope}
 
 
 def local_counts(reset: bool = False) -> dict:
