@@ -41,9 +41,10 @@ each phase's seconds and the total are printed):
      uce_solve kernel) and ``general``: 32 finite cross-attention K/V targets
      each, held to a float64 solve of the same embeddings within a bound set
      from cond(mat2), and general and pallas to collapsed;
-  5. full-width UNet forwards at batch 4: impl="auto" (attention kernel)
-     against impl="plain", and on the kernel path (all kernels, the default)
-     against the library path (``route(False)``), with the launches per
+  5. full-width UNet forwards at batch 4: the attention kernel against its
+     plain version (``kernels.route`` switching sd_attention off), and on
+     the kernel path (all kernels, the default) against the library path
+     (conv3x3 and group_norm_act switched off), with the launches per
      forward (the conv's by kernel: wgmma, mma.sync, split-K sums);
   6. one VAE decode at 512x512 on both paths, with its launches;
   7. ``generate`` through the CLI at 512px, PNDM, 50 steps, CFG 7.5, with the
@@ -143,7 +144,8 @@ each phase's seconds and the total are printed):
      scores drawn from SEED, whose reader's load and batch times are
      printed), ``edit-flux`` (the two text-entry
      targets, each held to a float64 solve; ``--method pallas`` refused),
-     one DiT forward at 1024^2 on impl="auto" against "plain" (57 d=128
+     one DiT forward at 1024^2 on the attention kernel against the plain
+     attention (sd_attention switched off; 57 d=128
      kernel launches, device and wall ms), a VAE decode on both paths,
      ``generate-flux`` (4 steps, guidance 0) on both paths with the edit
      overlay (PNGs, launches from the steps, seconds per image after the
@@ -167,8 +169,8 @@ each phase's seconds and the total are printed):
      (49 caption projections, each held to a float64 solve of its own
      stream; ``--method pallas`` refused), the pipeline loaded staged
      (encode, ``free_encoders`` with the HBM before and after, then the
-     DiT): one DiT forward at CFG batch 2 and 1024^2 on impl="auto" against
-     "plain" on the same expert routing (48 d=128 launches, each held to
+     DiT): one DiT forward at CFG batch 2 and 1024^2 on the attention
+     kernel against the plain attention on the same expert routing (48 d=128 launches, each held to
      the plain version), a CFG window over every call equal to the exact
      run bit for bit and a 1:2 window finite and different, an int8 DiT
      forward on the bf16 forward's expert routing held to its float
@@ -246,13 +248,12 @@ from uce_tpu_torch.models.clip_tokenizer import bytes_to_unicode
 from uce_tpu_torch.models.hf_tokenizer import HFTokenizer
 from uce_tpu_torch.models.hf_loader import load_state_dict, read_safetensors, save_safetensors
 from uce_tpu_torch.models.sd_targets import is_hidream_caption_projection, is_sd_cross_attn_kv
-from uce_tpu_torch.ops import attention, quant
+from uce_tpu_torch.ops import attention, kernels, quant
 from uce_tpu_torch.ops.kernels import _build, conv3x3 as convk, group_norm as gnk
 from uce_tpu_torch.ops.kernels import qk_norm_rope as qknk
 from uce_tpu_torch.ops.kernels import sd_attention as sdk, uce_solve as solvek
 from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.serving import socket_api
-from uce_tpu_torch.tools.trace_prof import route
 from uce_tpu_torch.utils.imaging import decode_png, encode_png, load_image
 from uce_tpu_torch.utils.prompts import resolve_edit_request
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng, draw_prompt_latents
@@ -434,11 +435,9 @@ QK_CASES = [(1, 2, 3, 12, False), (3, 1, 5, 16, True), (2, 3, 77, 64, False)]
 LMS_STEPS = 5
 ART = "Kelly McKernan; Thomas Kinkade; Tyler Edlin; Kilian Eng; Ajin Demi Human"
 PRESERVE = "Van Gogh; Rembrandt; Pablo Picasso"
-KERNEL_MODULES = {"sd_attention": sdk, "group_norm_act": gnk, "conv3x3": convk,
-                  "uce_solve": solvek, "qk_norm_rope": qknk}
-BUILDS = {"sd_attention": sdk.build, "sd_attention_d512": sdk.build_d512,
-          "sd_attention_qk8": sdk.build_qk8, "group_norm": gnk.build,
-          "conv3x3": convk.build, "uce_solve": solvek.build, "qk_norm_rope": qknk.build}
+# The kernels the library path switches off (``kernels.route``): every conv
+# and GroupNorm the library call, NCHW; the attention kernel stays.
+LIBRARY_OFF = ("conv3x3", "group_norm_act")
 SOCKET_STEPS = 10
 # serve --quantize int8 (and --fast) in process: 20 PNDM steps, 4 requests
 # (cut from 50 steps and 8 requests for the script's time; the ladder's
@@ -634,26 +633,10 @@ def loop_ms(fn, calls: int = 10, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def reset_launches() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
-    sdk.launches_by_dim.clear()
-    sdk.launches_qk8 = 0
-    sdk.launches_merge = 0
-    convk.launches_wgmma = convk.launches_mma = convk.launches_reduce = 0
-
-
-def read_launches() -> dict[str, int]:
-    torch.cuda.synchronize()
-    counts = {name: mod.launches for name, mod in KERNEL_MODULES.items()}
-    counts["sd_attention_d512"] = sdk.launches_by_dim.get(512, 0)
-    counts["sd_attention_d128"] = sdk.launches_by_dim.get(128, 0)
-    counts["sd_attention_qk8"] = sdk.launches_qk8
-    counts["sd_attention_d512_merge"] = sdk.launches_merge
-    counts["conv3x3_wgmma"] = convk.launches_wgmma
-    counts["conv3x3_mma"] = convk.launches_mma
-    counts["conv3x3_reduce"] = convk.launches_reduce
-    return counts
+def path_route(path: str):
+    """The enclosed calls on ``path``: "kernels" (every kernel) or
+    "library" (``LIBRARY_OFF`` switched off)."""
+    return kernels.route(() if path == "kernels" else LIBRARY_OFF)
 
 
 @contextlib.contextmanager
@@ -701,7 +684,8 @@ def gn_shapes(seen: collections.Counter, row: dict):
                                                               eps, act))[0]
             if not torch.equal(got, launch(x, scale, bias, groups, eps, act)):
                 raise AssertionError(f"{what}: results differ run to run")
-            gnk.launches -= 1  # the repeat is a check, not the path's launch
+            # the repeat is a check, not the path's launch
+            kernels.count("group_norm_act", n=-1)
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
         seen[key] += 1
         return got
@@ -779,12 +763,10 @@ def ptxas_report(log: str) -> list[str]:
 def phase_build() -> None:
     """One nvcc per library, all started together."""
     start = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(BUILDS)) as pool:
-        for future in [pool.submit(fn) for fn in BUILDS.values()]:
-            future.result()
-    print(f"[kernel] {len(BUILDS)} libraries built in "
+    kernels.build_all()
+    print(f"[kernel] {len(kernels.LIBRARIES)} libraries built in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
-    for name in BUILDS:
+    for name in kernels.LIBRARIES:
         print(f"[kernel]   {name}: nvcc {_build.build_seconds.get(name, 0.0):.1f} s")
     for name in ("sd_attention", "sd_attention_qk8", "conv3x3", "group_norm"):
         log = _build.build_logs.get(name)
@@ -1444,12 +1426,12 @@ def phase_edit(snap: str, model: Model) -> tuple[str, int]:
           f"x eps32)")
     results, solve_launches = {}, 0
     for method in ("collapsed", "pallas", "general"):
-        reset_launches()
+        kernels.reset_launches()
         name = "erase_art" if method == "collapsed" else f"erase_art_{method}"
         warnings = []
         with edit_warnings(warnings):
             edits, seconds = run_edit(snap, name, ["--method", method], model)
-        launches = read_launches()["uce_solve"]
+        launches = kernels.launches()["uce_solve"]
         want = int(method == "pallas" and kernel_solve)
         if launches != want:
             raise AssertionError(f"{model.name} edit --method {method}: uce_solve "
@@ -1513,29 +1495,30 @@ def unet_inputs(pipe, model: Model, prompts: list[str]):
 
 
 def phase_unet(pipe, rows: dict, model: Model, prompts: list[str]) -> None:
-    """UNet forwards at UNet batch 2 x len(prompts): impl="auto" against
-    "plain", and all kernels against the library path, with launches."""
+    """UNet forwards at UNet batch 2 x len(prompts): the attention kernel
+    against the plain attention ("library" against "plain": sd_attention
+    switched off too), and all kernels against the library path, with
+    launches."""
     with torch.inference_mode():
         x, context, added_cond = unet_inputs(pipe, model, prompts)
-        runs = {"plain": ("plain", False), "library": ("auto", False),
-                "kernels": ("auto", True)}
+        runs = {"plain": ("sd_attention", *LIBRARY_OFF), "library": LIBRARY_OFF,
+                "kernels": ()}
         library = library_launches(model.unet_launches)
         want = {"plain": {**library, "sd_attention": 0}, "library": library,
                 "kernels": model.unet_launches}
         outs, times = {}, {}
         seen, gn_seen = collections.Counter(), collections.Counter()
-        for name, (impl, kernels) in runs.items():
+        for name, off in runs.items():
             fwd = lambda: unet.apply(pipe.unet_params, x, 981.0, context,
-                                     pipe.unet_config, attn_impl=impl,
-                                     added_cond=added_cond)
-            with route(kernels):
-                reset_launches()
+                                     pipe.unet_config, added_cond=added_cond)
+            with kernels.route(off):
+                kernels.reset_launches()
                 with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                         gn_seen, rows["group_norm_act"]):
                     outs[name] = fwd().float()
                 if name == "kernels":
                     want[name] = {**want[name], "conv3x3_reduce": conv_split_sums(seen)}
-                expect_launches(f"{model.name} UNet forward ({name})", read_launches(),
+                expect_launches(f"{model.name} UNet forward ({name})", kernels.launches(),
                                 want[name])
                 times[name] = median_ms(fwd, reps=5)
     if model is SD14:
@@ -1574,12 +1557,12 @@ def phase_vae(pipe, rows: dict, model: Model) -> None:
     with torch.inference_mode():
         for name in ("library", "kernels"):
             dec = lambda: vae.decode(pipe.vae_params, lat, pipe.vae_config)
-            with route(name == "kernels"):
-                reset_launches()
+            with path_route(name):
+                kernels.reset_launches()
                 with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                         gn_seen, rows["group_norm_act"]):
                     outs[name] = dec().float()
-                got = read_launches()
+                got = kernels.launches()
                 want = VAE_LAUNCHES if name == "kernels" else VAE_LAUNCHES_LIBRARY
                 if name == "kernels":
                     want = {**want, "conv3x3_reduce": conv_split_sums(seen)}
@@ -1697,8 +1680,8 @@ def phase_generate(snap: str, edit_path: str, path: str, rows: dict, model: Mode
     gn_seen = collections.Counter()
     extra = ["--scheduler", scheduler] if scheduler else []
     extra += ["--fast", fast] if fast else []
-    with route(path == "kernels"):
-        reset_launches()
+    with path_route(path):
+        kernels.reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                 gn_seen, rows["group_norm_act"]), finite_decodes():
@@ -1707,7 +1690,7 @@ def phase_generate(snap: str, edit_path: str, path: str, rows: dict, model: Mode
                            edit_path, "--image_size", str(model.size),
                            "--num_inference_steps", str(steps), "--device", "cuda",
                            *extra])
-        launches = read_launches()
+        launches = kernels.launches()
         seconds = time.perf_counter() - start
     want["conv3x3_reduce"] = conv_split_sums(seen)
     if rc != 0:
@@ -1833,9 +1816,9 @@ def phase_quant_unet(pipe) -> None:
         latents = draw_prompt_latents((64, 64, 4), SEED, 4, 1).to("cuda", pipe.dtype)
         x = torch.cat([latents, latents])
         fwd = lambda params: unet.apply(params, x, 981.0, context, pipe.unet_config)
-        reset_launches()
+        kernels.reset_launches()
         int8 = fwd(qparams).float()
-        expect_launches("W8A8 UNet forward", read_launches(), UNET_LAUNCHES_INT8)
+        expect_launches("W8A8 UNet forward", kernels.launches(), UNET_LAUNCHES_INT8)
         with qk8_checked(notes):
             fwd(qparams)
         with qk8_plain():
@@ -1879,9 +1862,9 @@ def phase_quant_vae(pipe) -> None:
     lat = lat / pipe.vae_config.scaling_factor
     dec = lambda params: vae.decode(params, lat, pipe.vae_config)
     with torch.inference_mode():
-        reset_launches()
+        kernels.reset_launches()
         int8 = dec(qparams).float()
-        expect_launches("W8A8 VAE decode", read_launches(), VAE_LAUNCHES_INT8)
+        expect_launches("W8A8 VAE decode", kernels.launches(), VAE_LAUNCHES_INT8)
         bf16 = dec(pipe.vae_params).float()
         int8_ms = median_ms(lambda: dec(qparams), reps=3, warmup=1)
     if int8.shape != (1, 3, 512, 512) or not bool(torch.isfinite(int8).all()):
@@ -1918,16 +1901,16 @@ def phase_quant_model(pipe, rows: dict, model: Model) -> None:
             qvae = quantize.quantize_params(pipe.vae_params, quantize.VAE_SKIP, mode)
             nq, nw = quantize.count_quantized(qunet)
             notes = []
-            reset_launches()
+            kernels.reset_launches()
             with qk8_checked(notes, rows["sd_attention_qk8"]):
                 out = fwd(qunet).float()
             int8 = mode == "int8"
-            expect_launches(f"{model.name} {mode} UNet forward", read_launches(),
+            expect_launches(f"{model.name} {mode} UNet forward", kernels.launches(),
                             {"sd_attention_qk8": n_attn if int8 else 0,
                              "sd_attention": 0 if int8 else n_attn})
-            reset_launches()
+            kernels.reset_launches()
             out_dec = dec(qvae).float()
-            expect_launches(f"{model.name} {mode} VAE decode", read_launches(),
+            expect_launches(f"{model.name} {mode} VAE decode", kernels.launches(),
                             VAE_LAUNCHES_INT8)
             ms = median_ms(lambda: fwd(qunet), reps=5)
             dec_ms = median_ms(lambda: dec(qvae), reps=3, warmup=1)
@@ -1969,11 +1952,11 @@ def phase_serve_model(snap: str, edit_path: str, model: Model, steps: int = 8,
             str(requests), "--num_inference_steps", str(steps), "--image_size",
             str(model.size), "--device", "cuda"]
     out, calls = io.StringIO(), []
-    reset_launches()
+    kernels.reset_launches()
     start = time.perf_counter()
     with contextlib.redirect_stdout(out), finite_decodes(), pipe_calls(calls):
         rc = cli_main(argv)
-    launches = read_launches()
+    launches = kernels.launches()
     seconds = time.perf_counter() - start
     reports = [json.loads(line) for line in out.getvalue().splitlines()
                if line.startswith("{")]
@@ -2011,11 +1994,11 @@ def phase_serve(snap: str, edit_path: str, fast: str | None = None) -> dict:
             str(SERVE_REQUESTS), "--num_inference_steps", str(SERVE_STEPS),
             "--device", "cuda"] + (["--fast", fast] if fast else [])
     out = io.StringIO()
-    reset_launches()
+    kernels.reset_launches()
     start = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli_main(argv)
-    launches = read_launches()
+    launches = kernels.launches()
     seconds = time.perf_counter() - start
     reports = [json.loads(line) for line in out.getvalue().splitlines()
                if line.startswith("{")]
@@ -2111,7 +2094,7 @@ def phase_socket(snap: str, edit_path: str) -> None:
 
 def phase_throughput(pipe, path: str, fast: str | None = None) -> float:
     prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
-    with route(path == "kernels"):
+    with path_route(path):
         torch.cuda.synchronize()
         start = time.perf_counter()
         imgs = pipe(prompts, num_inference_steps=50, guidance_scale=7.5, seed=[1, 2],
@@ -2138,7 +2121,7 @@ def phase_fast_rate(pipe, path: str) -> None:
                                             else None))
     prompts = ["a painting by kelly mckernan", "a house in the style of rembrandt"]
     ms = {}
-    with torch.inference_mode(), route(path == "kernels"):
+    with torch.inference_mode(), path_route(path):
         x, context, _ = unet_inputs(pipe, SD14, prompts)
         for cond_only, (xb, cb) in ((False, (x, context)), (True, (x[2:], context[2:]))):
             fwd = lambda **kw: unet.apply(pipe.unet_params, xb, 981.0, cb,
@@ -2254,13 +2237,13 @@ def debias_cli(snap: str, clip_snap: str, rows: dict, model: Model, args: list, 
             "--save_dir", out, "--exp_name", f"debias_{tag}", "--telemetry_path",
             telemetry, "--device_resident", resident, "--device", "cuda"] + (
                 ["--mesh", mesh] if mesh else [])
-    with route(True), cli_mesh_devices(), launches_at_stop(workers_store):
-        reset_launches()
+    with cli_mesh_devices(), launches_at_stop(workers_store):
+        kernels.reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                 gn_seen, rows["group_norm_act"]), finite_decodes(), debias_spy(spied):
             rc = cli_main(argv)
-        launches = read_launches()
+        launches = kernels.launches()
         seconds = time.perf_counter() - start
     weights, acc, history = spied["result"]
     iterations, ranks = len(history), 1 + workers_store.pop("workers", 0)
@@ -2555,7 +2538,7 @@ def phase_baseline(snap: str, csv_path: str, path: str, i: int, rows: dict,
     seen, gn_seen, attn_seen, records = (collections.Counter(), collections.Counter(),
                                          collections.Counter(), [])
     with contextlib.ExitStack() as stack:
-        stack.enter_context(route(path == "kernels"))
+        stack.enter_context(path_route(path))
         for ctx in (conv_shapes(seen, rows["conv3x3"]),
                     gn_shapes(gn_seen, rows["group_norm_act"]),
                     attention_calls(attn_seen, rows), finite_decodes(), pipe_calls(records)):
@@ -2566,12 +2549,12 @@ def phase_baseline(snap: str, csv_path: str, path: str, i: int, rows: dict,
         if captures is not None and command == "concept-algebra":
             stack.enter_context(nth_call(guidance, "concept_algebra_combine",
                                          CA_CAPTURE_CALL, captures))
-        reset_launches()
+        kernels.reset_launches()
         start = time.perf_counter()
         rc = cli_main([command, "--model_name", snap, "--prompts_path", csv_path,
                        "--save_path", os.path.dirname(out), "--ddim_steps", str(steps),
                        "--image_size", str(SD14.size), "--device", "cuda", *extra])
-        launches = read_launches()
+        launches = kernels.launches()
         seconds = time.perf_counter() - start
     if path == "kernels":
         want["conv3x3_reduce"] = conv_split_sums(seen)
@@ -2639,7 +2622,7 @@ def phase_baseline_identities(pipe, path: str) -> dict:
     kw = dict(height=SD14.size, width=SD14.size, seed=[1], guidance_scale=7.5)
     prompt = ["a painting by kelly mckernan"]
     out = {}
-    with route(path == "kernels"):
+    with path_route(path):
         cfg_lms = pipe(prompt, num_inference_steps=20, scheduler="lms", **kw)
         dvl = pipe(prompt, num_inference_steps=20, scheduler="lms", mode="debias_vl",
                    debias_projection=np.eye(pipe.text_config.hidden_size), **kw)
@@ -2760,8 +2743,8 @@ def phase_eval(original: str, folders: dict, csv_path: str, clip_snap: str) -> N
                                 weights["resnet50"], "--prompts_path", csv_path],
          prompt_header + ["num"] + top5 + ["correct"]),
     ]
-    with route(False):
-        reset_launches()
+    with kernels.route(LIBRARY_OFF):
+        kernels.reset_launches()
         for command, args, header in runs:
             tables, secs = {}, {}
             for key, device in EVAL_DEVICES:
@@ -2790,7 +2773,7 @@ def phase_eval(original: str, folders: dict, csv_path: str, clip_snap: str) -> N
         rel = abs(scores["card"] - scores["host"]) / abs(scores["host"])
         if not rel <= EVAL_REL:
             raise AssertionError(f"eval-clip-score: {scores} (rel {rel} > {EVAL_REL})")
-        launches = read_launches()
+        launches = kernels.launches()
     if any(launches.values()):
         raise AssertionError(f"the eval commands launched kernels: {launches}")
     print(f"[eval] eval-lpips of a folder against itself: {len(self_rows)} cases, all 0.0; "
@@ -3098,7 +3081,7 @@ def phase_compare_info(original: str, folders: dict, root: str, info: tuple) -> 
     _, stdout = finish_fresh(info)
     name = torch.cuda.get_device_name(0)
     built = stdout.count(": built ")
-    if name not in stdout or built != len(BUILDS):
+    if name not in stdout or built != len(kernels.LIBRARIES):
         raise AssertionError(f"info: {built} libraries built\n{stdout[-3000:]}")
     print(f"[eval] eval-compare: {len(cases)} grids of {len(columns)} columns, each panel "
           f"its source image; info: rc 0, names {name}, {built} libraries built for the "
@@ -3112,17 +3095,17 @@ def phase_eval_suite(original: str, folders: dict, csv_path: str) -> None:
     root = os.path.join(WORK, "eval_suite")
     os.makedirs(root, exist_ok=True)
     write_dreamsim_weights(os.path.join(root, "dreamsim_ensemble.safetensors"))
-    with route(False):
+    with kernels.route(LIBRARY_OFF):
         # the new processes first: they run beside the in-process work
         dream = start_fresh(["eval-dreamsim", *dreamsim_args(
             original, folders["sld"], csv_path, root), "--save_path",
             os.path.join(root, "dreamsim_fresh.csv")], os.path.join(root, "dreamsim.log"))
         info = start_fresh(["info"], os.path.join(root, "info.log"))
-        reset_launches()
+        kernels.reset_launches()
         phase_nudenet(folders, csv_path, root)
         phase_dreamsim(original, folders["sld"], csv_path, root, dream)
         phase_compare_info(original, folders, root, info)
-        launches = read_launches()
+        launches = kernels.launches()
     if any(launches.values()):
         raise AssertionError(f"the eval suite launched kernels: {launches}")
     print("[eval] eval-nudenet, eval-dreamsim, eval-compare, info: no kernel launched",
@@ -3510,7 +3493,8 @@ def attention_calls(seen: collections.Counter, rows: dict, every: bool = False):
 
 def phase_flux_dit(pipe, rows: dict) -> None:
     """One DiT forward at batch 1 and 1024^2 (the first step, t = 1) on
-    impl="auto" against impl="plain": rel L2, exactly 57 d=128 kernel
+    the attention kernel ("auto") against the plain attention ("plain":
+    sd_attention switched off): rel L2, exactly 57 d=128 kernel
     launches (the first call held to the plain version on its own inputs),
     device ms (CUDA events) and wall ms of each."""
     cfg, lh = pipe.transformer_config, FLUX.latent
@@ -3522,25 +3506,26 @@ def phase_flux_dit(pipe, rows: dict) -> None:
         t = torch.ones(1, device="cuda")
         outs, device_ms, wall_ms = {}, {}, {}
         for impl in ("auto", "plain"):
-            fwd = lambda: flux.apply(pipe.transformer_params, lat, t5_embeds, pooled, t,
-                                     img_ids, txt_ids, cfg, attn_impl=impl)
-            reset_launches()
-            seen = collections.Counter()
-            with attention_calls(seen, rows):
-                outs[impl] = fwd().float()
-            got = read_launches()
-            want = FLUX_DIT_LAUNCHES if impl == "auto" else {
-                "sd_attention_d128": 0, "qk_norm_rope": FLUX_DIT_LAUNCHES["qk_norm_rope"]}
-            expect_launches(f"FLUX DiT forward ({impl})", got, want)
-            device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                fwd()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - start) * 1e3)
-            wall_ms[impl] = float(np.median(walls))
+            with kernels.route(() if impl == "auto" else ("sd_attention",)):
+                fwd = lambda: flux.apply(pipe.transformer_params, lat, t5_embeds, pooled, t,
+                                         img_ids, txt_ids, cfg)
+                kernels.reset_launches()
+                seen = collections.Counter()
+                with attention_calls(seen, rows):
+                    outs[impl] = fwd().float()
+                got = kernels.launches()
+                want = FLUX_DIT_LAUNCHES if impl == "auto" else {
+                    "sd_attention_d128": 0, "qk_norm_rope": FLUX_DIT_LAUNCHES["qk_norm_rope"]}
+                expect_launches(f"FLUX DiT forward ({impl})", got, want)
+                device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    fwd()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - start) * 1e3)
+                wall_ms[impl] = float(np.median(walls))
     if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
         raise AssertionError("FLUX DiT forward: non-finite output")
     rel = rel_l2(outs["auto"], outs["plain"])
@@ -3598,8 +3583,8 @@ def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
     loads = []
     extra = (["--num_inference_steps", str(steps), "--guidance_scale",
               str(FLUX_DEV_GUIDANCE)] if dev else [])
-    with route(path == "kernels"):
-        reset_launches()
+    with path_route(path):
+        kernels.reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                 gn_seen, rows["group_norm_act"]), finite_decodes(), pipe_calls(
@@ -3611,7 +3596,7 @@ def phase_flux_generate(snap: str, edit_path: str, path: str, rows: dict,
                            csv_path, "--save_path", out, "--uce_model_path", edit_path,
                            "--image_size", str(FLUX.size), "--device", "cuda", *extra,
                            *flags])
-        launches = read_launches()
+        launches = kernels.launches()
         seconds = time.perf_counter() - start
     if path == "kernels":
         want["conv3x3_reduce"] = conv_split_sums(seen)
@@ -3685,12 +3670,12 @@ def phase_flux_serve(snap: str, edit_path: str, quantize: str | None = None) -> 
                 ["--quantize", quantize] if quantize else [])
     mode = f" --quantize {quantize}" if quantize else ""
     out, calls, loads = io.StringIO(), [], []
-    reset_launches()
+    kernels.reset_launches()
     start = time.perf_counter()
     with contextlib.redirect_stdout(out), pipe_calls(calls, FluxPipeline), dit_loads(
             loads, pipeline_flux):
         rc = cli_main(argv)
-    launches = read_launches()
+    launches = kernels.launches()
     seconds = time.perf_counter() - start
     reports = [json.loads(line) for line in out.getvalue().splitlines()
                if line.startswith("{")]
@@ -3866,9 +3851,9 @@ def phase_flux_quant(pipe, rows: dict) -> None:
                 if not all(same.values()):
                     raise AssertionError(f"FLUX {mode} {key}: the card's quantization "
                                          f"differs from the CPU's (equal: {same})")
-            reset_launches()
+            kernels.reset_launches()
             out = fwd(qparams).float()
-            expect_launches(f"FLUX {mode} DiT forward", read_launches(),
+            expect_launches(f"FLUX {mode} DiT forward", kernels.launches(),
                             {**FLUX_DIT_LAUNCHES, "sd_attention_qk8": 0})
             ms = median_ms(lambda: fwd(qparams), reps=3, warmup=1)
             with float_emulation(mode):
@@ -4156,8 +4141,9 @@ def moe_routes(routes: list, replay: bool = False):
 
 def phase_hidream_dit(snap: str, rows: dict) -> None:
     """The pipeline loaded staged (encode, free_encoders, then the DiT); one
-    DiT forward at CFG batch 2 and 1024^2 (t = 1000) on impl="auto" against
-    impl="plain" routed to the same experts (``moe_routes``): rel L2,
+    DiT forward at CFG batch 2 and 1024^2 (t = 1000) on the attention kernel
+    ("auto") against the plain attention ("plain": sd_attention switched
+    off) routed to the same experts (``moe_routes``): rel L2,
     exactly 48 d=128 kernel launches (each held to the plain version on its
     own inputs), device ms (CUDA events) and wall ms of each; the plain
     forward on its own routing: its rel L2 and the share of tokens whose
@@ -4196,32 +4182,33 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
         for run, impl, x in (("auto", "auto", lat), ("plain", "plain", lat),
                              ("plain, own routing", "plain", lat),
                              ("plain, nudged", "plain", nudged)):
-            fwd = lambda: hidream.apply(pipe.transformer_params, x, t5_e, llama_e,
-                                        pooled_e, t, img_ids, cfg, attn_impl=impl)
-            reset_launches()
-            seen = collections.Counter()
-            replay = run in ("plain", "plain, nudged")
-            routes[run] = routes["auto"] if replay else []
-            with attention_calls(seen, rows, every=True), moe_routes(
-                    routes[run], replay=replay):
-                outs[run] = fwd().float()
-            got = read_launches()
-            want = HIDREAM_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0,
-                                                                "qk_norm_rope": 0}
-            expect_launches(f"HiDream DiT forward ({run})", got, want)
-            if impl == "auto" and dict(seen) != {joint: want["sd_attention_d128"]}:
-                raise AssertionError(f"HiDream DiT attention calls: {dict(seen)}")
-            if run in ("plain, own routing", "plain, nudged"):
-                continue
-            device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                fwd()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - start) * 1e3)
-            wall_ms[impl] = float(np.median(walls))
+            with kernels.route(() if impl == "auto" else ("sd_attention",)):
+                fwd = lambda: hidream.apply(pipe.transformer_params, x, t5_e, llama_e,
+                                            pooled_e, t, img_ids, cfg)
+                kernels.reset_launches()
+                seen = collections.Counter()
+                replay = run in ("plain", "plain, nudged")
+                routes[run] = routes["auto"] if replay else []
+                with attention_calls(seen, rows, every=True), moe_routes(
+                        routes[run], replay=replay):
+                    outs[run] = fwd().float()
+                got = kernels.launches()
+                want = HIDREAM_DIT_LAUNCHES if impl == "auto" else {"sd_attention_d128": 0,
+                                                                    "qk_norm_rope": 0}
+                expect_launches(f"HiDream DiT forward ({run})", got, want)
+                if impl == "auto" and dict(seen) != {joint: want["sd_attention_d128"]}:
+                    raise AssertionError(f"HiDream DiT attention calls: {dict(seen)}")
+                if run in ("plain, own routing", "plain, nudged"):
+                    continue
+                device_ms[impl] = median_ms(fwd, reps=3, warmup=1)
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    fwd()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - start) * 1e3)
+                wall_ms[impl] = float(np.median(walls))
     if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
         raise AssertionError("HiDream DiT forward: non-finite output")
     rel = rel_l2(outs["auto"], outs["plain"])
@@ -4254,10 +4241,10 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
             raise AssertionError(f"HiDream int8 DiT: {nbytes} bytes, the shapes reckon "
                                  f"{want_bytes}")
         fwd = lambda: hidream.apply(qparams, lat, t5_e, llama_e, pooled_e, t, img_ids, cfg)
-        reset_launches()
+        kernels.reset_launches()
         with moe_routes(routes["auto"], replay=True):
             out = fwd().float()
-        expect_launches("HiDream int8 DiT forward", read_launches(),
+        expect_launches("HiDream int8 DiT forward", kernels.launches(),
                         {**HIDREAM_DIT_LAUNCHES, "sd_attention_qk8": 0})
         int8_ms = median_ms(fwd, reps=3, warmup=1)  # on its own routing
         with moe_routes(routes["auto"], replay=True), float_emulation("int8"):
@@ -4275,12 +4262,12 @@ def phase_hidream_dit(snap: str, rows: dict) -> None:
     images, launches = {}, None
     for name, fast in (("exact", None), ("window 0:2", FastConfig(cfg_interval=(0, 2))),
                        ("window 1:2", FastConfig(cfg_interval=(1, 2)))):
-        reset_launches()
+        kernels.reset_launches()
         start = time.perf_counter()
         with finite_decodes():
             images[name] = pipe.generate_from_embeddings(*embeds, fast=fast, **kw)
         seconds = time.perf_counter() - start
-        got = read_launches()
+        got = kernels.launches()
         # one launch per joint attention at either batch (cond-only calls too)
         expect_launches(f"HiDream generate_from_embeddings ({name})", got,
                         {"sd_attention_d128": HIDREAM_STEPS * HIDREAM_DIT_LAUNCHES[
@@ -4323,8 +4310,8 @@ def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict,
         "sd_attention_d128"], "sd_attention_d512": 1, "qk_norm_rope": 0}
     want["sd_attention"] = want["sd_attention_d128"] + 1
     seen, gn_seen, record, loads = collections.Counter(), collections.Counter(), {}, []
-    with route(path == "kernels"):
-        reset_launches()
+    with path_route(path):
+        kernels.reset_launches()
         start = time.perf_counter()
         with conv_shapes(seen, rows["conv3x3"]), gn_shapes(
                 gn_seen, rows["group_norm_act"]), finite_decodes(), hidream_stages(
@@ -4333,7 +4320,7 @@ def phase_hidream_generate(snap: str, edit_path: str, path: str, rows: dict,
                            csv_path, "--save_path", out, "--uce_model_path", edit_path,
                            "--num_inference_steps", str(HIDREAM_STEPS), "--staged",
                            "--image_size", str(FLUX.size), "--device", "cuda", *flags])
-        launches = read_launches()
+        launches = kernels.launches()
         seconds = time.perf_counter() - start
     if path == "kernels":
         want["conv3x3_reduce"] = conv_split_sums(seen)
@@ -4385,7 +4372,7 @@ def phase_hidream_serve(snap: str, edit_path: str) -> dict:
         return pipe
 
     out, calls = io.StringIO(), []
-    reset_launches()
+    kernels.reset_launches()
     start = time.perf_counter()
     HiDreamPipeline.from_pretrained = classmethod(spy)
     try:
@@ -4394,7 +4381,7 @@ def phase_hidream_serve(snap: str, edit_path: str) -> dict:
             rc = cli_main(argv)
     finally:
         HiDreamPipeline.from_pretrained = classmethod(load)
-    launches = read_launches()
+    launches = kernels.launches()
     seconds = time.perf_counter() - start
     reports = [json.loads(line) for line in out.getvalue().splitlines()
                if line.startswith("{")]
@@ -4554,26 +4541,8 @@ def cli_mesh_devices():
         mesh_mod.visible_devices = saved
 
 
-def worker_launches() -> dict:
-    """The running mesh's workers' launches, summed, in ``read_launches``'
-    keys."""
-    w = workers.worker_counts()
-    by_dim = w.get(("sd_attention", "launches_by_dim"), {})
-    get = lambda mod, attr: w.get((mod, attr), 0)
-    return {"sd_attention": get("sd_attention", "launches"),
-            "group_norm_act": get("group_norm", "launches"),
-            "conv3x3": get("conv3x3", "launches"), "uce_solve": get("uce_solve", "launches"),
-            "sd_attention_d512": by_dim.get(512, 0), "sd_attention_d128": by_dim.get(128, 0),
-            "sd_attention_qk8": get("sd_attention", "launches_qk8"),
-            "sd_attention_d512_merge": get("sd_attention", "launches_merge"),
-            "conv3x3_wgmma": get("conv3x3", "launches_wgmma"),
-            "conv3x3_mma": get("conv3x3", "launches_mma"),
-            "conv3x3_reduce": get("conv3x3", "launches_reduce"),
-            "qk_norm_rope": get("qk_norm_rope", "launches")}
-
-
 def mesh_reset() -> None:
-    reset_launches()
+    kernels.reset_launches()
     workers.worker_counts(reset=True)
 
 
@@ -4584,7 +4553,7 @@ def launches_at_stop(store: dict):
 
     def reading_stop():
         if workers.session() is not None:
-            store.update(worker_launches(), workers=workers.session().mesh.size - 1)
+            store.update(workers.worker_counts(), workers=workers.session().mesh.size - 1)
         stop()
 
     workers.stop = reading_stop
@@ -4632,21 +4601,20 @@ def phase_mesh_sd(snap: str, edit_path: str, rows: dict) -> None:
     kw = dict(num_inference_steps=50, seed=MESH_SEEDS, height=512, width=512)
     calls = plan_from_hf(SD14.scheduler, 50).num_calls
     n_data = len(mesh_devices())
-    with route():
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    single = pipe(MESH_PROMPTS, **kw)
+    one_s = time.perf_counter() - start
+    pipe.apply_mesh(mesh_of(n_data, 1))
+    try:
+        pipe(MESH_PROMPTS[:2], **dict(kw, num_inference_steps=2, seed=MESH_SEEDS[:2]))
+        mesh_reset()
         start = time.perf_counter()
-        single = pipe(MESH_PROMPTS, **kw)
-        one_s = time.perf_counter() - start
-        pipe.apply_mesh(mesh_of(n_data, 1))
-        try:
-            pipe(MESH_PROMPTS[:2], **dict(kw, num_inference_steps=2, seed=MESH_SEEDS[:2]))
-            mesh_reset()
-            start = time.perf_counter()
-            meshed = pipe(MESH_PROMPTS, **kw)
-            two_s = time.perf_counter() - start
-            own, theirs = read_launches(), worker_launches()
-        finally:
-            pipe.apply_mesh(None)
+        meshed = pipe(MESH_PROMPTS, **kw)
+        two_s = time.perf_counter() - start
+        own, theirs = kernels.launches(), workers.worker_counts()
+    finally:
+        pipe.apply_mesh(None)
     check_images(f"SD 1.4 generate at data={n_data}", meshed, 512)
     diff = np.abs(meshed.astype(int) - single.astype(int))
     print(f"[mesh] SD 1.4 generate, 8 prompts x 50 PNDM steps at 512^2, kernel path: "
@@ -4669,7 +4637,7 @@ def phase_mesh_sd(snap: str, edit_path: str, rows: dict) -> None:
     spec = {"unet_config": pipe.unet_config}
     qpipe = copy.copy(pipe)
     qpipe.quantize_weights("int8")
-    with route(), torch.inference_mode():
+    with torch.inference_mode():
         single, one_ms = wall_ms(lambda: pipeline.denoiser_forward(
             {"unet": pipe.unet_params}, spec, batch), 1)
         qsingle, q_one_ms = wall_ms(lambda: pipeline.denoiser_forward(
@@ -4682,11 +4650,11 @@ def phase_mesh_sd(snap: str, edit_path: str, rows: dict) -> None:
                                       {"unet": pipe.unet_params})[0]
             mesh_reset()
             got, two_ms = wall_ms(run, 1)
-            own, theirs = read_launches(), worker_launches()
+            own, theirs = kernels.launches(), workers.worker_counts()
             pipe.quantize_weights("int8")  # the ranks take the W8A8 UNet
             mesh_reset()
             qgot, q_two_ms = wall_ms(run, 1)
-            qown, qtheirs = read_launches(), worker_launches()
+            qown, qtheirs = kernels.launches(), workers.worker_counts()
         finally:
             pipe.apply_mesh(None)
     # W8A8's bound is the gross one of its other checks: its row-parallel
@@ -4722,14 +4690,14 @@ def phase_mesh_serve(snap: str, edit_path: str, rows: dict) -> None:
     ladder 1,2, 4 Poisson requests at 8 steps, each batch split over the
     data groups; the JSON report and the launches per rank."""
     out, store = io.StringIO(), {}
-    with route(), cli_mesh_devices(), launches_at_stop(store), \
+    with cli_mesh_devices(), launches_at_stop(store), \
             contextlib.redirect_stdout(out):
-        reset_launches()
+        kernels.reset_launches()
         rc = cli_main(["serve", "--model_id", snap, "--uce_model_path", edit_path,
                        "--mesh", "data=2", "--bench", "2", "--bench_requests", "4",
                        "--batch_sizes", "1,2", "--num_inference_steps",
                        str(MESH_SERVE_STEPS), "--device", "cuda"])
-        own = read_launches()
+        own = kernels.launches()
     text = out.getvalue()
     reports = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
     if rc != 0 or len(reports) != 1 or reports[0]["n_requests"] != 4:
@@ -4766,7 +4734,7 @@ def mesh_dit_forward(what: str, family: str, module, config, params: dict, spec:
     of each, d=128 launches per rank); rank 0's whole params are freed as
     their shards go out."""
     spec = {"dit_config": config, **spec}
-    with route(), torch.inference_mode():
+    with torch.inference_mode():
         single, one_ms = wall_ms(lambda: module.denoiser_forward({"dit": params}, spec, batch))
         free_card(what)
         workers.start(mesh_of(1, 2))
@@ -4781,7 +4749,7 @@ def mesh_dit_forward(what: str, family: str, module, config, params: dict, spec:
             run()
             mesh_reset()
             got, two_ms = wall_ms(run)
-            own, theirs = read_launches(), worker_launches()
+            own, theirs = kernels.launches(), workers.worker_counts()
         finally:
             workers.stop()
     rel = rel_l2(got, single.cpu())
@@ -4822,14 +4790,14 @@ def mesh_dit_cli(what: str, command: str, cut: str, rows: dict, extra: list,
         csv.writer(f).writerows([["case_number", "prompt", "evaluation_seed"],
                                  [0, FLUX_PROMPT, 1]])
     out_dir, store = os.path.join(WORK, f"images_mesh_{command}"), {}
-    with route(), cli_mesh_devices(), launches_at_stop(store):
-        reset_launches()
+    with cli_mesh_devices(), launches_at_stop(store):
+        kernels.reset_launches()
         start = time.perf_counter()
         rc = cli_main([command, "--model_name", cut, "--prompts_path", csv_path,
                        "--save_path", out_dir, "--image_size", str(FLUX.size), "--staged",
                        "--mesh", "model=2", "--device", "cuda", *extra])
         seconds = time.perf_counter() - start
-        own = read_launches()
+        own = kernels.launches()
     if rc != 0:
         raise AssertionError(f"{command} --staged --mesh model=2: rc {rc}")
     image = read_case_images(os.path.join(out_dir, "original"), [[0, None, None]])[0]

@@ -1,6 +1,7 @@
 """uce_tpu_torch attention against uce_tpu: the kernel's plain version
 against the Pallas kernel (interpret mode), the plain attention path against
-``_xla_attention``, and the ``impl="auto"`` routing rule."""
+``_xla_attention``, and the routing rule (and its switch,
+``ops.kernels.route``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,7 @@ import torch
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.ops.attention import _xla_attention, dot_product_attention
 from uce_tpu.ops.pallas import sd_attention as pallas_sdk
-from uce_tpu_torch.ops import attention as port_attn
+from uce_tpu_torch.ops import attention as port_attn, kernels
 from uce_tpu_torch.ops.kernels import sd_attention as port_sdk
 
 
@@ -44,9 +45,9 @@ def test_reference_matches_pallas_kernel(b, h, sq, skv, d):
 
 def test_cpu_wrapper_launches_nothing():
     q = torch.randn(1, 1, 64, 40).bfloat16()
-    port_sdk.launches = 0
+    kernels.reset_launches()
     port_sdk.sd_attention(q, q, q, 40 ** -0.5)
-    assert port_sdk.launches == 0
+    assert not any(kernels.launches().values())
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -59,9 +60,10 @@ def test_plain_matches_xla_attention(causal, tq, tk):
     scale = 8 ** -0.5
     want = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      None, causal, scale))
-    got = port_attn.dot_product_attention(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        causal=causal, scale=scale, impl="plain")
+    with kernels.route(("sd_attention",)):
+        got = port_attn.dot_product_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            causal=causal, scale=scale)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
@@ -94,6 +96,10 @@ def test_auto_routing_rule(q_shape, k_shape, want):
     assert not route(q_shape, k_shape, torch.float32, "cuda")
     assert not route(q_shape, k_shape, torch.bfloat16, "cuda", masked=True)
     assert not route(q_shape, k_shape, torch.bfloat16, "cuda", causal=True)
+    # nor while ops.kernels.route switches the kernel off
+    with kernels.route(("sd_attention",)):
+        assert not route(q_shape, k_shape, torch.bfloat16, "cuda")
+    assert route(q_shape, k_shape, torch.bfloat16, "cuda") is want
 
 
 
@@ -124,12 +130,12 @@ def test_d512_split_merge_matches_uce_tpu(b, h, sq, skv):
     vj, vt = _bf16_pair(rng.standard_normal((b, h, skv, 512)))
     scale = 512 ** -0.5
     want = np.asarray(dot_product_attention(qj, kj, vj, scale=scale), np.float32)
-    port_sdk.launches = port_sdk.launches_merge = 0
+    kernels.reset_launches()
     o_part, ml = port_sdk.sd_attention_partials(qt, kt, vt, scale, 2)
     assert tuple(o_part.shape) == (2, b, h, sq, 512)
     assert tuple(ml.shape) == (2, b, h, sq, 2)
     got = port_sdk.merge_partials(o_part, ml)
-    assert (port_sdk.launches, port_sdk.launches_merge) == (0, 0)  # CPU: plain
+    assert not any(kernels.launches().values())  # CPU: plain
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=0.02, rtol=0.05)
     whole = port_sdk.sd_attention_reference(qt, kt, vt, scale).float()

@@ -18,6 +18,7 @@ import torch
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.ops.pallas import conv3x3 as pallas_conv
 from uce_tpu_torch.models import layers, unet, vae
+from uce_tpu_torch.ops import kernels
 from uce_tpu_torch.ops.kernels import conv3x3 as port_conv
 
 TOL = dict(rtol=0.05, atol=0.05)
@@ -36,9 +37,9 @@ def _run(x, w_hwio, bias):
     want = np.asarray(pallas_conv.conv3x3(xj, wj, bj, interpret=True), np.float32)
     # HWIO -> OIHW (diffusers) -> the port's packed [Cout, 3, 3, Cin]
     w_oihw = wt.permute(3, 2, 0, 1)
-    port_conv.launches = 0
+    kernels.reset_launches()
     got = port_conv.conv3x3(xt, port_conv.pack_weight(w_oihw), bt)
-    assert port_conv.launches == 0  # a CPU tensor takes the plain version
+    assert not any(kernels.launches().values())  # a CPU tensor takes the plain version
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
     return got.float().numpy(), want
 

@@ -1,9 +1,10 @@
 """The port's fast mode (uce_tpu_torch/diffusion/sampler.py FastConfig and
-denoise_fast, DeepCache in models/unet.py, SDPipeline(fast=)) against
+``denoise(fast=)``, DeepCache in models/unet.py, SDPipeline(fast=)) against
 uce_tpu's on the same seeded inputs and weights (fp32; the tolerances of
 tests/test_torch_unet_vae.py for the UNet, 1e-4 for whole denoising runs,
 1 uint8 level for images), and its exactness claims within the port: a
-no-op config and a full-window config reproduce ``denoise`` bit for bit,
+no-op config and a full-window config reproduce ``denoise`` without a
+FastConfig bit for bit,
 and a same-step deep feature fed back reproduces the full forward."""
 
 import functools
@@ -175,7 +176,7 @@ def test_cache_level_bounds_raise():
                     deep_feature=torch.zeros(1, 16, 16, 16))
 
 
-# -------------------------------------------------------- denoise_fast
+# ------------------------------------------------------ denoise(fast=)
 def _denoise_inputs(steps, kind, batch=2, hw=8, seed=3):
     jcfg, tcfg, jparams, tparams = _models(TINY3, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -186,21 +187,24 @@ def _denoise_inputs(steps, kind, batch=2, hw=8, seed=3):
     return (jcfg, tcfg, jparams, tparams, lat, ctx, jplan, tplan, batch)
 
 
-def _torch_factory(tparams, tcfg, ctx, batch, fast, calls=None):
-    """denoise_fast's model factory over the port's UNet; ``calls`` records
-    (cond_only, cached, want_deep, the deep feature taken or returned)."""
-    def factory(cond_only, cached, want_deep):
+def _torch_model(tparams, tcfg, ctx, batch, fast, calls=None):
+    """denoise's model over the port's UNet; ``calls`` records (cond_only,
+    cached, want_deep, the deep feature taken or returned)."""
+    def model(li, t, cond_only, deep=None, want_deep=False):
         c = ctx[batch:] if cond_only else ctx
+        out = tunet.apply(tparams, li, t, c, tcfg, deep_feature=deep,
+                          return_deep=want_deep, cache_level=fast.cache_level)
+        if calls is not None:
+            calls.append((cond_only, deep is not None, want_deep,
+                          out[1] if want_deep else deep))
+        return out
+    return model
 
-        def f(li, t, deep=None):
-            out = tunet.apply(tparams, li, t, c, tcfg, deep_feature=deep,
-                              return_deep=want_deep, cache_level=fast.cache_level)
-            if calls is not None:
-                calls.append((cond_only, cached, want_deep,
-                              out[1] if want_deep else deep))
-            return out
-        return f
-    return factory
+
+def _cfg(dtype):
+    """CFG at 7.5, the eps rounded to the latents' ``dtype`` (as the SD
+    pipeline's guidance rounds it)."""
+    return lambda e: sampler.cfg_combine(e.float(), 7.5).to(dtype)
 
 
 @pytest.mark.parametrize("fast,kind", [
@@ -231,9 +235,9 @@ def test_denoise_fast_matches_uce_tpu(fast, kind):
 
     want = np.asarray(jsampler.denoise_fast(jfactory, jplan, jnp.asarray(lat),
                                             guidance_scale=7.5, fast=jfast))
-    got = sampler.denoise_fast(_torch_factory(tparams, tcfg, torch.from_numpy(ctx),
-                                              batch, fast),
-                               tplan, _nchw(lat), guidance_scale=7.5, fast=fast)
+    got = sampler.denoise(tplan, _nchw(lat),
+                          _torch_model(tparams, tcfg, torch.from_numpy(ctx), batch, fast),
+                          num_branches=2, guidance=_cfg(torch.float32), fast=fast)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(_nhwc(got), want, rtol=1e-4, atol=1e-4)
 
@@ -252,10 +256,10 @@ def test_noop_and_full_window_are_bitwise_denoise(fast, kind, dtype):
     c = torch.from_numpy(ctx).to(dtype)
     x = _nchw(lat).to(dtype)
     exact = sampler.denoise(
-        lambda li, t: tunet.apply(params, li, t, c, tcfg), tplan, x,
-        guidance_fn=lambda e: sampler.cfg_combine(e.float(), 7.5))
-    got = sampler.denoise_fast(_torch_factory(params, tcfg, c, batch, fast),
-                               tplan, x, guidance_scale=7.5, fast=fast)
+        tplan, x, lambda li, t, cond_only: tunet.apply(params, li, t, c, tcfg),
+        num_branches=2, guidance=_cfg(dtype))
+    got = sampler.denoise(tplan, x, _torch_model(params, tcfg, c, batch, fast),
+                          num_branches=2, guidance=_cfg(dtype), fast=fast)
     assert got.dtype == exact.dtype == dtype
     assert torch.equal(got, exact)
 
@@ -268,9 +272,9 @@ def test_boundary_keeps_cond_half_and_forces_full_steps():
     fast = FastConfig(cfg_interval=(1, 3), cache_interval=2)
     _, tcfg, _, tparams, lat, ctx, _, tplan, batch = _denoise_inputs(6, "ddim")
     calls = []
-    sampler.denoise_fast(_torch_factory(tparams, tcfg, torch.from_numpy(ctx), batch,
-                                        fast, calls),
-                         tplan, _nchw(lat), guidance_scale=7.5, fast=fast)
+    sampler.denoise(tplan, _nchw(lat),
+                    _torch_model(tparams, tcfg, torch.from_numpy(ctx), batch, fast, calls),
+                    num_branches=2, guidance=_cfg(torch.float32), fast=fast)
     kinds = [(cond_only, "cached" if cached else "full") for cond_only, cached, _, _ in calls]
     assert kinds == [(True, "full"), (False, "full"), (False, "full"),
                      (True, "cached"), (True, "full"), (True, "cached")]
@@ -289,17 +293,14 @@ def test_deep_feature_keeps_the_models_dtype():
     c = torch.from_numpy(ctx).to(torch.bfloat16)
     calls = []
 
-    def factory(cond_only, cached, want_deep):
-        inner = _torch_factory(params, tcfg, c, batch, fast, calls)(
-            cond_only, cached, want_deep)
-        if cached:
-            return lambda li, t, d: inner(li.to(torch.bfloat16), t, d).float()
-        return lambda li, t: tuple(
-            o.float() if i == 0 else o
-            for i, o in enumerate(inner(li.to(torch.bfloat16), t)))
+    inner = _torch_model(params, tcfg, c, batch, fast, calls)
 
-    out = sampler.denoise_fast(factory, tplan, _nchw(lat), guidance_scale=7.5,
-                               fast=fast)
+    def model(li, t, cond_only, deep=None, want_deep=False):
+        out = inner(li.to(torch.bfloat16), t, cond_only, deep=deep, want_deep=want_deep)
+        return (out[0].float(), out[1]) if want_deep else out.float()
+
+    out = sampler.denoise(tplan, _nchw(lat), model, num_branches=2,
+                          guidance=_cfg(torch.float32), fast=fast)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     cached_deeps = [d for _, cached, _, d in calls if cached]
     assert cached_deeps and all(d.dtype == torch.bfloat16 for d in cached_deeps)

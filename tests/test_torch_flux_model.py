@@ -11,6 +11,7 @@ import torch
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import convert, flux as tflux
+from uce_tpu_torch.ops import kernels
 
 TINY = dict(in_channels=16, num_layers=1, num_single_layers=2, attention_head_dim=8,
             num_attention_heads=4, joint_attention_dim=16, pooled_projection_dim=24,
@@ -72,11 +73,11 @@ def test_apply_matches_uce_tpu(guidance_embeds):
                       guidance=None if g is None else torch.as_tensor(g))
     assert got.shape == (2, 12, 16)
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-4)
-    # "plain" and "auto" are the same computation on the CPU
-    plain = tflux.apply(tparams, torch.as_tensor(lat), torch.as_tensor(t5e),
-                        torch.as_tensor(pooled), torch.as_tensor(t), img_ids, txt_ids,
-                        tcfg, guidance=None if g is None else torch.as_tensor(g),
-                        attn_impl="plain")
+    # the attention kernel switched off is the same computation on the CPU
+    with kernels.route(("sd_attention",)):
+        plain = tflux.apply(tparams, torch.as_tensor(lat), torch.as_tensor(t5e),
+                            torch.as_tensor(pooled), torch.as_tensor(t), img_ids, txt_ids,
+                            tcfg, guidance=None if g is None else torch.as_tensor(g))
     assert torch.equal(plain, got)
 
 

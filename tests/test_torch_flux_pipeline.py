@@ -186,13 +186,13 @@ def test_flux_call_records_the_pipeline_spans(pipes, monkeypatch):
     each ``pipe.model`` counts the attention kernel's launches of its DiT
     forward (here the plain version, made to count as the kernel does)."""
     from uce_tpu_torch.models import flux as tflux
-    from uce_tpu_torch.ops.kernels import sd_attention as sdk
+    from uce_tpu_torch.ops import kernels
     from uce_tpu_torch.utils import observability
 
     attend = tflux.dot_product_attention
 
     def counted(*args, **kwargs):
-        sdk.launches += 1
+        kernels.count("sd_attention")
         return attend(*args, **kwargs)
     monkeypatch.setattr(tflux, "dot_product_attention", counted)
     tpipe = pipes[1]

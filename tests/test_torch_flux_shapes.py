@@ -1,6 +1,6 @@
 """FLUX.1-schnell's kernel calls at its published widths, enumerated by
 running the models on meta tensors (shapes only, no weights): the joint
-attention calls that ``impl="auto"`` sends to the sd_attention kernel at
+attention calls that route to the sd_attention kernel at
 head dim 128 per DiT forward, the text encoders' attentions that stay
 plain, and the 16-channel VAE decode's conv3x3 and group_norm_act calls on
 the kernel path. These are chip_smoke.py's expected launches."""
@@ -15,8 +15,9 @@ from tests.test_torch_sdxl_sd21_shapes import _ShapeRng
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion import pipeline_flux
 from uce_tpu_torch.models import clip_text, flux, layers, t5, vae
-from uce_tpu_torch.ops import attention
+from uce_tpu_torch.ops import attention, kernels
 from uce_tpu_torch.ops.kernels import conv3x3 as port_conv
+from uce_tpu_torch.ops.kernels import qk_norm_rope as port_qk
 from uce_tpu_torch.ops.kernels import sd_attention as port_sdk
 
 SMS = 132  # an H100 SXM
@@ -31,9 +32,8 @@ def _dit_attention_calls(size: int, batch: int) -> collections.Counter:
     cfg = flux.SCHNELL_CONFIG
     calls = collections.Counter()
 
-    def attn_spy(q, k, v, *, impl="auto", **kw):
-        routed = impl == "auto" and attention.routes_to_kernel(
-            q.shape, k.shape, torch.bfloat16, "cuda")
+    def attn_spy(q, k, v, **kw):
+        routed = attention.routes_to_kernel(q.shape, k.shape, torch.bfloat16, "cuda")
         calls[(tuple(q.shape), routed)] += 1
         return torch.empty(q.shape, device="meta", dtype=q.dtype)
 
@@ -63,18 +63,44 @@ def test_dit_forward_routes_57_calls_to_the_d128_kernel(size, batch, seq):
                                     torch.bfloat16)
 
 
-def test_dit_forward_plain_impl_routes_nothing(monkeypatch):
-    """``attn_impl="plain"`` (chip_smoke's reference forward) sends no call
-    to the kernel."""
+@pytest.mark.parametrize("kernel", ["sd_attention", "qk_norm_rope"])
+def test_dit_forward_plain_impl_routes_nothing(monkeypatch, kernel):
+    """With ``kernel`` switched off by ``ops.kernels.route`` (chip_smoke's
+    reference forwards), a DiT forward at 1024 image tokens sends no call to
+    that kernel's wrapper and the other kernel's calls go on; the routing
+    is asked as on the card."""
     cfg = flux.FluxConfig(num_layers=1, num_single_layers=1)
     params = {k: torch.empty(s, **META) for k, s in flux.state_dict_shapes(cfg).items()}
-    launched = []
-    monkeypatch.setattr(port_sdk, "sd_attention", lambda *a, **k: launched.append(a))
-    flux.apply(params, torch.empty(1, 64, 64, **META), torch.empty(1, 8, 4096, **META),
-               torch.empty(1, 768, **META), torch.empty(1, device="meta"),
-               pipeline_flux.make_img_ids(16, 16), np.zeros((8, 3)), cfg,
-               attn_impl="plain")
-    assert not launched
+    called = collections.Counter()
+    route_attn, route_qk = attention.routes_to_kernel, port_qk.routes_to_kernel
+    monkeypatch.setattr(attention, "routes_to_kernel", lambda q, k, dtype, device, **kw:
+                        route_attn(q, k, dtype, "cuda", **kw))
+    monkeypatch.setattr(port_qk, "routes_to_kernel", lambda dtype, device, head_dim:
+                        route_qk(dtype, "cuda", head_dim))
+
+    def attn_spy(q, k, v, scale, qk_int8=False):
+        called["sd_attention"] += 1
+        return torch.empty(q.shape, **META)
+
+    def qk_spy(segments, cos, sin, head_dim=port_qk.HEAD_DIM, eps=port_qk.EPS):
+        called["qk_norm_rope"] += 1
+        b, _, width = segments[0][0].shape
+        out = torch.empty(b, width // head_dim, cos.shape[0], head_dim, **META)
+        return out, out
+    monkeypatch.setattr(port_sdk, "sd_attention", attn_spy)
+    monkeypatch.setattr(port_qk, "qk_norm_rope", qk_spy)
+
+    def forward():
+        flux.apply(params, torch.empty(1, 1024, 64, **META),
+                   torch.empty(1, 8, 4096, **META), torch.empty(1, 768, **META),
+                   torch.empty(1, device="meta"), pipeline_flux.make_img_ids(64, 64),
+                   np.zeros((8, 3)), cfg)
+    forward()
+    assert called == {"sd_attention": 2, "qk_norm_rope": 2}
+    called.clear()
+    with kernels.route((kernel,)):
+        forward()
+    assert called == {k: 2 for k in ("sd_attention", "qk_norm_rope") if k != kernel}
 
 
 def test_text_encoders_stay_plain(monkeypatch):

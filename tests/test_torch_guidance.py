@@ -109,7 +109,7 @@ def test_sld_warmup_counts_pndm_calls(warmup):
     def jmodel(x, t):
         return jnp.tanh(x * w + t / 1000.0)
 
-    def tmodel(x, t):
+    def tmodel(x, t, cond_only):
         return torch.tanh(x * torch.from_numpy(w) + t / 1000.0)
 
     cfg_kw = dict(sld_guidance_scale=1000.0, sld_warmup_steps=warmup,
@@ -120,14 +120,14 @@ def test_sld_warmup_counts_pndm_calls(warmup):
         guidance_fn=lambda e, i, m: jg.sld_combine(e, jnp.float32(7.5), i, m, jcfg),
         num_branches=3, guidance_state=jnp.zeros(lat.shape, jnp.float32)))
     got = tsampler.denoise(
-        tmodel, tplan, torch.from_numpy(lat),
-        guidance_fn=lambda e, i, m: tg.sld_combine(e, 7.5, i, m, tcfg),
+        tplan, torch.from_numpy(lat), tmodel,
+        guidance=lambda e, i, m: tg.sld_combine(e, 7.5, i, m, tcfg),
         num_branches=3, guidance_state=torch.zeros(lat.shape))
     # fp32 round-off of tanh and PNDM's four-call history over six calls
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     never = tsampler.denoise(
-        tmodel, tplan, torch.from_numpy(lat),
-        guidance_fn=lambda e, i, m: tg.sld_combine(
+        tplan, torch.from_numpy(lat), tmodel,
+        guidance=lambda e, i, m: tg.sld_combine(
             e, 7.5, i, m, dataclasses.replace(tcfg, sld_warmup_steps=6)),
         num_branches=3, guidance_state=torch.zeros(lat.shape))
     assert (warmup == 6) == torch.equal(got, never)

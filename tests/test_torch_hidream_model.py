@@ -12,6 +12,7 @@ import torch
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.models import convert, hidream as thd
+from uce_tpu_torch.ops import kernels
 
 TINY = dict(patch_size=2, in_channels=4, out_channels=4, num_layers=2,
             num_single_layers=2, attention_head_dim=8, num_attention_heads=4,
@@ -52,8 +53,9 @@ def test_apply_matches_uce_tpu(experts):
     got = thd.apply(tparams, *args)
     assert got.shape == (2, 12, 16)
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-4)
-    # "plain" and "auto" are the same computation on the CPU
-    assert torch.equal(thd.apply(tparams, *args, attn_impl="plain"), got)
+    # the attention kernel switched off is the same computation on the CPU
+    with kernels.route(("sd_attention",)):
+        assert torch.equal(thd.apply(tparams, *args), got)
     # the Llama streams reach the output: a single block's own stream too
     bumped = llama.copy()
     bumped[3] += 1.0

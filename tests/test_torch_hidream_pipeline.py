@@ -167,6 +167,29 @@ def test_fast_cfg_window(tpipe):
         tpipe("a cat", **no_cfg))
 
 
+@pytest.mark.parametrize("fast", [None, FastConfig(cfg_interval=(1, 2))], ids=str)
+def test_pipeline_spans(tpipe, fast):
+    """One call records a ``pipe.model`` and a ``pipe.step`` span for each
+    of the plan's calls (with the DiT's kernel launches as the model span's
+    attrs), with and without a CFG window, then one ``pipe.decode`` and one
+    ``pipe.readback``."""
+    from uce_tpu_torch.ops import kernels
+    from uce_tpu_torch.utils import observability
+
+    done = observability.spans()
+    mark = done[-1]["id"] if done else 0
+    tpipe("a cat", **dict(GEN, num_inference_steps=3), seed=3, fast=fast)
+    got = [s for s in observability.spans() if s["id"] > mark]
+    assert [s["name"] for s in got] == (["pipe.model", "pipe.step"] * 3
+                                        + ["pipe.decode", "pipe.readback"])
+    models = [s for s in got if s["name"] == "pipe.model"]
+    assert [s["call"] for s in models] == [0, 1, 2]
+    assert [s["call"] for s in got if s["name"] == "pipe.step"] == [0, 1, 2]
+    assert all(s[k] == 0 for s in models for k in kernels.KERNELS)  # CPU: plain
+    starts = [s["start_ns"] for s in got]
+    assert starts == sorted(starts)
+
+
 def test_quantize_and_mesh_raise_with_their_items(hd_snap, tpipe):
     """An unknown quantization mode raises, at load and after it; apply_mesh
     refuses a mesh without a data axis and one whose rank 0 is not the

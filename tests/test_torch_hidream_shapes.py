@@ -1,6 +1,6 @@
 """HiDream-I1-Full at its published widths, on meta tensors (shapes only,
 no weights): the DiT's state-dict contract against uce_tpu's, the joint
-attention calls that ``impl="auto"`` sends to the sd_attention kernel at
+attention calls that route to the sd_attention kernel at
 head dim 128 per DiT forward (chip_smoke.py's expected launches), the
 Llama-3.1-8B encoder's hidden-state stack, and the memory arithmetic that
 makes ``--staged`` necessary on one 80 GB card."""
@@ -33,9 +33,8 @@ def _dit_attention_calls(size: int, batch: int) -> collections.Counter:
     cfg = hidream.I1_FULL_CONFIG
     calls = collections.Counter()
 
-    def attn_spy(q, k, v, *, impl="auto", **kw):
-        routed = impl == "auto" and attention.routes_to_kernel(
-            q.shape, k.shape, torch.bfloat16, "cuda")
+    def attn_spy(q, k, v, **kw):
+        routed = attention.routes_to_kernel(q.shape, k.shape, torch.bfloat16, "cuda")
         calls[(tuple(q.shape), routed)] += 1
         return torch.empty(q.shape, device="meta", dtype=q.dtype)
 

@@ -85,8 +85,8 @@ def test_generate_cli_writes_case_pngs(sd_snap, edit_path, tmp_path):
 def test_pipeline_spans(sd_snap, fast):
     """One call records ``pipe.call`` holding, in order, ``pipe.encode``, a
     ``pipe.model`` and a ``pipe.step`` span for each of the plan's calls,
-    ``pipe.decode`` and ``pipe.readback``: under ``denoise`` and under
-    ``denoise_fast``."""
+    ``pipe.decode`` and ``pipe.readback``: under ``denoise``, with and
+    without a FastConfig."""
     from uce_tpu_torch.diffusion import schedulers
     from uce_tpu_torch.diffusion.pipeline import SDPipeline
     from uce_tpu_torch.diffusion.sampler import FastConfig
@@ -116,16 +116,18 @@ def counted_launches(monkeypatch):
     """The conv3x3 and group_norm_act plain versions count a launch each, as
     the CUDA kernels do (a CPU tensor's plain version leaves the counters
     alone)."""
+    from uce_tpu_torch.ops import kernels
     from uce_tpu_torch.ops.kernels import conv3x3 as ck, group_norm as gk
 
-    for module, name in ((ck, "conv3x3_reference"), (gk, "group_norm_act_reference")):
+    for module, name, kernel in ((ck, "conv3x3_reference", "conv3x3"),
+                                 (gk, "group_norm_act_reference", "group_norm_act")):
         plain = getattr(module, name)
 
-        def wrapped(*args, _module=module, _plain=plain, **kwargs):
-            _module.launches += 1
+        def wrapped(*args, _kernel=kernel, _plain=plain, **kwargs):
+            kernels.count(_kernel)
             return _plain(*args, **kwargs)
         monkeypatch.setattr(module, name, wrapped)
-    return ck, gk
+    return lambda: tuple(kernels.launches()[k] for k in ("conv3x3", "group_norm_act"))
 
 
 def _model_spans_of(pipe, steps):
@@ -146,14 +148,13 @@ def test_model_spans_count_kernel_launches(sd_snap, monkeypatch, counted_launche
     from uce_tpu_torch.diffusion.pipeline import SDPipeline
     from uce_tpu_torch.models import unet as unet_mod
 
-    ck, gk = counted_launches
     forwards = []
     apply = unet_mod.apply
 
     def counted(*args, **kwargs):
-        before = (ck.launches, gk.launches)
+        before = counted_launches()
         out = apply(*args, **kwargs)
-        forwards.append((ck.launches - before[0], gk.launches - before[1]))
+        forwards.append(tuple(n - b for n, b in zip(counted_launches(), before)))
         return out
     monkeypatch.setattr(unet_mod, "apply", counted)
     pipe = SDPipeline.from_pretrained(sd_snap, dtype=dtype, device="cpu")

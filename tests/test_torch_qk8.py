@@ -12,7 +12,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu.ops.attention import _xla_attention
 from uce_tpu.ops.pallas import sd_attention as pallas_sdk
 from uce_tpu_torch.models import quantize, unet as tunet, vae as tvae
-from uce_tpu_torch.ops import attention as port_attn
+from uce_tpu_torch.ops import attention as port_attn, kernels
 from uce_tpu_torch.ops.kernels import sd_attention as port_sdk
 
 # test_int8_qk_close_to_fp's cases, and a ragged Skv (uce_tpu keeps Skv
@@ -67,9 +67,9 @@ def test_qk8_plain_version_matches_pallas_kernel(b, h, sq, skv, d):
     scale = d ** -0.5
     want = np.asarray(pallas_sdk.sd_attention(qj, kj, vj, scale, interpret=True,
                                               qk_int8=True), np.float32)
-    port_sdk.launches_qk8 = 0
+    kernels.reset_launches()
     got = port_sdk.sd_attention(qt, kt, vt, scale, qk_int8=True)  # CPU: plain
-    assert port_sdk.launches_qk8 == 0
+    assert not any(kernels.launches().values())
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
     got = got.float().numpy()
     np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)

@@ -15,6 +15,7 @@ import torch
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from uce_tpu_torch.diffusion import pipeline_flux
 from uce_tpu_torch.models import flux, hidream
+from uce_tpu_torch.ops import kernels
 from uce_tpu_torch.ops.kernels import qk_norm_rope as qk
 
 DH = 128
@@ -117,11 +118,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 def test_wrapper_on_a_cpu_tensor_runs_the_plain_version():
     segments, cos, sin = _inputs("double", torch.bfloat16)
-    before = qk.launches
+    before = kernels.launches()
     got = qk.qk_norm_rope(segments, cos, sin)
     want = qk.qk_norm_rope_reference(segments, cos, sin)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert qk.launches == before
+    assert kernels.launches() == before
 
 
 @pytest.mark.parametrize("dtype,device,head_dim,kernel", [
@@ -130,8 +131,13 @@ def test_wrapper_on_a_cpu_tensor_runs_the_plain_version():
     (torch.bfloat16, "meta", 128, False), (torch.bfloat16, "cuda", 64, False)])
 def test_routing(dtype, device, head_dim, kernel):
     """bf16 activations on the card at head dim 128 take the kernel; fp32
-    activations and CPU tensors the plain version."""
+    activations and CPU tensors the plain version, as does every call while
+    ``ops.kernels.route`` switches the kernel off."""
     assert qk.routes_to_kernel(dtype, device, head_dim) is kernel
+    with kernels.route(("qk_norm_rope",)):
+        assert not qk.routes_to_kernel(dtype, device, head_dim)
+    with kernels.route(("sd_attention", "conv3x3", "group_norm_act")):
+        assert qk.routes_to_kernel(dtype, device, head_dim) is kernel
 
 
 def _dit(dh, heads=2, axes=AXES, **kw):
@@ -254,12 +260,11 @@ def test_full_width_forward_makes_57_calls(monkeypatch):
 def test_model_span_carries_the_launches():
     """``pipe.model``'s attrs count the op's kernel launches inside it."""
     from uce_tpu_torch.diffusion.sampler import model_span
-    from uce_tpu_torch.models import layers
     from uce_tpu_torch.utils import observability
 
-    assert "qk_norm_rope" in layers.kernel_launches()
+    assert "qk_norm_rope" in kernels.KERNELS
     with model_span(torch.device("cpu"), 0):
-        qk.launches += 57
+        kernels.count("qk_norm_rope", n=57)
     span = observability.spans()[-1]
     assert span["name"] == "pipe.model" and span["qk_norm_rope"] == 57
     assert span["sd_attention"] == 0

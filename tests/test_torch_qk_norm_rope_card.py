@@ -17,6 +17,7 @@ import torch
 
 from uce_tpu_torch.diffusion import pipeline_flux
 from uce_tpu_torch.models import flux
+from uce_tpu_torch.ops import kernels
 from uce_tpu_torch.ops.kernels import qk_norm_rope as qk
 
 pytestmark = pytest.mark.card
@@ -59,7 +60,7 @@ def test_kernel_matches_the_plain_version(card, b, h, s_txt, s_img, joined):
         assert torch.equal(g, w)
 
 
-def test_flux_forward_takes_the_kernel_once_a_block(card, monkeypatch):
+def test_flux_forward_takes_the_kernel_once_a_block(card):
     """A DiT of FLUX's head dim (2 heads, 1 + 2 blocks) in bf16: one launch
     a block, and the same output as the forward on the plain version."""
     cfg = flux.FluxConfig(in_channels=16, num_layers=1, num_single_layers=2,
@@ -71,10 +72,10 @@ def test_flux_forward_takes_the_kernel_once_a_block(card, monkeypatch):
     args = (params, rnd(2, 64, 16), rnd(2, 8, 16), rnd(2, 24),
             torch.tensor([0.7, 0.3], device=card), pipeline_flux.make_img_ids(16, 16),
             np.zeros((8, 3)), cfg)
-    before = qk.launches
+    before = kernels.launches()["qk_norm_rope"]
     got = flux.apply(*args)
-    assert qk.launches - before == 3
-    monkeypatch.setattr(qk, "routes_to_kernel", lambda *a: False)
-    want = flux.apply(*args)
-    assert qk.launches - before == 3
+    assert kernels.launches()["qk_norm_rope"] - before == 3
+    with kernels.route(("qk_norm_rope",)):
+        want = flux.apply(*args)
+    assert kernels.launches()["qk_norm_rope"] - before == 3
     assert torch.equal(got, want)

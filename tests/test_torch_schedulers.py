@@ -202,7 +202,7 @@ def test_denoise_matches_uce_tpu(pred):
         return (jnp.einsum("bchw,cd->bdhw", x, jnp.asarray(w))
                 * jnp.cos(t / 300.0) + jnp.asarray(bias))
 
-    def tmodel(x, t):
+    def tmodel(x, t, cond_only):
         return (torch.einsum("bchw,cd->bdhw", x, torch.from_numpy(w))
                 * float(np.cos(np.float32(t) / np.float32(300.0)))
                 + torch.from_numpy(bias))
@@ -211,8 +211,8 @@ def test_denoise_matches_uce_tpu(pred):
         jmodel, jsched.plan_from_hf(cfg, 8), jnp.asarray(lat0),
         guidance_fn=lambda e: jsampler.cfg_combine(e, 7.5)))
     got = tsampler.denoise(
-        tmodel, tsched.plan_from_hf(cfg, 8), torch.from_numpy(lat0),
-        guidance_fn=lambda e: tsampler.cfg_combine(e, 7.5))
+        tsched.plan_from_hf(cfg, 8), torch.from_numpy(lat0), tmodel, num_branches=2,
+        guidance=lambda e: tsampler.cfg_combine(e, 7.5))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -232,7 +232,7 @@ def test_denoise_new_schedulers_match_uce_tpu(cls, pred):
         return (jnp.einsum("bchw,cd->bdhw", x, jnp.asarray(w))
                 * jnp.cos(t / 300.0) + jnp.asarray(bias))
 
-    def tmodel(x, t):
+    def tmodel(x, t, cond_only):
         return (torch.einsum("bchw,cd->bdhw", x, torch.from_numpy(w))
                 * float(np.cos(np.float32(t) / np.float32(300.0)))
                 + torch.from_numpy(bias))
@@ -241,8 +241,8 @@ def test_denoise_new_schedulers_match_uce_tpu(cls, pred):
         jmodel, jsched.plan_from_hf(cfg, 6), jnp.asarray(lat0),
         guidance_fn=lambda e: jsampler.cfg_combine(e, 7.5)))
     got = tsampler.denoise(
-        tmodel, tsched.plan_from_hf(cfg, 6), torch.from_numpy(lat0),
-        guidance_fn=lambda e: tsampler.cfg_combine(e, 7.5))
+        tsched.plan_from_hf(cfg, 6), torch.from_numpy(lat0), tmodel, num_branches=2,
+        guidance=lambda e: tsampler.cfg_combine(e, 7.5))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 

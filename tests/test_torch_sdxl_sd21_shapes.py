@@ -90,7 +90,7 @@ def _calls(model: str, part: str, batch: int):
 
 
 def _kernel_attention(attns) -> collections.Counter:
-    """The calls that ``impl="auto"`` sends to the kernel on a CUDA tensor."""
+    """The calls that route to the kernel on a CUDA tensor."""
     return collections.Counter({
         shapes: n for shapes, n in attns.items()
         if attention.routes_to_kernel(*shapes, torch.bfloat16, "cuda")})

@@ -312,32 +312,12 @@ def sample_batch(mesh, fn, spec: dict, tensors: dict, params: dict) -> np.ndarra
 def denoiser_forward(params: dict, spec: dict, batch: dict):
     """One UNet forward as a mesh's ranks run it (``workers.run``): ``batch``
     holds ``sample``, ``timesteps``, ``context`` and SDXL's ``added.*``;
-    ``spec`` the ``unet_config`` and an optional ``attn_impl``. Model rank 0
-    of each data group returns its output on the host, the others None."""
+    ``spec`` the ``unet_config``. Model rank 0 of each data group returns
+    its output on the host, the others None."""
     added = {k[len("added."):]: v for k, v in batch.items() if k.startswith("added.")}
     out = unet_mod.apply(params["unet"], batch["sample"], batch["timesteps"],
-                         batch["context"], spec["unet_config"],
-                         attn_impl=spec.get("attn_impl", "auto"), added_cond=added or None)
+                         batch["context"], spec["unet_config"], added_cond=added or None)
     return out.cpu() if workers.tp_rank() == 0 else None
-
-
-def _fast_model_factory(unet_params, unet_config, context, added_cond, bsz: int,
-                        fast: sampler.FastConfig):
-    """``sampler.denoise_fast``'s model factory: the cond-only variants take
-    the cond half of the context and of SDXL's added conditioning."""
-    def factory(cond_only: bool, cached: bool, want_deep: bool):
-        ctx, ac = context, added_cond
-        if cond_only:
-            ctx = context[bsz:]
-            ac = None if added_cond is None else {k: v[bsz:] for k, v in added_cond.items()}
-        if cached:
-            return lambda lat_in, t, deep: unet_mod.apply(
-                unet_params, lat_in, t, ctx, unet_config, added_cond=ac,
-                deep_feature=deep, cache_level=fast.cache_level)
-        return lambda lat_in, t: unet_mod.apply(
-            unet_params, lat_in, t, ctx, unet_config, added_cond=ac,
-            return_deep=want_deep, cache_level=fast.cache_level)
-    return factory
 
 
 def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
@@ -354,33 +334,35 @@ def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
     plan = (schedulers.plan_from_hf_as(scheduler, scheduler_config, steps) if scheduler
             else schedulers.plan_from_hf(scheduler_config, steps))
     mode, guidance_scale, fast = spec["mode"], spec["guidance_scale"], spec["fast"]
+    bsz, dtype = latents.shape[0], latents.dtype
+    cache_level = fast.cache_level if fast is not None else 1
 
-    def model_fn(lat_in, t):
-        return unet_mod.apply(unet_params, lat_in, t, context, unet_config,
-                              added_cond=added_cond)
+    def model(lat_in, t, cond_only, deep=None, want_deep=False):
+        ctx, ac = context, added_cond
+        if cond_only:  # the cond half of the context and of SDXL's added conditioning
+            ctx = context[bsz:]
+            ac = None if added_cond is None else {k: v[bsz:] for k, v in added_cond.items()}
+        return unet_mod.apply(unet_params, lat_in, t, ctx, unet_config, added_cond=ac,
+                              deep_feature=deep, return_deep=want_deep,
+                              cache_level=cache_level)
 
-    if fast is not None:
-        final = sampler.denoise_fast(
-            _fast_model_factory(unet_params, unet_config, context, added_cond,
-                                latents.shape[0], fast),
-            plan, latents, guidance_scale=guidance_scale, fast=fast)
-    elif mode == "sld":
+    # each guidance rounds its eps to the latents' dtype, as uce_tpu steps on it
+    if mode == "sld":
         sld_cfg = spec["sld_config"] or guidance.SLDConfig()
-        final = sampler.denoise(
-            model_fn, plan, latents,
-            guidance_fn=lambda e, i, m: guidance.sld_combine(
-                e, guidance_scale, i, m, sld_cfg),
-            num_branches=3,
-            guidance_state=torch.zeros_like(latents, dtype=torch.float32))
+
+        def guide(e, i, m):
+            eps, m = guidance.sld_combine(e, guidance_scale, i, m, sld_cfg)
+            return eps.to(dtype), m
+        final = sampler.denoise(plan, latents, model, num_branches=3, guidance=guide,
+                                guidance_state=torch.zeros_like(latents, dtype=torch.float32))
     elif mode == "concept_algebra":
         final = sampler.denoise(
-            model_fn, plan, latents,
-            guidance_fn=lambda e: guidance.concept_algebra_combine(e, guidance_scale),
-            num_branches=5)
+            plan, latents, model, num_branches=5,
+            guidance=lambda e: guidance.concept_algebra_combine(e, guidance_scale).to(dtype))
     else:
         final = sampler.denoise(
-            model_fn, plan, latents,
-            guidance_fn=lambda e: sampler.cfg_combine(e.float(), guidance_scale))
+            plan, latents, model, num_branches=2, fast=fast,
+            guidance=lambda e: sampler.cfg_combine(e.float(), guidance_scale).to(dtype))
     if workers.tp_rank() != 0:
         return None
     with span("pipe.decode", final.device):

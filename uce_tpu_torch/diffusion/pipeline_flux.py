@@ -8,7 +8,7 @@ dev: an embedded guidance scale and dynamic sigma shifting).
 Each call records the spans the SD pipeline records
 (``utils/observability``): a ``pipe.call`` holding ``pipe.encode`` (the T5
 and CLIP encodes), a ``pipe.model`` per DiT forward (with its kernel
-launches, ``sampler.model_span``), a ``pipe.step`` per Euler step,
+launches, ``sampler.denoise``), a ``pipe.step`` per Euler step,
 ``pipe.decode`` (the unpack, the scale and shift, the VAE) and
 ``pipe.readback``.
 
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion import schedulers
-from uce_tpu_torch.diffusion.sampler import model_span
+from uce_tpu_torch.diffusion.sampler import denoise
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import (default_max_sequence_length, load_t5_encoder,
                                      load_t5_tokenizer)
@@ -338,23 +338,23 @@ class FluxPipeline:
 
 
 def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
-    """The Euler loop over the DiT and the VAE decode of one batch (on a
+    """The Euler steps of the DiT (``sampler.denoise``: one branch, the
+    velocity stepped as the DiT gives it) and the VAE decode of one batch (on a
     mesh: of a data group's rows, on each of its ranks; model ranks other
     than 0 return None without decoding)."""
     cfg, vae_config = spec["dit_config"], spec["vae_config"]
     lat, t5_embeds, pooled = batch["latents"], batch["t5"], batch["pooled"]
     bsz, device = lat.shape[0], lat.device
     plan = schedulers.flow_match_euler_plan(**spec["plan"])
-    for i in range(plan.num_calls):
-        # the transformer re-scales by 1000
-        t = np.float32(plan.timesteps[i]) / np.float32(1000.0)
-        with model_span(device, i):
-            v = flux_mod.apply(params["dit"], lat, t5_embeds, pooled,
-                               torch.full((bsz,), float(t), device=device),
-                               spec["img_ids"], spec["txt_ids"], cfg,
-                               guidance=batch.get("guidance"))
-        with span("pipe.step", device, call=i):
-            lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+
+    def model(lat_in, t, cond_only):
+        t = np.float32(t) / np.float32(1000.0)  # the transformer re-scales by 1000
+        return flux_mod.apply(params["dit"], lat_in, t5_embeds, pooled,
+                              torch.full((bsz,), float(t), device=device),
+                              spec["img_ids"], spec["txt_ids"], cfg,
+                              guidance=batch.get("guidance"))
+
+    lat = denoise(plan, lat, model)
     if workers.tp_rank() != 0:
         return None
     with span("pipe.decode", device):
@@ -367,13 +367,11 @@ def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
 def denoiser_forward(params: dict, spec: dict, batch: dict):
     """One DiT forward as a mesh's ranks run it (``workers.run``): ``batch``
     holds ``latents``, ``t5``, ``pooled``, ``timesteps`` (and ``guidance``);
-    ``spec`` the ``dit_config``, ``img_ids``, ``txt_ids`` and an optional
-    ``attn_impl``. Model rank 0 of each data group returns its output on the
-    host, the others None."""
+    ``spec`` the ``dit_config``, ``img_ids`` and ``txt_ids``. Model rank 0
+    of each data group returns its output on the host, the others None."""
     out = flux_mod.apply(params["dit"], batch["latents"], batch["t5"], batch["pooled"],
                          batch["timesteps"], spec["img_ids"], spec["txt_ids"],
-                         spec["dit_config"], guidance=batch.get("guidance"),
-                         attn_impl=spec.get("attn_impl", "auto"))
+                         spec["dit_config"], guidance=batch.get("guidance"))
     return out.cpu() if workers.tp_rank() == 0 else None
 
 

@@ -7,7 +7,10 @@ Llama-3.1 hidden states (``hidden_states[1:]`` at the DiT config's
 (``uce_hidream_edit.py:220``). Then FlowMatchEuler steps of the MoE DiT,
 which predicts the negated flow (``v = -pred``), under CFG with the
 unconditional rows first, the Euler update in fp32, and the 16-channel VAE
-with its ``shift_factor``.
+with its ``shift_factor``. Each DiT call is a ``pipe.model`` span (with its
+kernel launches), each CFG combine and Euler step a ``pipe.step``
+(``sampler.denoise``), the decode a ``pipe.decode`` and the read-back a
+``pipe.readback`` (``utils/observability``).
 
 The encoders run in fp32 and the DiT in bf16, as uce_tpu loads them: at
 HiDream-I1-Full's widths about 52 GB of encoders and 34 GB of DiT, more
@@ -42,6 +45,7 @@ from uce_tpu_torch.diffusion.pipeline import decoded_images, sample_batch
 from uce_tpu_torch.diffusion.pipeline_flux import (apply_dit_mesh, compute_shift_mu,
                                                    cuda_allocated, dit_whole, make_img_ids,
                                                    release_memory, send_dit)
+from uce_tpu_torch.diffusion.sampler import denoise
 from uce_tpu_torch.edit import embeddings as emb
 from uce_tpu_torch.edit.flux import load_t5_encoder, load_t5_tokenizer
 from uce_tpu_torch.edit.hidream import (load_llama_encoder, load_llama_tokenizer,
@@ -53,6 +57,7 @@ from uce_tpu_torch.models import t5 as t5_mod, unet as unet_mod, vae as vae_mod
 from uce_tpu_torch.models.hf_loader import load_json, load_state_dict, read_safetensors
 from uce_tpu_torch.parallel import mesh as mesh_mod, workers
 from uce_tpu_torch.utils import torch_rng
+from uce_tpu_torch.utils.observability import span
 
 _EDIT_KEY = re.compile(r"caption_projection\.(\d+)\.linear\.weight$")
 
@@ -358,48 +363,47 @@ class HiDreamPipeline:
 
 
 def _denoise_decode(params: dict, spec: dict, batch: dict) -> np.ndarray | None:
-    """The CFG Euler loop over the MoE DiT (outside a ``fast`` window the
-    cond rows alone) and the VAE decode of one batch (on a mesh: of a data
-    group's rows, on each of its ranks; model ranks other than 0 return
-    None without decoding)."""
+    """The CFG Euler steps of the MoE DiT (``sampler.denoise``; outside a
+    ``fast`` window the cond rows alone) and the VAE decode of one batch (on
+    a mesh: of a data group's rows, on each of its ranks; model ranks other
+    than 0 return None without decoding)."""
     cfg, vae_config = spec["dit_config"], spec["vae_config"]
-    do_cfg, guidance_scale, fast = spec["do_cfg"], spec["guidance_scale"], spec["fast"]
+    do_cfg, guidance_scale = spec["do_cfg"], float(spec["guidance_scale"])
     lat, t5_e, llama_e, pooled_e = (batch[k] for k in ("latents", "t5", "llama", "pooled"))
     bsz, device = lat.shape[0], lat.device
     plan = schedulers.flow_match_euler_plan(**spec["plan"])
-    segments = (fast.segments(plan.num_calls) if fast is not None
-                else [(0, plan.num_calls, False)])
-    for start, end, cond_only in segments:
+
+    def model(lat_in, t, cond_only):
+        te, le, pe = t5_e, llama_e, pooled_e
         if cond_only:  # outside the CFG window: the cond rows alone
             te, le, pe = t5_e[bsz:], llama_e[:, bsz:], pooled_e[bsz:]
-        else:
-            te, le, pe = t5_e, llama_e, pooled_e
-        for i in range(start, end):
-            lat_in = torch.cat([lat, lat]) if do_cfg and not cond_only else lat
-            t = torch.full((lat_in.shape[0],), float(plan.timesteps[i]), device=device)
-            v = -hd_mod.apply(params["dit"], lat_in, te, le, pe, t, spec["img_ids"],
-                              cfg)  # HiDream predicts the negated flow
-            if do_cfg and not cond_only:
-                unc, txt = v.chunk(2)
-                v = unc.float() + float(guidance_scale) * (txt - unc).float()
-            lat = plan.step(v.float(), i, lat.float(), [])[0].to(lat.dtype)
+        t = torch.full((lat_in.shape[0],), t, device=device)
+        return -hd_mod.apply(params["dit"], lat_in, te, le, pe, t, spec["img_ids"],
+                             cfg)  # HiDream predicts the negated flow
+
+    def guide(v):  # CFG in fp32, stepped without rounding to the latents' dtype
+        unc, txt = v.chunk(2)
+        return unc.float() + guidance_scale * (txt - unc).float()
+
+    lat = denoise(plan, lat, model, num_branches=2 if do_cfg else 1, guidance=guide,
+                  fast=spec["fast"])
     if workers.tp_rank() != 0:
         return None
-    lat = unpack_latents(lat, *spec["latent_hw"]).float()
-    lat = lat / vae_config.scaling_factor + vae_config.shift_factor
-    return decoded_images(vae_mod.decode(params["vae"], lat.to(t5_e.dtype), vae_config),
-                          batch["rows"])
+    with span("pipe.decode", device):
+        lat = unpack_latents(lat, *spec["latent_hw"]).float()
+        lat = lat / vae_config.scaling_factor + vae_config.shift_factor
+        imgs = vae_mod.decode(params["vae"], lat.to(t5_e.dtype), vae_config)
+    return decoded_images(imgs, batch["rows"])
 
 
 def denoiser_forward(params: dict, spec: dict, batch: dict):
     """One DiT forward as a mesh's ranks run it (``workers.run``): ``batch``
     holds ``latents``, ``t5``, ``llama``, ``pooled`` and ``timesteps``;
-    ``spec`` the ``dit_config``, ``img_ids`` and an optional ``attn_impl``.
-    Model rank 0 of each data group returns its output on the host, the
-    others None."""
+    ``spec`` the ``dit_config`` and ``img_ids``. Model rank 0 of each data
+    group returns its output on the host, the others None."""
     out = hd_mod.apply(params["dit"], batch["latents"], batch["t5"], batch["llama"],
                        batch["pooled"], batch["timesteps"], spec["img_ids"],
-                       spec["dit_config"], attn_impl=spec.get("attn_impl", "auto"))
+                       spec["dit_config"])
     return out.cpu() if workers.tp_rank() == 0 else None
 
 

@@ -1,11 +1,12 @@
-"""Denoising loop: one batched model call over the guidance branches (CFG's
-two, or a baseline's three or five), the guidance combine, and the
-scheduler's table-driven step, per plan call; each call is a ``pipe.model``
-span, with the conv3x3, group_norm_act and sd_attention kernel launches of
-the call as its ``conv3x3``, ``group_norm_act`` and ``sd_attention`` attrs,
-and its combine and step a ``pipe.step`` span (``utils/observability``).
-``denoise_fast`` adds uce_tpu's opt-in fast mode (``FastConfig``): CFG only
-inside a window of calls, and DeepCache's reuse of the deep UNet feature."""
+"""The denoising loop of every pipeline (SD, FLUX, HiDream): per plan call
+one batched model call over the guidance branches (CFG's two, a baseline's
+three or five, or one), the guidance combine, and the scheduler's
+table-driven step. Each call is a ``pipe.model`` span, with the launches of
+the call's conv3x3, group_norm_act, sd_attention and qk_norm_rope kernels
+as its attrs (``ops/kernels``), and its combine and step a ``pipe.step``
+span (``utils/observability``). ``FastConfig`` adds uce_tpu's opt-in fast
+mode: CFG only inside a window of calls, and DeepCache's reuse of the deep
+UNet feature."""
 
 from __future__ import annotations
 
@@ -16,18 +17,20 @@ from typing import Callable
 import torch
 
 from uce_tpu_torch.diffusion.schedulers import Plan
-from uce_tpu_torch.models.layers import kernel_launches
+from uce_tpu_torch.ops import kernels
 from uce_tpu_torch.utils.observability import span
 
 
 @contextlib.contextmanager
 def model_span(device, call: int):
     """The ``pipe.model`` span of denoiser call ``call``; once it is left,
-    its attrs count the kernel launches made inside (``kernel_launches``)."""
-    before = kernel_launches()
+    its attrs count the launches of the models' kernels made inside
+    (``kernels.KERNELS``)."""
+    before = kernels.launches()
     with span("pipe.model", device, call=call) as s:
         yield
-    s.attrs.update({k: n - before[k] for k, n in kernel_launches().items()})
+    after = kernels.launches()
+    s.attrs.update({k: after[k] - before[k] for k in kernels.KERNELS})
 
 
 def cfg_combine(eps_branches: torch.Tensor, guidance_scale: float) -> torch.Tensor:
@@ -112,106 +115,76 @@ class FastConfig:
 
 
 def denoise(
-    model_fn: Callable[[torch.Tensor, float], torch.Tensor],
     plan: Plan,
     latents: torch.Tensor,
+    model: Callable,
     *,
-    guidance_fn: Callable[..., torch.Tensor],
-    num_branches: int = 2,
+    num_branches: int = 1,
+    guidance: Callable | None = None,
     guidance_state=None,
+    fast: FastConfig | None = None,
 ) -> torch.Tensor:
-    """Run every call of ``plan`` with ``num_branches`` guidance branches.
+    """Run every call of ``plan`` on ``latents``, the raw unit gaussians
+    (``init_noise_sigma`` applied here); each call's model input is
+    ``num_branches`` copies of the latents scaled by
+    ``plan.scale_model_input``.
 
-    model_fn(latents_in [num_branches*B, C, H, W], t) -> eps of each branch
-    (the closure carries the text context and any added conditioning).
-    guidance_fn: ``eps_branches -> eps`` (stateless), or, when
-    ``guidance_state`` is given, ``(eps_branches, i, state) -> (eps,
-    state)`` with ``i`` the index of the plan's call (SLD's momentum and
-    warmup). ``latents`` are the raw unit gaussians (init_noise_sigma
-    applied here); each call's UNet input is scaled by
-    ``plan.scale_model_input``. The scheduler arithmetic and its history run
-    in fp32 whatever the latents' dtype.
+    model(lat_in, t, cond_only) -> the model output of each branch at
+    timestep ``t`` (the closure carries the conditioning; ``cond_only``:
+    only the last branch runs, outside a CFG window). Under DeepCache
+    (``fast.cache_interval > 1``) the loop also calls ``model(lat_in, t,
+    cond_only, want_deep=True) -> (out, deep)`` for a full forward that
+    returns its deep feature, and ``model(lat_in, t, cond_only, deep=deep)``
+    for the shallow path on a cached one.
+    guidance: ``out -> eps`` over the branches (stateless), or, when
+    ``guidance_state`` is given, ``(out, i, state) -> (eps, state)`` with
+    ``i`` the index of the plan's call (SLD's momentum and warmup); None:
+    the model output is the step's input. A one-branch call takes its
+    output as it is. The loop casts nothing before the step: the guidance
+    gives the eps in the dtype it is rounded to; the scheduler arithmetic
+    and its history run in fp32 whatever the latents' dtype.
+    fast: the CFG window splits the calls into up to three segments
+    (cond-only at one branch, guided, cond-only); within a segment call
+    ``i`` runs the full model where ``i % cache_interval == 0`` and the
+    shallow path on the cached deep feature otherwise. The cache keeps its
+    cond half across a guided -> cond boundary; a segment entered without a
+    valid cache (the first, and a guided one, whose uncond half has none)
+    runs its first call in full. The deep feature keeps the dtype the model
+    gives it. With ``cache_interval == 1`` and a window over every call,
+    every call is as without ``fast``, bit for bit.
     """
     lat = latents * plan.init_noise_sigma
     hist = plan.init_carry(lat)
     state = guidance_state
-    for i in range(plan.num_calls):
-        with model_span(lat.device, i):
-            lat_in = plan.scale_model_input(torch.cat([lat] * num_branches), i)
-            eps_branches = model_fn(lat_in, float(plan.timesteps[i]))
-        with span("pipe.step", lat.device, call=i):
-            if guidance_state is None:
-                eps = guidance_fn(eps_branches)
-            else:
-                eps, state = guidance_fn(eps_branches, i, state)
-            eps = eps.to(lat.dtype)
-            new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
-            lat = new_lat.to(lat.dtype)
-    return lat
-
-
-def denoise_fast(
-    model_factory: Callable[[bool, bool, bool], Callable],
-    plan: Plan,
-    latents: torch.Tensor,
-    *,
-    guidance_scale: float,
-    fast: FastConfig,
-) -> torch.Tensor:
-    """``denoise`` under CFG with the FastConfig accelerations.
-
-    ``model_factory(cond_only, cached, want_deep)`` returns the model
-    closure of one variant, batched over [uncond; cond] unless
-    ``cond_only``:
-
-    * ``cached=False, want_deep=False``: ``f(lat_in, t) -> eps``
-    * ``cached=False, want_deep=True``:  ``f(lat_in, t) -> (eps, deep)``
-    * ``cached=True``:                   ``f(lat_in, t, deep) -> eps``
-
-    The CFG window splits the calls into up to three segments (cond-only at
-    batch B, guided at 2B, cond-only at B); within a segment call ``i`` runs
-    the full UNet where ``i % cache_interval == 0`` and the shallow path on
-    the cached deep feature otherwise. The cache keeps its cond half across
-    a guided -> cond boundary; a segment entered without a valid cache (the
-    first, and a guided one, whose uncond half has none) runs its first call
-    in full. The deep feature keeps the dtype the model gives it. With
-    ``cache_interval == 1`` every call is the full forward, cast for cast
-    as in ``denoise``: a full window reproduces it bit for bit.
-    """
-    lat = latents * plan.init_noise_sigma
-    hist = plan.init_carry(lat)
     bsz = lat.shape[0]
-    n_cache = fast.cache_interval
+    n_cache = fast.cache_interval if fast is not None else 1
+    segments = (fast.segments(plan.num_calls) if fast is not None
+                else [(0, plan.num_calls, False)])
     deep = None
-    for seg_start, seg_end, cond_only in fast.segments(plan.num_calls):
-        if cond_only:
-            def guidance(e):
-                return e
+    for start, end, cond_only in segments:
+        branches = 1 if cond_only else num_branches
+        if deep is not None and deep.shape[0] == 2 * bsz and cond_only:
+            deep = deep[bsz:]  # guided -> cond: keep the cond half
         else:
-            def guidance(e):
-                return cfg_combine(e.float(), guidance_scale)
-        if n_cache == 1:
-            f_full = model_factory(cond_only, False, False)
-        else:
-            f_deep = model_factory(cond_only, False, True)
-            f_cached = model_factory(cond_only, True, False)
-            if deep is not None and deep.shape[0] == 2 * bsz and cond_only:
-                deep = deep[bsz:]  # guided -> cond: keep the cond half
-            else:
-                deep = None  # no valid cache: the segment's first call is full
-        for i in range(seg_start, seg_end):
+            deep = None  # no valid cache: the segment's first call is full
+        for i in range(start, end):
             with model_span(lat.device, i):
-                lat_in = lat if cond_only else torch.cat([lat, lat])
+                lat_in = lat if branches == 1 else torch.cat([lat] * branches)
                 lat_in = plan.scale_model_input(lat_in, i)
                 t = float(plan.timesteps[i])
                 if n_cache == 1:
-                    eps = f_full(lat_in, t)
+                    out = model(lat_in, t, cond_only)
                 elif deep is None or i % n_cache == 0:
-                    eps, deep = f_deep(lat_in, t)
+                    out, deep = model(lat_in, t, cond_only, want_deep=True)
                 else:
-                    eps = f_cached(lat_in, t, deep)
+                    out = model(lat_in, t, cond_only, deep=deep)
             with span("pipe.step", lat.device, call=i):
-                eps = guidance(eps).to(lat.dtype)
+                if branches == 1 or guidance is None:
+                    eps = out
+                elif guidance_state is None:
+                    eps = guidance(out)
+                else:
+                    eps, state = guidance(out, i, state)
                 new_lat, hist = plan.step(eps.float(), i, lat.float(), hist)
                 lat = new_lat.to(lat.dtype)
     return lat

@@ -154,7 +154,7 @@ def _mlp_embed(p, name, v):
 
 def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timestep,
           img_ids: np.ndarray, txt_ids: np.ndarray, config: FluxConfig,
-          guidance=None, attn_impl: str = "auto"):
+          guidance=None):
     """Forward. latents [B, S_img, in_channels] packed patches; t5_embeds
     [B, S_txt, joint_attention_dim]; pooled [B, pooled_projection_dim];
     timestep [B] in [0, 1] (sigma; x1000 here, as diffusers); ids [S, 3]
@@ -194,8 +194,7 @@ def apply(params: Mapping[str, torch.Tensor], latents, t5_embeds, pooled, timest
         """segments: (q, k, q norm scale, k norm scale) projection outputs,
         text first; v [B, H, S, dh]."""
         q, k = norm_rope(segments, cos, sin, dh)
-        return _unheads(dot_product_attention(q, k, v, scale=dh ** -0.5,
-                                              impl=attn_impl))
+        return _unheads(dot_product_attention(q, k, v, scale=dh ** -0.5))
 
     for i in range(cfg.num_layers):
         b = f"transformer_blocks.{i}."

@@ -194,8 +194,7 @@ def _qkv(p, a, x, dh: int, suffix: str = ""):
 
 
 def apply(params: Mapping[str, torch.Tensor], x_packed, t5_embeds, llama_embeds, pooled,
-          timesteps, img_ids: np.ndarray, config: HiDreamConfig,
-          attn_impl: str = "auto"):
+          timesteps, img_ids: np.ndarray, config: HiDreamConfig):
     """Forward.
 
     x_packed [B, S_img, in_channels * p^2] packed patches; t5_embeds
@@ -236,8 +235,7 @@ def apply(params: Mapping[str, torch.Tensor], x_packed, t5_embeds, llama_embeds,
 
     def attention(q, k, v):
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        return _unheads(dot_product_attention(q, k, v, scale=q.shape[-1] ** -0.5,
-                                              impl=attn_impl))
+        return _unheads(dot_product_attention(q, k, v, scale=q.shape[-1] ** -0.5))
 
     carry = torch.cat([t5_proj, llama_proj[-1]], dim=1)
     s_carry = s_t5 + s_ll

@@ -1,9 +1,10 @@
 """Shared NN building blocks, NCHW layout, diffusers weight layouts
 (conv OIHW, linear [out, in]). Norm statistics are computed in fp32.
 
-bf16 activations (``kernel_route``) take the hand-written kernels wherever
-the kernel takes the shape: every 3x3 stride-1 conv of an unquantized
-weight (``ops/kernels/conv3x3.py``) and every GroupNorm, SiLU fused
+bf16 activations (``kernel_route``) take the hand-written kernels, unless
+``ops.kernels.route`` switched them off, wherever the kernel takes the
+shape: every 3x3 stride-1 conv of an unquantized weight
+(``ops/kernels/conv3x3.py``) and every GroupNorm, SiLU fused
 (``ops/kernels/group_norm.py``). The kernels take NHWC: a CUDA tensor
 launches the kernel, a CPU tensor takes its plain version. The models hold
 bf16 activations in ``torch.channels_last``, so the NHWC view of an NCHW
@@ -19,12 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
-from uce_tpu_torch.ops import quant
-from uce_tpu_torch.parallel import workers
+from uce_tpu_torch.ops import kernels, quant
 from uce_tpu_torch.ops.kernels import conv3x3 as conv_kernel
 from uce_tpu_torch.ops.kernels import group_norm as gn_kernel
-from uce_tpu_torch.ops.kernels import qk_norm_rope as qk_kernel
-from uce_tpu_torch.ops.kernels import sd_attention as attn_kernel
+from uce_tpu_torch.parallel import workers
 
 # Derived copies of parameters (packed conv weights, fp32 norm affines),
 # made once per parameter tensor and dropped with it. Parameters are never
@@ -32,18 +31,13 @@ from uce_tpu_torch.ops.kernels import sd_attention as attn_kernel
 _derived = WeakTensorKeyDictionary()
 
 
-def kernel_route(x) -> bool:
-    """Whether the activations ``x`` take the hand-written kernels (and,
-    in the UNet and the VAE, channels_last): a bf16 map [B, C, H, W]."""
-    return x.dtype == torch.bfloat16 and x.ndim == 4
-
-
-def kernel_launches() -> dict[str, int]:
-    """The conv3x3, group_norm_act, bf16 sd_attention and qk_norm_rope
-    kernels' launches so far (the difference over a call counts that
-    call's)."""
-    return {"conv3x3": conv_kernel.launches, "group_norm_act": gn_kernel.launches,
-            "sd_attention": attn_kernel.launches, "qk_norm_rope": qk_kernel.launches}
+def kernel_route(x, *names: str) -> bool:
+    """Whether the activations ``x`` take the hand-written kernels ``names``
+    (by default the conv3x3 and the group_norm_act kernel, and then, in the
+    UNet and the VAE, channels_last): none switched off, and ``x`` a bf16
+    map [B, C, H, W]."""
+    return (kernels.on(*(names or ("conv3x3", "group_norm_act")))
+            and x.dtype == torch.bfloat16 and x.ndim == 4)
 
 
 def _derive(param: torch.Tensor, kind: str, fn):
@@ -70,7 +64,7 @@ def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 1):
         return quant.wconv2d(x, weight, bias, stride, padding)
     if quant.is_quantized(weight):
         return quant.qconv2d(x, weight, bias, stride, padding)
-    if (kernel_route(x) and stride == 1 and padding == 1
+    if (kernel_route(x, "conv3x3") and stride == 1 and padding == 1
             and tuple(weight.shape[2:]) == (3, 3)):
         w = _derive(weight, "ohwi", conv_kernel.pack_weight)
         return conv_kernel.conv3x3(_nhwc(x), w, bias).permute(0, 3, 1, 2)
@@ -104,8 +98,8 @@ def group_norm_act(x, scale, bias, num_groups: int = 32, eps: float = 1e-5,
                    act: str = "none"):
     """GroupNorm over the channel dim 1, statistics and affine in fp32,
     followed by an optional SiLU."""
-    if kernel_route(x) and gn_kernel.supported_shape(_nhwc_shape(x), num_groups,
-                                                     x.dtype):
+    if kernel_route(x, "group_norm_act") and gn_kernel.supported_shape(
+            _nhwc_shape(x), num_groups, x.dtype):
         y = gn_kernel.group_norm_act(
             _nhwc(x), _derive(scale, "fp32", torch.Tensor.float),
             _derive(bias, "fp32", torch.Tensor.float), num_groups, eps, act)

@@ -5,7 +5,7 @@ Params are the diffusers checkpoint's own tensors (conv OIHW, linear
 [out, in]) keyed by their module paths, so HF checkpoints and UCE
 safetensors overlays map 1:1. Self-attention at the long sequence lengths
 (64x64 and 32x32 latents at 512px) runs the sd_attention kernel through
-``ops.attention.dot_product_attention(impl="auto")``. A bf16 forward
+``ops.attention.dot_product_attention``. A bf16 forward
 (``layers.kernel_route``) holds its activations in ``torch.channels_last``,
 the layout of the conv3x3 and group_norm_act kernels, and returns a
 contiguous NCHW tensor. Weights may be the int8 dicts of ``ops/quant.py``
@@ -155,7 +155,7 @@ def _resnet(p, pre, x, temb, groups: int):
     return x + h
 
 
-def _attention(p, pre, x, context, heads: int, impl: str):
+def _attention(p, pre, x, context, heads: int):
     """diffusers Attention: to_q/to_k/to_v (no bias), to_out.0 (bias).
     Self-attention runs one fused QKV projection, cross-attention one fused
     KV projection, split in that order; a tree that mixes float and
@@ -180,8 +180,7 @@ def _attention(p, pre, x, context, heads: int, impl: str):
     def split(z):
         return z.reshape(b, -1, local, dh).transpose(1, 2)
 
-    out = dot_product_attention(split(q), split(k), split(v), impl=impl,
-                                qk_int8=is_quantized(wq))
+    out = dot_product_attention(split(q), split(k), split(v), qk_int8=is_quantized(wq))
     out = out.transpose(1, 2).reshape(b, tq, local * dh)
     return row_linear(out, *_w(p, pre + ".to_out.0"))
 
@@ -200,16 +199,16 @@ def _geglu_ff(p, pre, x):
     return row_linear(h, *_w(p, pre + ".net.2"))
 
 
-def _transformer_block(p, pre, x, context, heads: int, impl: str):
+def _transformer_block(p, pre, x, context, heads: int):
     x = x + _attention(p, pre + ".attn1",
-                       layer_norm(x, *_w(p, pre + ".norm1")), None, heads, impl)
+                       layer_norm(x, *_w(p, pre + ".norm1")), None, heads)
     x = x + _attention(p, pre + ".attn2",
-                       layer_norm(x, *_w(p, pre + ".norm2")), context, heads, impl)
+                       layer_norm(x, *_w(p, pre + ".norm2")), context, heads)
     return x + _geglu_ff(p, pre + ".ff", layer_norm(x, *_w(p, pre + ".norm3")))
 
 
 def _spatial_transformer(p, pre, x, context, heads: int, depth: int,
-                         cfg: UNetConfig, impl: str):
+                         cfg: UNetConfig):
     """Transformer2DModel: GN -> proj_in -> blocks -> proj_out, residual."""
     b, c, h, w = x.shape
     residual = x
@@ -221,8 +220,7 @@ def _spatial_transformer(p, pre, x, context, heads: int, depth: int,
         x = conv2d(x, *_w(p, pre + ".proj_in"), padding=0)
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
     for i in range(depth):
-        x = _transformer_block(p, f"{pre}.transformer_blocks.{i}", x, context,
-                               heads, impl)
+        x = _transformer_block(p, f"{pre}.transformer_blocks.{i}", x, context, heads)
     if cfg.use_linear_projection:
         x = linear(x, *_w(p, pre + ".proj_out"))
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
@@ -243,13 +241,12 @@ def deep_feature_shape(config: UNetConfig, batch: int, latent_h: int,
 
 
 def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
-          encoder_hidden_states, config: UNetConfig, *, attn_impl: str = "auto",
+          encoder_hidden_states, config: UNetConfig, *,
           added_cond: Mapping[str, torch.Tensor] | None = None,
           deep_feature: torch.Tensor | None = None, return_deep: bool = False,
           cache_level: int = 1):
     """UNet forward. sample [B, C_in, H, W], timesteps [B] or scalar,
     encoder_hidden_states [B, T, D_text] -> noise prediction [B, C_out, H, W].
-    ``attn_impl`` is passed to every attention call ("auto" or "plain").
     A ``text_time`` UNet (SDXL) takes ``added_cond`` = {"text_embeds": [B,
     P] pooled text, "time_ids": [B, 6]}: their embedding joins the time
     embedding.
@@ -313,7 +310,7 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
             if btype == "CrossAttnDownBlock2D":
                 x = _spatial_transformer(
                     p, f"down_blocks.{bi}.attentions.{li}", x, ehs,
-                    cfg.heads(bi), cfg.tx_layers(bi), cfg, attn_impl)
+                    cfg.heads(bi), cfg.tx_layers(bi), cfg)
             res_stack.append(x)
         if f"down_blocks.{bi}.downsamplers.0.conv.weight" in p:
             # on the shallow path the last live level's downsample would
@@ -328,8 +325,7 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
         x = _resnet(p, "mid_block.resnets.0", x, emb, groups)
         if "mid_block.attentions.0.norm.weight" in p:
             x = _spatial_transformer(p, "mid_block.attentions.0", x, ehs,
-                                     cfg.heads(last), cfg.tx_layers(last), cfg,
-                                     attn_impl)
+                                     cfg.heads(last), cfg.tx_layers(last), cfg)
         x = _resnet(p, "mid_block.resnets.1", x, emb, groups)
 
     deep_out = None
@@ -349,7 +345,7 @@ def apply(params: Mapping[str, torch.Tensor], sample, timesteps,
             if btype == "CrossAttnUpBlock2D":
                 x = _spatial_transformer(
                     p, f"up_blocks.{bi}.attentions.{li}", x, ehs,
-                    cfg.heads(rev), cfg.tx_layers(rev), cfg, attn_impl)
+                    cfg.heads(rev), cfg.tx_layers(rev), cfg)
         if f"up_blocks.{bi}.upsamplers.0.conv.weight" in p:
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             x = conv2d(x, *_w(p, f"up_blocks.{bi}.upsamplers.0.conv"))

@@ -1,9 +1,10 @@
 """Attention entry point used by every model of the port.
 
-``impl="auto"`` keeps uce_tpu's routing rule: long mask-free, non-causal
+The routing keeps uce_tpu's rule: long mask-free, non-causal
 self-attention (Sq >= 1024 and Sq == Skv) on a CUDA tensor, at a shape the
 kernel takes, runs the hand-written sd_attention kernel; everything else
-runs the plain path. ``impl="plain"`` forces the plain path. ``qk_int8``
+runs the plain path, as does every call while ``ops.kernels.route``
+switches the kernel off. ``qk_int8``
 (set by W8A8-quantized call sites) selects the kernel's int8-QK^T variant
 for the calls that route to the kernel; every other call ignores it, as
 uce_tpu ignores it off its kernel.
@@ -13,16 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from uce_tpu_torch.ops.kernels import sd_attention as sdk
-
-IMPLS = ("auto", "plain")
+from uce_tpu_torch.ops.kernels import on, sd_attention as sdk
 
 
 def routes_to_kernel(q_shape, k_shape, dtype, device_type: str, *,
                      masked: bool = False, causal: bool = False) -> bool:
-    """The ``impl="auto"`` routing rule, as a function of shapes."""
+    """The routing rule, as a function of shapes."""
     sq, skv = q_shape[-2], k_shape[-2]
-    return (device_type == "cuda" and not masked and not causal
+    return (on("sd_attention") and device_type == "cuda" and not masked and not causal
             and sq >= 1024 and sq == skv
             and sdk.supported_shape(tuple(q_shape), tuple(k_shape), dtype))
 
@@ -44,17 +43,14 @@ def plain_attention(q, k, v, mask, causal: bool, scale: float):
 
 
 def dot_product_attention(q, k, v, *, mask=None, causal: bool = False,
-                          scale: float | None = None, impl: str = "auto",
-                          qk_int8: bool = False):
+                          scale: float | None = None, qk_int8: bool = False):
     """Multi-head attention over [B, H, T, Dh] tensors.
 
     mask: optional boolean [B, 1|H, Tq, Tk], True = attend.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if impl == "auto" and routes_to_kernel(
+    if routes_to_kernel(
             q.shape, k.shape, q.dtype, q.device.type,
             masked=mask is not None, causal=causal):
         return sdk.sd_attention(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from uce_tpu_torch.ops.kernels import count
 from uce_tpu_torch.ops.kernels._build import launch_on, load_library, sm_count
 
 SOURCE = "conv3x3.cu"
@@ -35,14 +36,6 @@ TILE_N = (64, 128, 160)
 MIN_SPLIT_STEPS = 4
 # The mma.sync kernel's 128 x 128 output tile and K step of 32.
 MMA_TILE, MMA_K = 128, 32
-
-# Kernel launches since the last reset (plain integers; callers reset
-# them): every conv (either kernel), the wgmma and mma.sync kernels apart,
-# and the split-K sums.
-launches = 0
-launches_wgmma = 0
-launches_mma = 0
-launches_reduce = 0
 
 _weight_maps = WeakTensorKeyDictionary()  # packed weights -> {bn: tensor map}
 
@@ -175,11 +168,6 @@ def _lib():
     return lib
 
 
-def build() -> None:
-    """Compile (or load from the build cache) the kernel library."""
-    _lib()
-
-
 def _weight_map(w_packed: torch.Tensor, bn: int):
     """The TMA tensor map of packed weights for ``bn``-row boxes, encoded
     once per weight tensor and box (dropped with the tensor)."""
@@ -197,7 +185,6 @@ def _weight_map(w_packed: torch.Tensor, bn: int):
 def conv3x3(x: torch.Tensor, w_packed: torch.Tensor,
             bias: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, H, W, Cin], w_packed [Cout, 3, 3, Cin] -> [B, H, W, Cout]."""
-    global launches, launches_wgmma, launches_mma, launches_reduce
     if x.ndim != 4 or w_packed.ndim != 4 or tuple(w_packed.shape[1:]) != (
             3, 3, x.shape[3]):
         raise ValueError(f"conv3x3: x {tuple(x.shape)} and packed weights "
@@ -232,8 +219,7 @@ def conv3x3(x: torch.Tensor, w_packed: torch.Tensor,
                                    y.data_ptr(), b, h, w, cin, cout, stream)
         if err != 0:
             raise RuntimeError(f"conv3x3 mma.sync kernel launch failed (cudaError {err})")
-        launches += 1
-        launches_mma += 1
+        count("conv3x3", "conv3x3_mma")
         return y
     ws = (torch.empty((p.splits, b, h, w, cout), device=x.device, dtype=torch.float32)
           if p.splits > 1 else None)
@@ -244,13 +230,12 @@ def conv3x3(x: torch.Tensor, w_packed: torch.Tensor,
                                 p.splits, stream)
         if err != 0:
             raise RuntimeError(f"conv3x3 wgmma kernel launch failed (cudaError {err})")
-        launches += 1
-        launches_wgmma += 1
+        count("conv3x3", "conv3x3_wgmma")
         if ws is None:
             return y
         err = lib.conv3x3_split_reduce(ws.data_ptr(), bias_ptr, y.data_ptr(),
                                        b * h * w * cout, cout, p.splits, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 split reduce launch failed (cudaError {err})")
-    launches_reduce += 1
+    count("conv3x3_reduce")
     return y

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from uce_tpu_torch.ops.kernels import count
 from uce_tpu_torch.ops.kernels._build import launch_on, load_library, sm_count
 
 SOURCE = "group_norm.cu"
@@ -49,10 +50,6 @@ SMEM_MAX = 227 * 1024
 STREAM_MIN_ROWS = 4096
 STREAM_BYTES_PER_SM = 96 * 1024
 SMS = 132  # an H100 SXM's SMs: the grid the resident plan tries to fill
-
-# Kernel launches since the last reset (a plain integer; callers reset it):
-# one per wrapper call, whatever the schedule.
-launches = 0
 
 
 @dataclass(frozen=True)
@@ -230,16 +227,10 @@ def _plan_cached(shape, groups: int, sms: int) -> Plan:
     return plan(shape, groups, sms)
 
 
-def build() -> None:
-    """Compile (or load from the build cache) the kernel library."""
-    _lib()
-
-
 def group_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    groups: int = 32, eps: float = 1e-5,
                    act: str = "none") -> torch.Tensor:
     """x [B, H, W, C] -> GroupNorm(groups, eps) (then SiLU if act='silu')."""
-    global launches
     if act not in ACTS:
         raise ValueError(f"group_norm_act: act must be one of {ACTS}, got {act!r}")
     if x.device.type == "cpu":
@@ -282,5 +273,5 @@ def group_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"group_norm_act kernel launch failed (cudaError {err}, "
                            f"-2: tensor map) for x {tuple(x.shape)}, {p}")
-    launches += 1
+    count("group_norm_act")  # one per call, whatever the schedule
     return y

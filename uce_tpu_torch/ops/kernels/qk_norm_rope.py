@@ -13,9 +13,9 @@ does in one read and one write what the plain version does in some twenty
 PyTorch launches, rounding where they round.
 
 ``routes_to_kernel`` decides from the input: bf16 activations on a CUDA
-device at head dim 128 take the kernel; fp32 activations and CPU tensors
-take the plain version. On a CPU tensor the wrapper itself runs the plain
-version.
+device at head dim 128 take the kernel, unless ``ops.kernels.route``
+switched it off; fp32 activations and CPU tensors take the plain version.
+On a CPU tensor the wrapper itself runs the plain version.
 """
 
 from __future__ import annotations
@@ -25,20 +25,20 @@ import functools
 
 import torch
 
+from uce_tpu_torch.ops.kernels import count, on
 from uce_tpu_torch.ops.kernels._build import launch_on, load_library
 
 SOURCE = "qk_norm_rope.cu"
 HEAD_DIM = 128
 EPS = 1e-6  # FLUX's q/k RMSNorm
 
-# Kernel launches since the last reset (a plain integer; callers reset it).
-launches = 0
-
 
 def routes_to_kernel(dtype, device_type: str, head_dim: int) -> bool:
     """Whether activations of ``dtype`` on ``device_type`` with heads of
-    ``head_dim`` take the kernel."""
-    return dtype == torch.bfloat16 and device_type == "cuda" and head_dim == HEAD_DIM
+    ``head_dim`` take the kernel (unless ``ops.kernels.route`` switched it
+    off)."""
+    return (on("qk_norm_rope") and dtype == torch.bfloat16 and device_type == "cuda"
+            and head_dim == HEAD_DIM)
 
 
 def qk_norm_rope_reference(segments, cos, sin, head_dim: int = HEAD_DIM,
@@ -106,15 +106,9 @@ def _lib():
     return fn
 
 
-def build() -> None:
-    """Compile (or load from the build cache) the kernel library."""
-    _lib()
-
-
 def qk_norm_rope(segments, cos, sin, head_dim: int = HEAD_DIM, eps: float = EPS):
     """segments: one or two ``(q, k, q_scale, k_scale)``, text first; q, k
     ``[B, S_seg, H * 128]`` bf16 -> (q, k) ``[B, H, sum S_seg, 128]``."""
-    global launches
     b, heads, s = _check(segments, cos, sin, head_dim)
     device = segments[0][0].device
     if device.type == "cpu":
@@ -136,5 +130,5 @@ def qk_norm_rope(segments, cos, sin, head_dim: int = HEAD_DIM, eps: float = EPS)
     if err != 0:
         raise RuntimeError(f"qk_norm_rope kernel launch failed (cudaError {err}) for "
                            f"{len(segments)} segments, B {b}, H {heads}, S {s}")
-    launches += 1
+    count("qk_norm_rope")
     return q_out, k_out

@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from uce_tpu_torch.ops.kernels import count
 from uce_tpu_torch.ops.kernels._build import launch_on, load_library, sm_count
 
 HEAD_DIMS = (40, 64, 80, 128, 160, 512)
@@ -36,15 +37,6 @@ QK8_SOURCE = "sd_attention_qk8.cu"
 LOG2E = 1.4426950408889634
 # The d=512 kernel's block: 64 query rows, KV in tiles of 32 rows.
 D512_ROWS, D512_KV_TILE = 64, 32
-
-# Launches of the bf16 kernels since the last reset (a plain integer;
-# callers reset it), the same count by head dim (callers clear it), the
-# launches of the int8-QK^T kernel and of the d=512 split merge, counted
-# apart.
-launches = 0
-launches_by_dim: dict[int, int] = {}
-launches_qk8 = 0
-launches_merge = 0
 
 
 def supported_shape(q_shape, k_shape, dtype) -> bool:
@@ -191,21 +183,6 @@ def _lib_qk8():
     return fn
 
 
-def build() -> None:
-    """Compile (or load from the build cache) the bf16 kernel library."""
-    _lib()
-
-
-def build_d512() -> None:
-    """Compile (or load from the build cache) the d=512 kernel library."""
-    _lib_d512()
-
-
-def build_qk8() -> None:
-    """Compile (or load from the build cache) the int8-QK^T kernel library."""
-    _lib_qk8()
-
-
 def _check_contiguous(**tensors) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -216,7 +193,6 @@ def _check_contiguous(**tensors) -> None:
 def sd_attention_qk8(q, ki, ks, v, scale: float) -> torch.Tensor:
     """The int8-QK^T kernel on a pre-quantized K (``quantize_k``): q and v
     [B,H,S,D] bf16, ki int8 [B,H,Skv,k_cols(D)], ks fp32 [B,H,Skv] -> bf16."""
-    global launches_qk8
     if q.device.type == "cpu":
         return sd_attention_qk8_reference(q, ki, ks, v, scale)
     if q.device.type != "cuda":
@@ -244,14 +220,13 @@ def sd_attention_qk8(q, ki, ks, v, scale: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"sd_attention_qk8 kernel launch failed "
                            f"(cudaError {err})")
-    launches_qk8 += 1
+    count("sd_attention_qk8")
     return out
 
 
 def _launch_d512(q, k, v, scale: float, splits: int):
     """One launch of the d=512 kernel on CUDA tensors: the bf16 output for
     one split, else (o_part, ml) as sd_attention_partials_reference."""
-    global launches
     b, h, sq, d = q.shape
     per, splits = kv_split_tiles(k.shape[2], splits)
     out = o_part = ml = None
@@ -271,8 +246,7 @@ def _launch_d512(q, k, v, scale: float, splits: int):
     if err != 0:
         raise RuntimeError(f"sd_attention_d512 kernel launch failed "
                            f"(cudaError {err})")
-    launches += 1
-    launches_by_dim[d] = launches_by_dim.get(d, 0) + 1
+    count("sd_attention", "sd_attention_d512")
     return out if splits == 1 else (o_part, ml)
 
 
@@ -298,7 +272,6 @@ def sd_attention_partials(q, k, v, scale: float, splits: int):
 def merge_partials(o_part: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
     """The merge kernel on (o_part, ml) from ``sd_attention_partials`` ->
     bf16 [B, H, Sq, D]; a CPU tensor takes ``merge_partials_reference``."""
-    global launches_merge
     if o_part.device.type == "cpu":
         return merge_partials_reference(o_part, ml)
     splits, b, h, sq, d = o_part.shape
@@ -317,7 +290,7 @@ def merge_partials(o_part: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"sd_attention_d512 merge launch failed "
                            f"(cudaError {err})")
-    launches_merge += 1
+    count("sd_attention_d512_merge")
     return out
 
 
@@ -325,7 +298,6 @@ def sd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float, qk_int8: bool = False) -> torch.Tensor:
     """q [B,H,Sq,D], k/v [B,H,Skv,D] bf16 -> [B,H,Sq,D] bf16. ``qk_int8``
     runs QK^T in int8 (the W8A8 serving variant)."""
-    global launches
     if qk_int8:
         return sd_attention_qk8(q, *quantize_k(k), v, scale)
     if q.device.type == "cpu":
@@ -357,6 +329,5 @@ def sd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sd_attention kernel launch failed "
                            f"(cudaError {err})")
-    launches += 1
-    launches_by_dim[d] = launches_by_dim.get(d, 0) + 1
+    count("sd_attention", f"sd_attention_d{d}")
     return out

@@ -17,14 +17,12 @@ import ctypes
 
 import torch
 
+from uce_tpu_torch.ops.kernels import count
 from uce_tpu_torch.ops.solver import full_fp32, uce_gram_matrices
 
 SOURCE = "uce_solve.cu"
 NEWTON_ITERS = 40
 MAX_PALLAS_DIM = 1024
-
-# Kernel launches since the last reset (a plain integer; callers reset it).
-launches = 0
 
 
 def newton_schulz_reference(c_edit, c_pres, erase_scale: float,
@@ -53,16 +51,10 @@ def _lib():
     return fn
 
 
-def build() -> None:
-    """Compile (or load from the build cache) the kernel library."""
-    _lib()
-
-
 def newton_schulz_inverse(c_edit: torch.Tensor, c_pres: torch.Tensor,
                           erase_scale: float, preserve_scale: float,
                           lamb: float) -> torch.Tensor:
     """c_edit [K, d], c_pres [P, d] (P may be 0) fp32 -> X ~= B^-1 [d, d]."""
-    global launches
     c_edit = c_edit.float().contiguous()
     c_pres = c_pres.float().to(c_edit.device).contiguous()
     d = c_edit.shape[1]
@@ -89,7 +81,7 @@ def newton_schulz_inverse(c_edit: torch.Tensor, c_pres: torch.Tensor,
                      scratch[3 * d * d:].data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"uce_solve kernel launch failed (cudaError {err})")
-    launches += 1
+    count("uce_solve")
     return x
 
 

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from uce_tpu_torch.ops import kernels
 from uce_tpu_torch.parallel import mesh as mesh_mod
 
 TIMEOUT = datetime.timedelta(minutes=2)
@@ -151,15 +152,10 @@ def _join(mesh: mesh_mod.Mesh, rank: int, init: str) -> _Session:
 
 
 def _prebuild(mesh: mesh_mod.Mesh) -> None:
-    """Build (or load) the kernel libraries in the controller, so that the
+    """Build (or load) every kernel library in the controller, so that the
     workers find them built and no two ranks compile one."""
-    if mesh.devices[0].type != "cuda":
-        return
-    from uce_tpu_torch.ops.kernels import conv3x3, group_norm, sd_attention
-
-    for build in (sd_attention.build, sd_attention.build_d512, sd_attention.build_qk8,
-                  group_norm.build, conv3x3.build):
-        build()
+    if mesh.devices[0].type == "cuda":
+        kernels.build_all()
 
 
 def start(mesh: mesh_mod.Mesh) -> _Session:
@@ -479,49 +475,28 @@ def data_leaders(results: list, mesh: mesh_mod.Mesh) -> list:
 # kernel launch counts
 # ---------------------------------------------------------------------------
 
-def _counter_modules():
-    from uce_tpu_torch.ops.kernels import (conv3x3, group_norm, qk_norm_rope,
-                                           sd_attention, uce_solve)
-
-    return {"sd_attention": sd_attention, "conv3x3": conv3x3, "group_norm": group_norm,
-            "uce_solve": uce_solve, "qk_norm_rope": qk_norm_rope}
-
-
 def local_counts(reset: bool = False) -> dict:
-    """This process's kernel launch counters (``launches*`` of each kernel
-    module), by module and name; ``reset`` sets them to 0 after reading."""
-    out = {}
-    for name, mod in _counter_modules().items():
-        for attr in dir(mod):
-            if attr.startswith("launches"):
-                v = getattr(mod, attr)
-                out[(name, attr)] = dict(v) if isinstance(v, dict) else v
-                if reset:
-                    if isinstance(v, dict):
-                        v.clear()
-                    else:
-                        setattr(mod, attr, 0)
+    """This process's kernel launch counters (``ops.kernels.launches``);
+    ``reset`` sets them to 0 after reading."""
+    out = kernels.launches()
+    if reset:
+        kernels.reset_launches()
     return out
 
 
 def worker_counts(reset: bool = False) -> dict:
-    """The workers' kernel launch counters summed (0 without a mesh):
-    ``{(module, name): int or {head_dim: int}}``; ``reset`` zeroes them."""
+    """The workers' kernel launch counters summed, by counter (every counter
+    0 without a mesh); ``reset`` zeroes them."""
     s = _session
+    total = dict.fromkeys(kernels.COUNTERS, 0)
     if s is None or s.mesh.size == 1:
-        return {}
+        return total
     with _guard():
         _command(("counts", reset))
         per_rank = _gather_results(s, {})
-    total = {}
     for counts in per_rank[1:]:
         for k, v in counts.items():
-            if isinstance(v, dict):
-                acc = total.setdefault(k, {})
-                for kk, vv in v.items():
-                    acc[kk] = acc.get(kk, 0) + vv
-            else:
-                total[k] = total.get(k, 0) + v
+            total[k] += v
     return total
 
 

@@ -1,7 +1,8 @@
 """Device-time profile of the port's UNet forward and VAE decode on one CUDA
 card, on the kernel path (the bf16 models' own route: the conv3x3 and
-group_norm_act kernels, channels_last), on the library path (``route``:
-every conv and GroupNorm the library call, NCHW) and W8A8-quantized
+group_norm_act kernels, channels_last), on the library path
+(``ops.kernels.route`` switching those two off: every conv and GroupNorm
+the library call, NCHW) and W8A8-quantized
 (``serve --quantize int8``, on both paths), via torch.profiler.
 
     python -m uce_tpu_torch.tools.trace_prof [--model sd14|sd21|sdxl|flux|hidream]
@@ -23,8 +24,8 @@ same inputs, the kernel that ``plan`` picks, its blocks and K splits.
 
 ``--model flux`` profiles FLUX.1-schnell instead: one DiT forward at
 1024x1024 (the packed 128x128 latents and 256 random T5 tokens, batch
-``--batch``, t = 1) with its joint attention on impl="auto" (the d=128
-kernel) and on "plain", and the 16-channel VAE decode at 1024x1024 on the
+``--batch``, t = 1) with its joint attention on the d=128 kernel and on
+the plain version (``route`` switching sd_attention off), and the 16-channel VAE decode at 1024x1024 on the
 library and the kernel paths, each reported as above. ``--model hidream``
 does the same for HiDream-I1-Full: one MoE DiT forward at 1024x1024 (batch
 ``--batch``, 2 for one prompt under CFG; 128 random T5 tokens and 48
@@ -48,7 +49,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import re
 import subprocess
 import sys
@@ -58,14 +58,17 @@ import numpy as np
 import torch
 
 from uce_tpu_torch.diffusion.pipeline_flux import make_img_ids
-from uce_tpu_torch.models import flux, hidream, layers, quantize, unet, vae
-from uce_tpu_torch.ops.kernels import conv3x3, group_norm, uce_solve
+from uce_tpu_torch.models import flux, hidream, quantize, unet, vae
+from uce_tpu_torch.ops.kernels import conv3x3, group_norm, route, uce_solve
 from uce_tpu_torch.utils.torch_rng import DeviceNormalRng
 
 # --model: (UNet config, latent size, context width, pooled text width)
 MODELS = {"sd14": (unet.SD14_UNET_CONFIG, 64, 768, None),
           "sd21": (unet.SD21_UNET_CONFIG, 96, 1024, None),
           "sdxl": (unet.SDXL_UNET_CONFIG, 128, 2048, 1280)}
+
+# The two paths: the kernels switched off on each (``route``).
+PATHS = (("library", ("conv3x3", "group_norm_act")), ("kernels", ()))
 
 # First matching pattern names a kernel's category.
 CATEGORIES = [
@@ -82,22 +85,6 @@ CATEGORIES = [
     ("copies and casts", r"copy|Copy|cat|Cat|memcpy|Memcpy|memset|Memset"),
     ("elementwise", r"elementwise|vectorized|Elementwise|unrolled"),
 ]
-
-
-@contextlib.contextmanager
-def route(kernels: bool = True):
-    """The enclosed calls on the kernel path, or on the library path: the
-    models' route test (``layers.kernel_route``) answering no, so every conv
-    and GroupNorm runs the library call on NCHW activations."""
-    if kernels:
-        yield
-        return
-    saved = layers.kernel_route
-    layers.kernel_route = lambda x: False
-    try:
-        yield
-    finally:
-        layers.kernel_route = saved
 
 
 def category(name: str) -> str:
@@ -346,8 +333,8 @@ def dit_profile(model: str, batch: int, runs: int) -> None:
         lat, t5_embeds, pooled = rand(batch, 64 * 64, 64), rand(batch, 256, 4096), rand(
             batch, 768)
         t, txt_ids = torch.ones(batch, device="cuda"), np.zeros((256, 3))
-        forward = lambda impl: flux.apply(params, lat, t5_embeds, pooled, t, img_ids,
-                                          txt_ids, cfg, attn_impl=impl)
+        forward = lambda: flux.apply(params, lat, t5_embeds, pooled, t, img_ids, txt_ids,
+                                     cfg)
     else:
         cfg = hidream.I1_FULL_CONFIG
         params = hidream.init_state_dict(cfg, seed=0, device="cuda")
@@ -355,20 +342,21 @@ def dit_profile(model: str, batch: int, runs: int) -> None:
             batch, 2048)
         llama = rand(len(cfg.llama_layers), batch, 128, 4096)
         t = torch.full((batch,), 1000.0, device="cuda")
-        forward = lambda impl: hidream.apply(params, lat, t5_embeds, llama, pooled, t,
-                                             img_ids, cfg, attn_impl=impl)
+        forward = lambda: hidream.apply(params, lat, t5_embeds, llama, pooled, t, img_ids,
+                                        cfg)
     rng = DeviceNormalRng(1, "cuda", torch.bfloat16)
     vparams = unet.load_params(vae.init_state_dict(vae.FLUX_VAE_CONFIG, rng),
                                torch.bfloat16, "cuda")
     dec_lat = rand(1, 16, 128, 128)
     with torch.inference_mode():
-        for impl in ("auto", "plain"):
-            report(f"{model} dit attention {impl} batch {batch}",
-                   profile(lambda: forward(impl), runs))
+        for attn, off in (("kernel", ()), ("plain", ("sd_attention",))):
+            with route(off):
+                report(f"{model} dit attention {attn} batch {batch}",
+                       profile(forward, runs))
         del params
         torch.cuda.empty_cache()
-        for path in ("library", "kernels"):
-            with route(path == "kernels"):
+        for path, off in PATHS:
+            with route(off):
                 report(f"{model} vae {path} batch 1", profile(
                     lambda: vae.decode(vparams, dec_lat, vae.FLUX_VAE_CONFIG), runs))
 
@@ -433,8 +421,8 @@ def main(argv=None) -> int:
             print(f"[card] {card}")
             return 0
         for weights, (up, vp) in params.items():
-            for path in ("library", "kernels"):
-                with route(path == "kernels"):
+            for path, off in PATHS:
+                with route(off):
                     report(f"{args.model} unet {weights}{path} batch {args.batch}",
                            profile(unet_call(up), args.runs))
                     report(f"{args.model} vae {weights}{path} batch 1", profile(
